@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py [--rows N] [--change N]
+
+Phases, one line each:
+  1. device   — the card (``nvidia-smi`` name and power limit), torch, CUDA
+  2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``
+  3. kernels  — each kernel at the main path's shapes, held EXACTLY equal
+                to its plain PyTorch version on the same inputs, with its
+                CUDA-event time, its bound, the plain version's time and,
+                where one PyTorch call computes the same function, that
+                call's time
+  4. golden   — the fixed-seed diff/merge workloads on the card, compared
+                with the reference package's recorded digests
+  5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
+                snapshot, clone, a 100,000-row update (change set C4),
+                cold and warm SNAPSHOT DIFF, SQL diff and a three-way
+                ACCEPT merge, with every kernel's launch count
+
+It exits non-zero (and prints no result) without a CUDA device or
+without the repository's sources, and on any failed check. Its last line
+is the one-line JSON result; the line before it lists the kernels. The
+full record goes to ``build/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SF1_ROWS = 6_001_215       # TPC-H SF1 lineitem
+C4_ROWS = 100_000          # change set C4 of benchmarks/vcs_tables.py
+
+# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
+# and the 32-bit integer operation rate every kernel here computes in. An
+# SM issues at most one warp instruction per scheduler per clock, 4 x 32 =
+# 128 lane-operations (IMAD runs on the FP32 FMA pipe beside the 64 INT32
+# lanes), so 128 x 132 SMs x 1.98 GHz boost bounds any integer mix.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+
+# Digests recorded by the reference package on its fixed-seed workloads:
+# GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
+GOLDEN = {
+    True: {"diff": "4953744753d67b10", "sql_diff": "4953744753d67b10",
+           "merge": "2000/2000/0", "scan": "8ef72a49adf021ca",
+           "pitr": "593ece73c0d631df"},
+    False: {"diff": "b265412cf4eb3342", "sql_diff": "b265412cf4eb3342",
+            "merge": "2000/2000/0", "scan": "a7500c287b142086",
+            "pitr": "7de964732d98a93e"},
+}
+GOLDEN_MERGE = {
+    True: {"merge_fail": "1500/1500/0/1500/0/9175a02fb5212c8b",
+           "merge_skip": "1500/1500/750/1500/0/4bed1479eb2d935c",
+           "merge_accept": "2250/2250/750/1500/0/3dcc9d6952350aea",
+           "merge_cell": "2250/2250/750/1500/750/1a9fce248a60f246",
+           "merge_nobase": "3000/3000/3000/0a867bd86d60e5c0"},
+    False: {"merge_fail": "1500/1500/0/3000/0/c3ad540e2e7ab79f",
+            "merge_skip": "1500/1500/750/3000/0/d8d647613324fefa",
+            "merge_accept": "1500/3000/750/3000/0/04a454d7d8aa2a54",
+            "merge_nobase": "2250/0/0/f79b73c6652df224"},
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def phase(phase_name: str, **fields) -> dict:
+    print(json.dumps({"phase": phase_name, **fields}, sort_keys=True),
+          flush=True)
+    return fields
+
+
+# ------------------------------------------------------------------ timing
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
+    launches after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(nbytes: float, nops: float):
+    """Least time (ms) for the work, and which resource sets it."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / INT32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# ------------------------------------------------------------------ kernels
+
+def kernel_phase(torch, seed: int) -> dict:
+    """Every kernel at the main path's shapes against its plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.probe import probe
+    from repro_torch.kernels.rowhash import signatures
+    from repro_torch.kernels.searchsorted import searchsorted
+    from repro_torch.kernels.segsum_diff import segsum
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i64 = torch.iinfo(torch.int64)
+
+    def words(n):
+        return torch.randint(i64.min, i64.max, (n,), generator=g,
+                             device=dev, dtype=torch.int64)
+
+    def sorted_pairs(n, collide_every=0):
+        lo, hi = words(n), words(n)
+        if collide_every:      # lo64 collisions: equal lo, distinct hi
+            lo[1::collide_every] = lo[::collide_every][:lo[1::collide_every]
+                                                       .shape[0]]
+        o = ops._sort128(lo, hi)
+        return lo[o].contiguous(), hi[o].contiguous()
+
+    results = {}
+
+    def record(name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes, nops):
+        err = max(float((a.to(torch.float64) - b.to(torch.float64))
+                        .abs().max()) if a.numel() else 0.0
+                  for a, b in zip(out_k, out_p))
+        exact = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+        b_ms, b_by = bound(nbytes, nops)
+        results.setdefault(name, []).append({
+            "shape": shape, "exact": exact, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "int_ops": nops})
+        check(exact, f"{name} {shape}: kernel differs from plain version")
+
+    # rowhash: the 12-column lineitem row (24 lanes) and its 2-column key
+    for c in (24, 4):
+        r = SF1_ROWS
+        lanes = torch.randint(-2**31, 2**31 - 1, (r, c), generator=g,
+                              device=dev, dtype=torch.int32)
+        k = signatures(lanes)
+        p = ref.signatures(lanes)
+        # per lane: one multiply shared by the chains, then per chain one
+        # add, xor, fmix32 (2 mul, 3 shift, 3 xor) and one multiply-add
+        nops = r * (c * (2 + 4 * 10) + 4 * 9 + 4)
+        record("rowhash", [r, c], k, p,
+               cuda_ms(torch, lambda: signatures(lanes), 20),
+               cuda_ms(torch, lambda: ref.signatures(lanes), 3),
+               None, r * c * 4 + r * 16, nops)
+        del lanes
+
+    # probe: one sealed object at capacity, sorted queries (hits + misses)
+    n = q = 1 << 18
+    t_lo, t_hi = sorted_pairs(n, collide_every=97)
+    pick = torch.randint(0, n, (q // 2,), generator=g, device=dev)
+    qlo = torch.cat([t_lo[pick], words(q - q // 2)])
+    qhi = torch.cat([t_hi[pick], words(q - q // 2)])
+    o = ops._sort128(qlo, qhi)
+    qlo, qhi = qlo[o].contiguous(), qhi[o].contiguous()
+    depth = max(1, math.ceil(math.log2(n)))
+    record("probe", [n, q], probe(t_lo, t_hi, qlo, qhi),
+           ref.probe(t_lo, t_hi, qlo, qhi),
+           cuda_ms(torch, lambda: probe(t_lo, t_hi, qlo, qhi), 50),
+           cuda_ms(torch, lambda: ref.probe(t_lo, t_hi, qlo, qhi), 5),
+           None, n * 16 + q * 16 + q * 16, q * (depth + 1) * 2 * 10)
+
+    # searchsorted: a tombstone-target-sized table, table-sized queries
+    n, q = 100_000, SF1_ROWS
+    tab = torch.sort(words(n)).values
+    tab = ref.flip(tab)      # ascending as uint64 words
+    qs = ref.flip(torch.sort(words(q)).values).contiguous()
+    depth = max(1, math.ceil(math.log2(n)))
+    for side in ("left", "right"):
+        lib_tab, lib_q = ref.flip(tab), ref.flip(qs)
+        record("searchsorted", [n, q, side],
+               (searchsorted(tab, qs, side),),
+               (ref.lower_bound(tab, qs, side),),
+               cuda_ms(torch, lambda: searchsorted(tab, qs, side), 20),
+               cuda_ms(torch, lambda: ref.lower_bound(tab, qs, side), 3),
+               cuda_ms(torch, lambda: torch.searchsorted(
+                   lib_tab, lib_q, side=side), 20),
+               n * 8 + q * 8 + q * 8, q * (depth + 1) * 6)
+
+    # segsum: a Δ-sized stream and a table-sized one, PK-shaped (runs of
+    # equal keys whose row signatures differ, signs +-1)
+    for n in (200_000, SF1_ROWS):
+        k_lo, k_hi = sorted_pairs(n)
+        dup = torch.rand(n, generator=g, device=dev) < 0.5
+        dup[0] = False
+        k_lo = torch.where(dup, k_lo.roll(1), k_lo).contiguous()
+        k_hi = torch.where(dup, k_hi.roll(1), k_hi).contiguous()
+        r_lo, r_hi = words(n), words(n)
+        r_lo = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                           r_lo.roll(1), r_lo).contiguous()
+        sg = (torch.randint(0, 2, (n,), generator=g, device=dev,
+                            dtype=torch.int32) * 2 - 1)
+        record("segsum_diff", [n],
+               segsum(k_lo, k_hi, sg, r_lo, r_hi),
+               ref.segsum(k_lo, k_hi, sg, r_lo, r_hi),
+               cuda_ms(torch, lambda: segsum(k_lo, k_hi, sg, r_lo, r_hi), 20),
+               cuda_ms(torch, lambda: ref.segsum(k_lo, k_hi, sg, r_lo,
+                                                 r_hi), 5),
+               None, n * (32 + 4 + 1 + 4), n * 20)
+    torch.cuda.synchronize()
+    return results
+
+
+# ----------------------------------------------------------------- mainpath
+
+def device_profile(torch, fn) -> dict:
+    """Device busy time under ``fn`` from a torch.profiler trace: the sum
+    of kernel time on the card over the host wall time of the window
+    (one stream, so kernels do not overlap), with the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / 1e6
+    top = sorted(kern, key=dev_us, reverse=True)[:8]
+    return {"wall_s": wall,
+            "device_busy_s": busy if kern else None,
+            "busy_share": busy / wall if kern else None,
+            "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                             "count": e.count} for e in top]}
+
+
+def span_summary(tracer) -> list:
+    """Top-level telemetry spans with their direct children (host wall
+    time; the work inside them synchronizes at data-dependent branches)."""
+    return [{"span": s.name, "ms": s.dur_s * 1e3,
+             "children": [{"span": c.name, "ms": c.dur_s * 1e3}
+                          for c in s.children]} for s in tracer.roots]
+
+
+def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
+    import numpy as np
+
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    from repro_torch.core import (ConflictMode, snapshot_diff, sql_diff,
+                                  telemetry, three_way_merge)
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    build.reset_launches()
+    with telemetry.trace() as tracer:
+        engine, base = timed("load_s",
+                             lambda: _mk_engine(rows, pk, device=dev))
+        tracer.bind(engine)
+        sn1 = engine.create_snapshot("sn1", "lineitem")
+        engine.clone_table("t", sn1)
+        rng = np.random.default_rng([change] + list(b"C4"))
+        timed("update_s", lambda: _random_update(engine, "t", base, change,
+                                                 rng, pk))
+        del base
+        sn3 = engine.create_snapshot("sn3", "t")
+        cur = engine.current_snapshot("lineitem")
+        d_cold = timed("diff_cold_s",
+                       lambda: snapshot_diff(engine.store, cur, sn3))
+        d_warm = timed("diff_warm_s",
+                       lambda: snapshot_diff(engine.store, cur, sn3))
+        d_sql = timed("sql_diff_s",
+                      lambda: sql_diff(engine.store, cur, sn3))
+        rep = timed("merge_s", lambda: three_way_merge(
+            engine, "lineitem", sn3, base=sn1, mode=ConflictMode.ACCEPT))
+    launches = dict(build.LAUNCHES)
+    groups = [d_cold.n_groups, d_warm.n_groups, d_sql.n_groups]
+    merge = f"{rep.inserted}/{rep.deleted}/{rep.true_conflicts}"
+    rec = {"pk": pk, "rows": rows, "change": change, "n_groups": groups,
+           "merge": merge, "times_s": times, "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "table_lane_bytes": engine.lane_nbytes("lineitem"),
+           "spans": span_summary(tracer)}
+
+    def requery():
+        engine.store.delta_cache.clear()   # re-scan Δ; visibility is warm
+        snapshot_diff(engine.store, cur, sn3)
+        sql_diff(engine.store, cur, sn3)
+    rec["profile_diff_sql"] = device_profile(torch, requery)
+    for d in (d_cold, d_warm, d_sql):
+        for f in ("diff_cnt", "key_lo", "row_lo", "rowid"):
+            check(getattr(d, f).device.type == "cuda", "result off the card")
+        check(bool((d.diff_cnt != 0).all()), "a cancelled group survived")
+    check(groups == [2 * change] * 3, f"n_groups {groups} != {2 * change}")
+    check(merge == f"{change}/{change}/0", f"merge report {merge}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the main path: {launches}")
+    return rec
+
+
+# --------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=SF1_ROWS,
+                    help="lineitem rows of the main-path phase "
+                         "(default: TPC-H SF1)")
+    ap.add_argument("--change", type=int, default=C4_ROWS,
+                    help="updated rows (default: change set C4)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
+              file=sys.stderr)
+        return 3
+    from repro_torch.kernels import build
+    from repro_torch.benchmarks import digests
+
+    record = {}
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        record["device"] = phase(
+            "device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+            count=torch.cuda.device_count(), torch=torch.__version__,
+            cuda=torch.version.cuda, python=sys.version.split()[0])
+
+        t0 = time.perf_counter()
+        build.build_all()
+        record["build"] = phase("build", seconds=time.perf_counter() - t0,
+                                sources=list(build.SOURCES))
+
+        kern = kernel_phase(torch, args.seed)
+        record["kernels"] = kern
+        phase("kernels", **{k: [{f: e[f] for f in ("shape", "exact", "ms",
+                                                   "bound_ms", "plain_ms",
+                                                   "library_ms")}
+                                for e in v] for k, v in kern.items()})
+
+        gold = {}
+        for pk in (True, False):
+            got = digests.run_workload(pk, device="cuda")
+            got.update(digests.run_merge_workload(pk, device="cuda"))
+            want = {**GOLDEN[pk], **GOLDEN_MERGE[pk]}
+            bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+            check(not bad, f"golden digests differ (pk={pk}): {bad}")
+            gold["pk" if pk else "nopk"] = "match"
+        record["golden"] = phase("golden", **gold)
+
+        runs = []
+        for pk in (True, False):
+            rec = mainpath_phase(torch, pk, args.rows, args.change)
+            runs.append(rec)
+            phase("mainpath", **rec)
+        record["mainpath"] = runs
+    except SmokeFailure as err:
+        print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
+        return 1
+
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in build.SOURCES}
+    replaces = {
+        "rowhash": "src/repro/kernels/rowhash.py:43",
+        "searchsorted": "src/repro/kernels/searchsorted.py:48",
+        "segsum_diff": "src/repro/kernels/segsum_diff.py:42",
+        "probe": "src/repro/kernels/probe.py:70",
+    }
+    line = []
+    for name in build.SOURCES:
+        e = kern[name][0]   # the first (largest main-path) shape
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in kern[name]),
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": e["library_ms"]})
+    record["kernel_line"] = line
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(record, indent=1,
+                                                    sort_keys=True))
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

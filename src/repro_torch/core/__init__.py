@@ -1,0 +1,26 @@
+"""repro_torch.core — the git-for-data engine over immutable columnar
+storage with MVCC (MatrixOne §§3-5), on torch tensors.
+
+Public API of this slice:
+    Engine, Txn          — tables, transactions, snapshots, clone
+    Schema, Column, CType
+    snapshot_diff, sql_diff, DiffResult
+    three_way_merge, two_way_merge, ConflictMode, MergeReport
+    FaultPlan, inject, InjectedCrash — deterministic crash injection
+"""
+from .schema import CType, Column, Schema                      # noqa: F401
+from .directory import Directory, Snapshot                     # noqa: F401
+from .engine import (CommitRecord, CommitStats, Engine,        # noqa: F401
+                     PKViolation, Txn, TxnConflict)
+from .sigs import SigBatch, compute_sigs, resolve_sigs         # noqa: F401
+from .diff import (DiffResult, gather_payload, snapshot_diff,  # noqa: F401
+                   sql_diff)
+from .merge import (ConflictMode, MergeConflictError, MergeReport,  # noqa: F401
+                    ThreeWayDiff, plan_merge, three_way_diff,
+                    three_way_merge, two_way_merge)
+from .wal import WAL                                           # noqa: F401
+from .faults import (FaultPlan, InjectedCrash, crash_point,    # noqa: F401
+                     inject, register, registered)
+from .refs import (AmbiguousRefError, Ref, RefSyntaxError,     # noqa: F401
+                   ResolvedRef, UnknownRefError, format_ref, parse_ref,
+                   resolve)

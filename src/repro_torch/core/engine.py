@@ -1,0 +1,541 @@
+"""The version-control engine: tables, transactions, commit and seal,
+snapshots and clone (paper §§3–5), with every sealed lane on the device.
+
+Single-node stand-in for MatrixOne's CN/TN/LogService split: commits are
+serialized through ``_commit`` (the TN role), every logical change is
+WAL'd (the LogService role), and all bulk row work runs on tensors on the
+engine's device through the kernel ops (the CN role).
+
+This slice of the port covers tables, Txn, commit and seal, snapshots and
+clone. Branches, pull requests, revert, restore, drop, materialized
+clones, compaction, secondary indices, ALTER, GC and WAL replay are not
+ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from .directory import Snapshot
+from .objects import (OBJECT_CAPACITY, DataObject, ObjectStore,
+                      TombstoneObject, rowid_off, rowid_oid,
+                      seal_data_object)
+from .refs import AtRef, require, validate_name
+from .refs import resolve as resolve_ref
+from .schema import Schema, concat_batches, is_lob
+from .sigs import (SigBatch, concat_sigs, key_sigs_for_lookup, resolve_sigs,
+                   validate_runs)
+from . import telemetry
+from .faults import crash_point, register
+from .table import Table
+from .visibility import visibility_index
+from .wal import WAL
+
+SP_COMMIT = telemetry.register_span(
+    "commit", "one atomic (possibly multi-table) transaction commit")
+SP_COMMIT_SEAL = telemetry.register_span(
+    "commit.seal", "commit phase 1: validate every table and seal its "
+    "objects (no directory touched)")
+SP_COMMIT_SWING = telemetry.register_span(
+    "commit.swing", "commit phase 2: swing every directory (the WAL "
+    "group is already logged)")
+
+CP_TORCH_COMMIT_PRE_SEAL = register(
+    "torch.engine.commit.pre_seal",
+    "top of _commit, before the timestamp or any object is allocated — "
+    "the transaction must be fully absent")
+CP_TORCH_COMMIT_POST_SEAL = register(
+    "torch.engine.commit.post_seal",
+    "after phase 1 sealed every table's objects but before any WAL record "
+    "or directory swing — nothing logged")
+CP_TORCH_COMMIT_MID_SWING = register(
+    "torch.engine.commit.mid_swing",
+    "between directory swings of a multi-table commit — the WAL already "
+    "holds the FULL group (log-before-swing)")
+
+
+class TxnConflict(Exception):
+    """Write-write conflict: a target row vanished before commit."""
+
+
+class PKViolation(Exception):
+    pass
+
+
+SnapshotRef = Union[str, Snapshot]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Without one, the caller must ask for the
+    CPU explicitly: the engine never falls back to it on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch.Engine: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def as_rowids(rowids, device) -> torch.Tensor:
+    """Rowids from a caller (tensor, or numpy uint64/int64) as int64 words
+    on ``device``."""
+    if torch.is_tensor(rowids):
+        return rowids.to(device=device, dtype=torch.int64)
+    a = np.ascontiguousarray(rowids)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a.astype(np.int64, copy=False)).to(device)
+
+
+class Txn:
+    """Optimistic transaction: workspace of inserts + resolved delete
+    rowids."""
+
+    def __init__(self, engine: "Engine"):
+        self.engine = engine
+        self.read_ts = engine.ts
+        self._ins: Dict[str, List[Dict[str, object]]] = {}
+        # signature sidecars, aligned 1:1 with _ins (None = hash at seal)
+        self._sigs: Dict[str, List[Optional[SigBatch]]] = {}
+        self._del: Dict[str, List[torch.Tensor]] = {}
+        self.committed: Optional[int] = None
+
+    def insert(self, table: str, batch,
+               sigs: Optional[SigBatch] = None) -> None:
+        """Stage a batch; ``sigs`` is the zero-rehash carry contract.
+
+        Passing ``sigs`` asserts the batch came verbatim off sealed
+        objects (``gather_payload(with_sigs=True)`` / ``scan_carry``): it
+        is already normalized (bytes LOBs, device tensors of the exact
+        dtypes) and the caller relinquishes it. Producer-authored data
+        must use ``sigs=None`` (normalized + hashed at seal)."""
+        t = self.engine.table(table)
+        if sigs is None:
+            batch = t.schema.normalize_batch(batch, self.engine.device)
+        self._ins.setdefault(table, []).append(batch)
+        self._sigs.setdefault(table, []).append(sigs)
+
+    def delete_rowids(self, table: str, rowids) -> None:
+        self._del.setdefault(table, []).append(
+            as_rowids(rowids, self.engine.device))
+
+    def delete_by_keys(self, table: str, key_batch) -> int:
+        """Resolve PK -> rowids against the current state; returns #resolved."""
+        t = self.engine.table(table)
+        keys = t.schema.primary_key
+        sub = Schema(tuple(t.schema.column(k) for k in keys), keys)
+        key_batch = sub.normalize_batch({k: key_batch[k] for k in keys},
+                                        self.engine.device)
+        klo, khi = key_sigs_for_lookup(t.schema, key_batch)
+        rid = t.locate_keys(klo, khi)
+        hit = rid != 0
+        self.delete_rowids(table, rid[hit])
+        return int(hit.sum())
+
+    def update_by_keys(self, table: str, batch) -> int:
+        """Upsert semantics used by the paper's UPDATE experiments: delete
+        the existing row for each key (if any), insert the new version."""
+        t = self.engine.table(table)
+        batch = t.schema.normalize_batch(batch, self.engine.device)
+        n = self.delete_by_keys(
+            table, {k: batch[k] for k in t.schema.primary_key})
+        self.insert(table, batch)
+        return n
+
+    def commit(self, *, _log: bool = True) -> int:
+        ts = self.engine._commit(self, _log=_log)
+        self.committed = ts
+        return ts
+
+
+class Engine:
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.store = ObjectStore(self.device)
+        self.wal = WAL()
+        self.commit_stats = CommitStats()
+        self.ts = 0
+        self.tables: Dict[str, Table] = {}
+        self.snapshots: Dict[str, Snapshot] = {}
+        # lineage: latest common base snapshot per unordered table pair
+        self._base: Dict[Tuple[str, str], Snapshot] = {}
+        # commit log: one CommitRecord per table per applied operation,
+        # tagged with the op kind
+        self.commit_log: List[CommitRecord] = []
+        self._op_kind = "commit"
+
+    @contextlib.contextmanager
+    def op_kind(self, kind: str):
+        """Tag commits applied inside the block with an op kind (merge,
+        clone, ...) for the commit log."""
+        prev, self._op_kind = self._op_kind, kind
+        try:
+            yield
+        finally:
+            self._op_kind = prev
+
+    # ------------------------------------------------------------ basics
+    def next_ts(self) -> int:
+        self.ts += 1
+        return self.ts
+
+    def table(self, name: str) -> Table:
+        return self.tables[name]
+
+    def create_table(self, name: str, schema: Schema, *, _log=True) -> Table:
+        if name in self.tables:
+            raise ValueError(f"table {name} exists")
+        t = Table(name, schema, self.store, self.ts)
+        self.tables[name] = t
+        self.commit_log.append(CommitRecord(self.ts, name, "create", 0, 0))
+        if _log:
+            self.wal.append("create_table", name=name, schema=schema)
+        return t
+
+    def begin(self) -> Txn:
+        return Txn(self)
+
+    # convenience single-op transactions
+    def insert(self, table: str, batch) -> int:
+        tx = self.begin()
+        tx.insert(table, batch)
+        return tx.commit()
+
+    def delete_by_keys(self, table: str, key_batch) -> int:
+        tx = self.begin()
+        n = tx.delete_by_keys(table, key_batch)
+        tx.commit()
+        return n
+
+    def update_by_keys(self, table: str, batch) -> int:
+        tx = self.begin()
+        n = tx.update_by_keys(table, batch)
+        tx.commit()
+        return n
+
+    # ------------------------------------------------------------ commit
+    def _seal_inserts(self, schema: Schema, batches, sig_batches, ts: int):
+        """Key-sort the txn's inserts and seal capacity-sized objects with
+        disjoint zones.
+
+        The zero-rehash apply path: batches gathered from sealed objects
+        arrive with a ``SigBatch`` sidecar whose signatures are reused
+        verbatim; a declared-key-sorted batch (one run) skips the sort,
+        multi-run batches take the stable k-way merge (≡ np.lexsort).
+        Only producer-authored rows pay ``compute_sigs``. Returns (oids,
+        (key_lo, key_hi)) with the key lanes in SEALED (sorted) order."""
+        from .sigs import DEBUG_VALIDATE_CARRY
+        stats = self.commit_stats
+        parts = []
+        for b, sg in zip(batches, sig_batches):
+            if schema.validate_batch(b) == 0:
+                continue
+            parts.append((b, resolve_sigs(schema, b, sg, stats)))
+        if not parts:
+            return [], None
+        batch = (parts[0][0] if len(parts) == 1
+                 else concat_batches(schema, [b for b, _ in parts],
+                                     self.device))
+        sigs = concat_sigs([s for _, s in parts])
+        row_lo, row_hi = sigs.row_lo, sigs.row_hi
+        key_lo, key_hi = sigs.key_lo, sigs.key_hi
+        lob_sigs, runs = sigs.lob_sigs, sigs.runs
+        alias = key_lo is row_lo           # NoPK: key IS the row signature
+        n = int(row_lo.shape[0])
+        if runs is not None and DEBUG_VALIDATE_CARRY:
+            validate_runs(key_lo, key_hi, runs)
+        order = None
+        if runs is not None and runs.shape[0] <= 1:
+            stats.apply_sort_skipped += 1  # producer-declared key-sorted
+        elif runs is None:
+            order = ops._sort128(key_lo, key_hi)
+            stats.apply_sorts += 1
+        else:
+            # multi-run seal merges shard by key range when big enough
+            # (derived plan — byte-identical sealed order)
+            from ..distributed.sharding import maybe_key_cuts
+            cuts = maybe_key_cuts(key_lo, key_hi, runs)
+            if cuts is not None:
+                self.store.metrics.add("probe.shard_parts",
+                                       cuts[0].shape[0] + 1)
+            order = ops.merge128_runs(key_lo, key_hi, runs, cuts=cuts)
+            stats.apply_sort_merged += 1
+        if order is not None:
+            s_klo, s_khi = key_lo[order], key_hi[order]
+        else:
+            s_klo, s_khi = key_lo, key_hi
+        # objects own COMPACT lanes: capacity slices of one multi-object
+        # parent are copied; the single-object case stays zero-copy
+        multi = n > OBJECT_CAPACITY
+        oids = []
+        for s in range(0, n, OBJECT_CAPACITY):
+            e = min(s + OBJECT_CAPACITY, n)
+            if order is not None:
+                take = _gather(order[s:e])
+            elif multi:
+                take = _slice_copy(s, e)
+            else:
+                take = _same
+            rl, rh = take(row_lo), take(row_hi)
+            kl = rl if alias else take(key_lo)
+            kh = rh if alias else take(key_hi)
+            # lint: runs-ok rows are key-sorted above (sort, k-way merge,
+            # or the producer's one-run claim) before capacity slicing
+            obj = seal_data_object(
+                self.store.new_oid(), schema,
+                {k: take(v) for k, v in batch.items()},
+                torch.full((e - s,), ts, dtype=torch.int64,
+                           device=self.device), rl, rh, kl, kh,
+                {k: take(v) for k, v in lob_sigs.items()}, presorted=True)
+            self.store.put(obj)
+            oids.append(obj.oid)
+        return oids, (s_klo, s_khi)
+
+    def _seal_tombstones(self, targets: torch.Tensor, ts: int) -> List[int]:
+        if targets.shape[0] == 0:
+            return []
+        # rowid-sorted targets group their oids contiguously, so one
+        # boundary pass gathers every object's key lanes
+        targets = torch.sort(targets).values
+        klo = torch.empty_like(targets)
+        khi = torch.empty_like(targets)
+        toids = rowid_oid(targets)
+        offs = rowid_off(targets)
+        bnd = (torch.nonzero(toids[1:] != toids[:-1]).flatten() + 1).tolist()
+        starts = [0] + bnd
+        ends = bnd + [targets.shape[0]]
+        uniq_oids = tuple(toids[starts].tolist())
+        for oid, s, e in zip(uniq_oids, starts, ends):
+            obj: DataObject = self.store.get(int(oid))
+            klo[s:e] = obj.key_lo[offs[s:e]]
+            khi[s:e] = obj.key_hi[offs[s:e]]
+        oids = []
+        for s in range(0, targets.shape[0], OBJECT_CAPACITY):
+            sl = slice(s, s + OBJECT_CAPACITY)
+            t = TombstoneObject(
+                oid=self.store.new_oid(), nrows=int(targets[sl].shape[0]),
+                target=targets[sl], key_lo=klo[sl], key_hi=khi[sl],
+                commit_ts=torch.full(targets[sl].shape, ts,
+                                     dtype=torch.int64, device=self.device),
+                target_oids=uniq_oids)
+            self.store.put(t)
+            oids.append(t.oid)
+        return oids
+
+    def _commit(self, tx: Txn, *, _log=True) -> int:
+        """Commit a (possibly multi-table) transaction at ONE timestamp.
+
+        Phase 1 validates every table and seals its objects WITHOUT
+        touching any directory; phase 2 swings all directories, after the
+        FULL commit group is logged. A conflict or PK violation in any
+        table unwinds every object sealed so far."""
+        with telemetry.span(SP_COMMIT):
+            return self._commit_phases(tx, _log)
+
+    def _commit_phases(self, tx: Txn, _log: bool) -> int:
+        crash_point(CP_TORCH_COMMIT_PRE_SEAL)
+        names = sorted(set(tx._ins) | set(tx._del))
+        ts = self.next_ts()
+        oid0 = self.store._next_oid
+        staged: List[Tuple[Table, object, list, torch.Tensor, int]] = []
+        sealed: List[int] = []
+        with telemetry.span(SP_COMMIT_SEAL):
+            try:
+                for name in names:
+                    t = self.table(name)
+                    # delete-target dedup (targets arrive from arbitrary
+                    # staging order)
+                    dels = (torch.unique(torch.cat(tx._del[name]))
+                            if tx._del.get(name)
+                            else torch.zeros((0,), dtype=torch.int64,
+                                             device=self.device))
+                    # write-write conflict: every target must still be
+                    # visible
+                    if dels.shape[0]:
+                        vi = visibility_index(self.store, t.directory)
+                        if bool(vi.killed_rowids(dels).any()):
+                            raise TxnConflict(
+                                f"{name}: delete target already deleted")
+                        live_oids = set(t.directory.data_oids)
+                        for oid in torch.unique(rowid_oid(dels)).tolist():
+                            if int(oid) not in live_oids:
+                                raise TxnConflict(
+                                    f"{name}: target object gone")
+                    ins = tx._ins.get(name, [])
+                    data_oids, key_sigs = self._seal_inserts(
+                        t.schema, ins, tx._sigs.get(name, [None] * len(ins)),
+                        ts)
+                    sealed.extend(data_oids)
+                    # PK enforcement — the seal path returns the key lanes
+                    # in sorted order, so in-batch dedup is one
+                    # adjacent-equal scan
+                    if t.schema.has_pk and key_sigs is not None:
+                        klo, khi = key_sigs
+                        if klo.shape[0] > 1 and bool(
+                                ((klo[1:] == klo[:-1])
+                                 & (khi[1:] == khi[:-1])).any()):
+                            raise PKViolation(
+                                f"{name}: duplicate key in insert batch")
+                        existing = t.locate_keys(klo, khi)
+                        live = existing != 0
+                        if bool(live.any()):
+                            # every live key must be among this txn's
+                            # deletes (update-in-place)
+                            if bool(torch.isin(existing[live], dels,
+                                               invert=True).any()):
+                                raise PKViolation(
+                                    f"{name}: key already exists")
+                    tomb_oids = self._seal_tombstones(dels, ts)
+                    sealed.extend(tomb_oids)
+                    ins_n = (0 if key_sigs is None
+                             else int(key_sigs[0].shape[0]))
+                    staged.append((t, t.directory.with_objects(
+                        data_oids, tomb_oids, ts=ts), ins, dels, ins_n))
+            except Exception:
+                # an aborted transaction must be INVISIBLE: unwind the
+                # sealed objects and roll back the oid counter and the
+                # timestamp it consumed
+                self._unwind(sealed)
+                self.store._next_oid = oid0
+                self.ts = ts - 1
+                raise
+        crash_point(CP_TORCH_COMMIT_POST_SEAL)
+        if _log:
+            for t, directory, ins, dels, ins_n in staged:
+                self.wal.append("commit", table=t.name, ts=ts,
+                                inserts=ins, deletes=dels,
+                                op=self._op_kind, ntab=len(staged))
+        with telemetry.span(SP_COMMIT_SWING):
+            for j, (t, directory, ins, dels, ins_n) in enumerate(staged):
+                if j:
+                    crash_point(CP_TORCH_COMMIT_MID_SWING)
+                t.set_directory(directory)
+                self.commit_log.append(CommitRecord(
+                    ts, t.name, self._op_kind, ins_n, int(dels.shape[0])))
+        return ts
+
+    def _unwind(self, oids: Sequence[int]) -> None:
+        for o in oids:
+            self.store.delete(o)
+
+    # --------------------------------------------------------- snapshots
+    def _snapshotish(self, ref: SnapshotRef) -> Snapshot:
+        """Snapshot-position resolution for clone: an EXACT named snapshot
+        wins before ref parsing; everything else takes the one resolver."""
+        if isinstance(ref, str) and ref in self.snapshots:
+            return self.snapshots[ref]
+        return resolve_ref(self, ref).snapshot
+
+    def create_snapshot(self, name: str, table: str, *, _log=True) -> Snapshot:
+        """CREATE SNAPSHOT name FOR TABLE table (a git tag)."""
+        if _log:
+            validate_name(name, "snapshot name")
+        if name in self.snapshots:
+            raise ValueError(f"snapshot {name} exists")
+        t: Table = require(self.tables, table, "table")
+        snap = Snapshot(name=name, table=table, schema=t.schema,
+                        directory=t.directory, created_ts=self.ts)
+        self.snapshots[name] = snap
+        if _log:
+            self.wal.append("snapshot", name=name, table=table)
+        return snap
+
+    def snapshot_at(self, table: str, ts: int) -> Snapshot:
+        """DEPRECATED shim — use the ``table@{ts}`` ref form through
+        ``refs.resolve``. T{mo_ts = ts}, a git commit."""
+        return resolve_ref(self, AtRef(table, ts)).snapshot
+
+    def current_snapshot(self, table: str) -> Snapshot:
+        t = self.table(table)
+        return Snapshot(name=None, table=table, schema=t.schema,
+                        directory=t.directory, created_ts=self.ts)
+
+    # ------------------------------------------------------------- clone
+    def clone_table(self, new_name: str, src: SnapshotRef, *,
+                    _log=True) -> Table:
+        """CREATE TABLE new FROM SNAPSHOT src — metadata-only copy (a
+        snapshot is a frozen directory, so clone copies the directory)."""
+        snap = self._snapshotish(src)
+        if new_name in self.tables:
+            raise ValueError(f"table {new_name} exists")
+        t = Table(new_name, snap.schema, self.store, snap.ts)
+        t.directory = snap.directory
+        t.history = [(snap.ts, snap.directory)]
+        self.tables[new_name] = t
+        self.commit_log.append(CommitRecord(self.ts, new_name, "clone", 0, 0))
+        self.set_common_base(new_name, snap.table, snap)
+        if _log:
+            self.wal.append("clone", new=new_name, snap=snap)
+        return t
+
+    # ----------------------------------------------------------- lineage
+    def set_common_base(self, a: str, b: str, snap: Snapshot) -> None:
+        self._base[tuple(sorted((a, b)))] = snap
+
+    def find_common_base(self, a: str, b: str) -> Optional[Snapshot]:
+        return self._base.get(tuple(sorted((a, b))))
+
+    def lane_nbytes(self, table: str) -> int:
+        """Device bytes of the lanes of every object a table's current
+        directory lists (LOB payloads are host-side and not counted)."""
+        from .objects import lane_nbytes
+        d = self.table(table).directory
+        return sum(lane_nbytes(self.store.get(o))
+                   for o in d.data_oids + d.tomb_oids)
+
+
+def _same(a):
+    return a
+
+
+def _gather(idx: torch.Tensor):
+    host = []
+
+    def take(a):
+        if is_lob(a):
+            if not host:
+                host.append(idx.cpu().numpy())
+            return a[host[0]]
+        return a[idx]
+    return take
+
+
+def _slice_copy(s: int, e: int):
+    def take(a):
+        return a[s:e].copy() if is_lob(a) else a[s:e].clone()
+    return take
+
+
+@dataclass
+class CommitRecord:
+    """One commit-log entry: what one applied operation did to one table."""
+    ts: int
+    table: str
+    kind: str
+    inserted: int
+    deleted: int
+
+
+@dataclass
+class CommitStats:
+    """Where seal-time work went, cumulative per engine.
+
+    The zero-rehash invariant: applying rows gathered from sealed objects
+    (merge, materialized clones) never pays ``rows_rehashed`` or
+    ``lob_rows_hashed``; their signatures ride along in ``SigBatch``
+    sidecars and the sort is skipped or a k-way run merge."""
+    rows_rehashed: int = 0       # rows that ran the rowhash kernel at seal
+    rows_carried: int = 0        # rows sealed on carried write-once sigs
+    lob_rows_hashed: int = 0     # per-LOB-column rows that paid blake2b
+    apply_sorts: int = 0         # seals that paid the global key sort
+    apply_sort_merged: int = 0   # seals that k-way merged declared runs
+    apply_sort_skipped: int = 0  # seals of declared-key-sorted batches

@@ -1,0 +1,178 @@
+"""The CUDA kernels of the port against their plain versions, on the card.
+
+Marked ``card``: each test needs an NVIDIA GPU with ``nvcc`` and skips
+elsewhere (the skip is decided inside the fixture, never at import). On
+the GPU host:
+
+    python -m pytest -q -m card --noconftest tests/test_torch_card.py
+
+(``--noconftest``: the suite's conftest imports the JAX reference, which
+the GPU host does not have; this file imports nothing of it.)
+
+Every kernel output must equal its plain version exactly (integer
+kernels: no tolerance), including the shapes that stress the launch
+geometry: empty inputs, one element, ragged last blocks, and a stream
+long enough for the segsum tile-total scan to loop.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.benchmarks import digests
+from repro_torch.distributed import sharding
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.probe import probe
+from repro_torch.kernels.rowhash import signatures
+from repro_torch.kernels.searchsorted import searchsorted
+from repro_torch.kernels.segsum_diff import segsum
+from chip_smoke import GOLDEN, GOLDEN_MERGE
+
+pytestmark = pytest.mark.card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU host with `python "
+                    "-m pytest -m card --noconftest tests/test_torch_card.py`")
+    build.reset_launches()
+    yield torch.device("cuda")
+    build.reset_launches()
+
+
+def _u64(rng, n, dom=2**64):
+    a = rng.integers(0, dom, n, dtype=np.uint64) if dom == 2**64 \
+        else rng.integers(0, dom, n).astype(np.uint64)
+    return a
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+
+
+def _equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("rows,lanes", [(0, 24), (1, 24), (257, 2),
+                                        (70_001, 24), (4096, 4)])
+def test_rowhash_kernel_matches_plain(cuda, rows, lanes):
+    g = torch.Generator(device=cuda).manual_seed(rows + lanes)
+    x = torch.randint(-2**31, 2**31 - 1, (rows, lanes), generator=g,
+                      device=cuda, dtype=torch.int32)
+    for k, p in zip(signatures(x), ref.signatures(x.cpu())):
+        _equal(k, p)
+    assert build.LAUNCHES["rowhash"] == (1 if rows else 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 65_537])
+def test_searchsorted_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    tab = np.sort(_u64(rng, n))
+    q = np.concatenate([rng.choice(tab, 500), _u64(rng, 500),
+                        np.asarray([0, 2**63 - 1, 2**63, 2**64 - 1],
+                                   np.uint64)])
+    for side in ("left", "right"):
+        got = searchsorted(_t(tab, cuda), _t(q, cuda), side)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np.searchsorted(tab, q, side))
+        _equal(got, ref.lower_bound(_t(tab, "cpu"), _t(q, "cpu"), side))
+    empty = _t(np.zeros(0, np.uint64), cuda)
+    assert searchsorted(empty, _t(q, cuda)).abs().sum().item() == 0
+    assert searchsorted(_t(tab, cuda), empty).shape == (0,)
+
+
+@pytest.mark.parametrize("n,lo_dom,hi_dom", [(1, 2, 2), (700, 23, 5),
+                                             (262_144, 2**64, 2**64),
+                                             (5000, 40, 2**64)])
+def test_probe_kernel_matches_plain(cuda, n, lo_dom, hi_dom):
+    rng = np.random.default_rng(n)
+    lo, hi = _u64(rng, n, lo_dom), _u64(rng, n, hi_dom)
+    o = np.lexsort((hi, lo))
+    lo, hi = lo[o], hi[o]
+    q_lo = np.concatenate([lo[rng.integers(0, n, 300)], _u64(rng, 300,
+                                                              lo_dom)])
+    q_hi = np.concatenate([hi[rng.integers(0, n, 300)], _u64(rng, 300,
+                                                              hi_dom)])
+    got = probe(_t(lo, cuda), _t(hi, cuda), _t(q_lo, cuda), _t(q_hi, cuda))
+    want = ref.probe(_t(lo, "cpu"), _t(hi, "cpu"), _t(q_lo, "cpu"),
+                     _t(q_hi, "cpu"))
+    for k, p in zip(got, want):
+        _equal(k, p)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 3 * 1024 * 1024 + 5])
+@pytest.mark.parametrize("rows", [False, True])
+def test_segsum_kernel_matches_plain(cuda, n, rows):
+    rng = np.random.default_rng(n + rows)
+    lo = np.sort(_u64(rng, n, 1 + n // 3))
+    hi = lo % np.uint64(3)
+    r = _u64(rng, n, 2)
+    sg = rng.choice(np.array([-1, 1], np.int32), n)
+    args = [lo, hi]
+    extra = [r, r] if rows else []
+    got = segsum(*(_t(a, cuda) for a in args),
+                 torch.from_numpy(sg).to(cuda),
+                 *(_t(a, cuda) for a in extra))
+    want = ref.segsum(*(_t(a, "cpu") for a in args), torch.from_numpy(sg),
+                      *(_t(a, "cpu") for a in extra))
+    for k, p in zip(got, want):
+        _equal(k, p)
+    empty = _t(np.zeros(0, np.uint64), cuda)
+    b, c = segsum(empty, empty, torch.zeros(0, dtype=torch.int32,
+                                            device=cuda))
+    assert b.shape == c.shape == (0,)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
+    """The ops around the kernels (refinement of lo64 collisions, segment
+    expansion, sharded scans, stable merges) give the CPU's answers."""
+    rng = np.random.default_rng([seed] + list(b"OPS"))
+    n = 5000
+    lo, hi = _u64(rng, n, 40), _u64(rng, n, 7)
+    o = np.lexsort((hi, lo))
+    lo, hi = lo[o], hi[o]
+    q_lo, q_hi = _u64(rng, 900, 42), _u64(rng, 900, 9)
+    sg = rng.choice(np.array([-1, 1], np.int32), n)
+    runs = np.asarray([0, 1200, 3100], np.int64)
+    r_lo, r_hi = _u64(rng, n, 50), _u64(rng, n, 3)
+    for a, b in zip(runs, list(runs[1:]) + [n]):   # each run (lo, hi)-sorted
+        o = a + np.lexsort((r_hi[a:b], r_lo[a:b]))
+        r_lo[a:b], r_hi[a:b] = r_lo[o], r_hi[o]
+
+    def both(fn, *arrays):
+        got = fn(*(_t(a, cuda) if a.dtype != np.int32 else
+                   torch.from_numpy(a).to(cuda) for a in arrays))
+        want = fn(*(_t(a, "cpu") if a.dtype != np.int32 else
+                    torch.from_numpy(a) for a in arrays))
+        return got, want
+
+    for side in ("left", "right"):
+        _equal(*both(lambda *a: ops.searchsorted128(*a, side=side),
+                     lo, hi, q_lo, q_hi))
+    for got, want in zip(*both(ops.probe128, lo, hi, q_lo, q_hi)):
+        _equal(got, want)
+    _equal(*both(ops._sort128, q_lo, q_hi))
+    for shards in (1, 4):
+        (g_o, g), (w_o, w) = both(
+            lambda a, b, c: ops.diff_aggregate(a, b, c, presorted=True,
+                                               shards=shards), lo, hi, sg)
+        _equal(g.boundary, w.boundary)
+        _equal(g.run_sums, w.run_sums)
+    merged = []
+    for dev in (cuda, "cpu"):
+        lo_t, hi_t = _t(r_lo, dev), _t(r_hi, dev)
+        cuts = sharding.plan_key_cuts(lo_t, hi_t, runs, 3)
+        merged.append(ops.merge128_runs(lo_t, hi_t, runs, cuts=cuts))
+    _equal(*merged)
+    np.testing.assert_array_equal(merged[1].numpy(),
+                                  np.lexsort((r_hi, r_lo)))
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_golden_digests_on_the_card(cuda, pk):
+    assert digests.run_workload(pk, device=cuda) == GOLDEN[pk]
+    assert digests.run_merge_workload(pk, device=cuda) == GOLDEN_MERGE[pk]
+    assert all(v > 0 for v in build.LAUNCHES.values()), build.LAUNCHES
