@@ -8,17 +8,26 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each:
   1. device   — the card (``nvidia-smi`` name and power limit), torch, CUDA
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``
-  3. kernels  — each kernel at the main path's shapes, held EXACTLY equal
-                to its plain PyTorch version on the same inputs, with its
-                CUDA-event time, its bound, the plain version's time and,
-                where one PyTorch call computes the same function, that
-                call's time
+  3. kernels  — each kernel at the main path's shapes against its plain
+                PyTorch version on the same inputs (the integer kernels
+                EXACTLY equal, flash attention within atol = rtol = 2e-2
+                and a relative L2 error of 6e-3 in bf16, with a lost key
+                mask shown to exceed the latter), with its CUDA-event
+                time, its bound, the plain
+                version's time and, where one PyTorch call computes the
+                same function, that call's time
   4. golden   — the fixed-seed diff/merge workloads on the card, compared
                 with the reference package's recorded digests
   5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
                 snapshot, clone, a 100,000-row update (change set C4),
                 cold and warm SNAPSHOT DIFF, SQL diff and a three-way
                 ACCEPT merge, with every kernel's launch count
+  6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
+                151,936; random weights from the seed): 8 requests of
+                512-2048 prompt tokens and 32 new tokens each through the
+                continuous-batching server (batch 4), prefill attention on
+                the flash kernel (24 x 8 launches); then prefill-vs-decode
+                consistency of the last logits on one 2048-token prompt
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
@@ -46,6 +55,31 @@ C4_ROWS = 100_000          # change set C4 of benchmarks/vcs_tables.py
 # lanes), so 128 x 132 SMs x 1.98 GHz boost bounds any integer mix.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# Dense BF16 tensor-core peak of the H100 SXM (data sheet): 989.4 TFLOP/s.
+BF16_FLOPS_PER_S = 989.4e12
+
+# Flash attention shapes: (B, Sq, Sk, H, KV, hd, causal). (a) the serving
+# prefill of qwen1.5-0.5b at 2048 tokens; (b) GQA at hd 128 with
+# internlm2-1.8b's heads; (c) all-pairs with Sk off the 64-key tile.
+FLASH_SHAPES = ((1, 2048, 2048, 16, 16, 64, True),
+                (1, 4096, 4096, 16, 8, 128, True),
+                (2, 1024, 1500, 16, 16, 64, False))
+FLASH_TOL = 2e-2            # atol = rtol, bf16 against the plain version
+# and ||kernel - plain|| / ||plain|| at most this: two bf16 roundings of the
+# output and of p in a different key-tile order give 2-3.5e-3 (plain
+# attention at 64- against 256-key blocks, on the CPU), and a lost key mask
+# at shape (c) (36 zero keys left in) 1.4e-2, which the phase re-measures.
+FLASH_REL_TOL = 6e-3
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_PROMPTS = (512, 1024, 2048, 1536, 768, 2048, 1024, 512)
+SERVE_NEW = 32
+SERVE_CONSIST = (2048, 32)  # prompt length, positions then decoded
+# Prefill (flash kernel) vs decode (plain attention) last logits, bf16:
+# ||L1 - L2|| / ||L1|| at most this. On the H100 at full width the bf16
+# rounding noise of this randomly initialised model read 0.059-0.105 over
+# four weight and prompt seeds, and a decode one position ahead or behind
+# 1.31-1.40 (repro_torch.benchmarks.serve_consistency and this check).
+SERVE_REL_TOL = 0.3
 
 # Digests recorded by the reference package on its fixed-seed workloads:
 # GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
@@ -102,10 +136,12 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(nbytes: float, nops: float):
-    """Least time (ms) for the work, and which resource sets it."""
+def bound(nbytes: float, nops: float, flops: float = 0.0):
+    """Least time (ms) for the work, and which resource sets it: bytes at
+    the HBM rate, 32-bit integer operations at the issue rate, bf16
+    tensor-core FLOPs at their peak."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = nops / INT32_OPS_PER_S * 1e3
+    t_o = max(nops / INT32_OPS_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -145,7 +181,7 @@ def kernel_phase(torch, seed: int) -> dict:
         exact = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
         b_ms, b_by = bound(nbytes, nops)
         results.setdefault(name, []).append({
-            "shape": shape, "exact": exact, "max_abs_err": err,
+            "shape": shape, "ok": exact, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "int_ops": nops})
@@ -220,7 +256,77 @@ def kernel_phase(torch, seed: int) -> dict:
                                                  r_hi), 5),
                None, n * (32 + 4 + 1 + 4), n * 20)
     torch.cuda.synchronize()
+    results["flash_attention"] = flash_phase(torch, seed)
     return results
+
+
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """Unmasked (query, key) pairs: top-left causal or all pairs."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)              # rows 0..full-1 see i + 1 keys
+    return full * (full + 1) // 2 + (sq - full) * sk
+
+
+def flash_phase(torch, seed: int) -> list:
+    """The flash kernel against its plain version (bf16, FLASH_TOL) and
+    scaled_dot_product_attention (timed only) at FLASH_SHAPES."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rows, bad = [], []
+    for b, sq, sk, h, kv, hd, causal in FLASH_SHAPES:
+        q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        got = flash_attention(q, k, v, causal=causal).float()
+        want = ref.attention(q, k, v, causal=causal, block=256).float()
+        err = float((got - want).abs().max())
+        rel = float((got - want).norm() / want.norm())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=FLASH_TOL, rtol=FLASH_TOL) and \
+            rel <= FLASH_REL_TOL
+        lost_mask = None
+        if sk % 64:     # the kernel's zero-filled key tail, left unmasked
+            pad = (0, 0, 0, 0, 0, -sk % 64)
+            lost_mask = float((ref.attention(
+                q, torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad), causal=causal,
+                block=256).float() - want).norm() / want.norm())
+            check(lost_mask > FLASH_REL_TOL,
+                  f"a lost key mask ({lost_mask}) would pass "
+                  f"FLASH_REL_TOL at {sk} keys")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_err = float((sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                         .transpose(1, 2).float() - want).abs().max())
+        flops = 4.0 * b * h * hd * attention_pairs(sq, sk, causal)
+        nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+        b_ms, b_by = bound(nbytes, 0, flops)
+        rows.append({
+            "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
+            "ok": ok, "tol": FLASH_TOL, "rel_tol": FLASH_REL_TOL,
+            "max_abs_err": err, "rel_l2_err": rel,
+            "lost_mask_rel_l2": lost_mask,
+            "library_max_abs_err": lib_err,
+            "ms": cuda_ms(torch, lambda: flash_attention(q, k, v,
+                                                         causal=causal), 20),
+            "plain_ms": cuda_ms(torch, lambda: ref.attention(
+                q, k, v, causal=causal, block=256), 3),
+            "library_ms": cuda_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops})
+        if not ok:
+            bad.append((rows[-1]["shape"], err, rel))
+        del q, k, v, qt, kt, vt, got, want
+    check(not bad, f"flash_attention differs from its plain version "
+                   f"beyond {FLASH_TOL} abs or {FLASH_REL_TOL} rel-L2 "
+                   f"(shape, max abs, rel-L2): {bad}")
+    return rows
 
 
 # ----------------------------------------------------------------- mainpath
@@ -322,8 +428,134 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         check(bool((d.diff_cnt != 0).all()), "a cancelled group survived")
     check(groups == [2 * change] * 3, f"n_groups {groups} != {2 * change}")
     check(merge == f"{change}/{change}/0", f"merge report {merge}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in build.VCS_SOURCES),
           f"a kernel was not launched on the main path: {launches}")
+    return rec
+
+
+# -------------------------------------------------------------------- serve
+
+def host_cost(torch, model, prompt) -> dict:
+    """What bounds eager decode: aten operations dispatched for one decode
+    token (a dispatch-mode count) and the host's cost of one small CUDA op
+    (host clock over 2,000 in-place adds on one element, then a sync)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cache = model.init_cache(1, prompt.shape[1])
+    with Count():
+        model.decode_step(prompt[:, :1], cache)
+    x = torch.zeros(1, device=model.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return {"aten_ops_per_decode_token": Count.n,
+            "host_us_per_small_op": (time.perf_counter() - t0) / 2000 * 1e6}
+
+
+def serve_phase(torch, seed: int) -> dict:
+    """The serving path at full width: continuous batching over
+    SERVE_PROMPTS, then the prefill-vs-decode consistency check."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.benchmarks.serve_consistency import (
+        prefill_decode_logits, rel_gap)
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Request, Server
+
+    gc.collect()                  # earlier phases' engines hold the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = Server(SERVE_ARCH, reduced=False, batch=4, seq_cap=4096,
+                 seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, model = srv.cfg, srv.model
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (24, 1024, 151936),
+          f"not the full-width config: {cfg}")
+    check(model.device.type == "cuda", "the model is off the card")
+    check(all(n % srv.attn_block == 0 for n in SERVE_PROMPTS),
+          "a prompt would take the pad path")
+    rng = np.random.default_rng(seed)
+    reqs = [Request(i, rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                    SERVE_NEW) for i, n in enumerate(SERVE_PROMPTS)]
+
+    build.reset_launches()
+    done, dt, steps = srv.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    n_new = sum(len(r.out) for r in done)
+    pre = [x * 1e3 for x in srv.timings["prefill_s"]]
+    dec = [x * 1e3 for x in srv.timings["decode_step_s"]]
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "batch": srv.batch,
+           "seq_cap": srv.seq_cap, "prompts": list(SERVE_PROMPTS),
+           "max_new": SERVE_NEW, "init_s": init_s, "run_s": dt,
+           "decode_steps": steps, "generated": n_new,
+           "tok_per_s": n_new / dt,
+           "prefill_ms": pre, "prefill_tok_per_s": sum(SERVE_PROMPTS)
+           / (sum(pre) / 1e3),
+           "decode_step_ms": {"mean": sum(dec) / len(dec),
+                              "median": sorted(dec)[len(dec) // 2],
+                              "max": max(dec)},
+           # lockstep steps decode up to `batch` slots, one token each
+           "decode_ms_per_token": sum(dec) / (n_new - len(reqs)),
+           "flash_launches": launches["flash_attention"],
+           "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": start_bytes,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    want = cfg.n_layers * len(reqs)
+    check(rec["flash_launches"] == want,
+          f"flash_attention launched {rec['flash_launches']} times on the "
+          f"serve path, not {want} (layers x requests)")
+    check(all(len(r.out) == SERVE_NEW and all(0 <= t < cfg.vocab
+                                              for t in r.out) for r in done),
+          "a generated token is out of range or a request is short")
+
+    # Prefill-vs-decode consistency: the last logits of one prompt from
+    # the flash kernel (L1) and from plain decode attention (L2).
+    n, tail = SERVE_CONSIST
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=n),
+                             device=model.device)[None]
+    l1, l2 = prefill_decode_logits(model, prompt, tail, srv.attn_block)
+    finite = bool(torch.isfinite(l1).all() and torch.isfinite(l2).all())
+    rel = rel_gap(l1, l2)
+    rec["consistency"] = {
+        "prompt": n, "decoded": tail, "finite": finite,
+        "max_abs_diff": float((l1 - l2).abs().max()),
+        "logit_abs_max": float(l1.abs().max()),
+        "logit_std": float(l1.std()),
+        "rel_l2_diff": rel, "rel_l2_tol": SERVE_REL_TOL,
+        "argmax_equal": int(l1.argmax()) == int(l2.argmax())}
+    check(finite, "non-finite logits")
+    check(rel <= SERVE_REL_TOL, f"prefill and decode logits differ: "
+                                f"{rec['consistency']}")
+
+    rec["profile_prefill_2048"] = device_profile(
+        torch, lambda: model.prefill(prompt, seq_cap=n,
+                                     attn_block=srv.attn_block))
+
+    def decode16():
+        c = model.init_cache(1, n)
+        c["len"] = n - tail       # a full-length cache, as in the check
+        for i in range(16):
+            _, c = model.decode_step(prompt[:, i:i + 1], c)
+    rec["profile_decode_16"] = device_profile(torch, decode16)
+    rec.update(host_cost(torch, model, prompt))
     return rec
 
 
@@ -370,7 +602,8 @@ def main(argv=None) -> int:
 
         kern = kernel_phase(torch, args.seed)
         record["kernels"] = kern
-        phase("kernels", **{k: [{f: e[f] for f in ("shape", "exact", "ms",
+        phase("kernels", **{k: [{f: e[f] for f in ("shape", "ok",
+                                                   "max_abs_err", "ms",
                                                    "bound_ms", "plain_ms",
                                                    "library_ms")}
                                 for e in v] for k, v in kern.items()})
@@ -391,17 +624,26 @@ def main(argv=None) -> int:
             runs.append(rec)
             phase("mainpath", **rec)
         record["mainpath"] = runs
+
+        serve = serve_phase(torch, args.seed)
+        record["serve"] = serve
+        phase("serve", **{k: v for k, v in serve.items()
+                          if not k.startswith("profile")})
+        phase("serve_profile", **{k: v for k, v in serve.items()
+                                  if k.startswith("profile")})
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     launches = {k: sum(r["launches"][k] for r in runs)
-                for k in build.SOURCES}
+                for k in build.VCS_SOURCES}
+    launches["flash_attention"] = serve["flash_launches"]
     replaces = {
         "rowhash": "src/repro/kernels/rowhash.py:43",
         "searchsorted": "src/repro/kernels/searchsorted.py:48",
         "segsum_diff": "src/repro/kernels/segsum_diff.py:42",
         "probe": "src/repro/kernels/probe.py:70",
+        "flash_attention": "src/repro/kernels/flash_attention.py:84",
     }
     line = []
     for name in build.SOURCES:

@@ -1,1 +1,9 @@
-"""Workload configurations of the port (seeded numpy generators)."""
+"""Workload configurations of the port: the lineitem schema and its
+seeded numpy generator (``paper_vcs``), and the architecture registry of
+the model stack (one module per architecture the port serves)."""
+from .base import (ArchConfig, MoECfg, SSMCfg, all_arch_names,  # noqa: F401
+                   get_config)
+
+from . import qwen1_5_0_5b  # noqa: F401,E402
+
+ALL = True  # marker: all configs registered

@@ -1,0 +1,135 @@
+"""Architecture configs of the model stack, as plain data.
+
+The port's copy of ``repro.configs.base`` (the subset the serving path
+reads): the same fields, defaults and ``reduced()`` shrink, so a config
+name selects the same architecture in both packages. Registered configs
+are listed in ``configs/__init__.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int = 2
+    every: int = 1          # MoE FFN every k-th layer (1 = all layers)
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class SSMCfg:
+    kind: str = "mamba"     # "mamba" (SSD form) | "rwkv6"
+    d_state: int = 16       # mamba state size / rwkv6 key head dim
+    head_dim: int = 64      # channels per decay head
+    d_conv: int = 4         # mamba causal conv width
+    expand: int = 2         # mamba inner expansion
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None    # default d_model // n_heads
+    qkv_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None      # SWA (mixtral)
+    moe: Optional[MoECfg] = None
+    ssm: Optional[SSMCfg] = None
+    # layer pattern: period length and the slot kinds within one period
+    period: int = 1
+    slots: Tuple[str, ...] = ("attn",)        # attn | mamba | rwkv | cross
+    ffn_slots: Optional[Tuple[str, ...]] = None  # mlp | moe (default all mlp
+    #                                              or all moe if moe set)
+    encoder_layers: int = 0                   # encoder-decoder (whisper)
+    cross_len: int = 0                        # cross-attention context length
+    learned_pos: bool = False                 # whisper-style abs positions
+    max_seq: int = 8192                       # learned-pos table size
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % self.period:
+            raise ValueError(f"{self.name}: {self.n_layers} layers do not "
+                             f"divide into periods of {self.period}")
+        return self.n_layers // self.period
+
+    def slot_kinds(self) -> Tuple[str, ...]:
+        if len(self.slots) != self.period:
+            raise ValueError(f"{self.name}: {len(self.slots)} slots for "
+                             f"period {self.period}")
+        return self.slots
+
+    def ffn_kinds(self) -> Tuple[str, ...]:
+        if self.ffn_slots is not None:
+            if len(self.ffn_slots) != self.period:
+                raise ValueError(f"{self.name}: {len(self.ffn_slots)} ffn "
+                                 f"slots for period {self.period}")
+            return self.ffn_slots
+        kind = "moe" if self.moe else "mlp"
+        return tuple(kind for _ in range(self.period))
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests."""
+        scale = {}
+        scale["d_model"] = 64
+        scale["n_heads"] = 4
+        scale["n_kv_heads"] = max(1, min(self.n_kv_heads, 2))
+        scale["head_dim"] = 16
+        scale["d_ff"] = 128
+        scale["vocab"] = 512
+        scale["n_layers"] = 2 * self.period
+        scale["encoder_layers"] = 2 if self.is_encdec else 0
+        scale["cross_len"] = 8 if (self.cross_len or self.is_encdec) else 0
+        scale["max_seq"] = 256
+        if self.moe:
+            scale["moe"] = MoECfg(n_experts=4, top_k=2, every=self.moe.every,
+                                  capacity_factor=self.moe.capacity_factor)
+        if self.ssm:
+            scale["ssm"] = SSMCfg(kind=self.ssm.kind, d_state=4, head_dim=16,
+                                  d_conv=self.ssm.d_conv, expand=2)
+        if self.sliding_window:
+            scale["sliding_window"] = 16
+        return dataclasses.replace(self, **scale)
+
+
+_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register(fn: Callable[[], ArchConfig]):
+    cfg = fn()
+    _REGISTRY[cfg.name] = fn
+    return fn
+
+
+def get_config(name: str) -> ArchConfig:
+    from . import ALL  # noqa: F401  (forces registration of all configs)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; the port has "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def all_arch_names():
+    from . import ALL  # noqa: F401
+    return sorted(_REGISTRY.keys())

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops
 from .directory import Snapshot
 from .objects import (OBJECT_CAPACITY, DataObject, ObjectStore,
@@ -68,21 +69,6 @@ class PKViolation(Exception):
 
 
 SnapshotRef = Union[str, Snapshot]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Without one, the caller must ask for the
-    CPU explicitly: the engine never falls back to it on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch.Engine: no CUDA device is available; pass "
-                "device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def as_rowids(rowids, device) -> torch.Tensor:

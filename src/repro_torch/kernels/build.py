@@ -24,7 +24,10 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rowhash", "searchsorted", "segsum_diff", "probe")
+#: the kernels of the data-VCS path (diff, merge, seal) ...
+VCS_SOURCES = ("rowhash", "searchsorted", "segsum_diff", "probe")
+#: ... and every kernel, the model stack's attention included
+SOURCES = VCS_SOURCES + ("flash_attention",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

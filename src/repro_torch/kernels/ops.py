@@ -1,9 +1,10 @@
 """The kernel contract the core engine calls, on torch tensors.
 
 Counterpart of ``repro.kernels.ops``. Every op takes and returns tensors
-and dispatches on the tensor's device: the four kernel wrappers
-(``rowhash``, ``searchsorted``, ``segsum_diff``, ``probe``) launch their
-CUDA kernel for a CUDA tensor and run their plain version for a CPU one.
+and dispatches on the tensor's device: the five kernel wrappers
+(``rowhash``, ``searchsorted``, ``segsum_diff``, ``probe``,
+``flash_attention``) launch their CUDA kernel for a CUDA tensor and run
+their plain version for a CPU one.
 
 Signature convention: a 64-bit word is an int64 tensor holding the uint64
 bits; a row signature is two words (lo, hi) and sorts lexicographically
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash_kernel
 from .probe import probe as _probe_kernel
 from .rowhash import signatures as _rowhash_kernel
 from .searchsorted import searchsorted as _searchsorted_kernel
@@ -379,3 +381,20 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
         if starts.shape[0]:
             return order, DiffAgg(*_sharded_scan(n, starts, scan))
     return order, DiffAgg(*scan(0, n))
+
+
+# --------------------------------------------------------- attention entry
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, block_q: int = 256,
+              block_k: int = 256) -> torch.Tensor:
+    """Attention of the model stack (counterpart of the reference's
+    ``ops.attention``). q: (B,S,H,hd); k/v: (B,Sk,KV,hd), H % KV == 0.
+
+    A CUDA tensor runs the flash kernel (query heads read their KV head in
+    place; tiles fixed by the kernel); a CPU tensor runs the plain
+    version over ``block_q``-sized block pairs, as the reference's XLA
+    path does. ``block_k`` is kept for the reference's signature: neither
+    path reads it (the reference's XLA path does not either)."""
+    del block_k
+    return _flash_kernel(q, k, v, causal=causal, block=block_q)

@@ -3,7 +3,9 @@
 These are the semantic ground truth of the port, written with ordinary
 tensor operations so they run on any device: the CPU path of every kernel
 wrapper, and the version each CUDA kernel is held against on the card.
-They are bit-identical to ``repro.kernels.ref`` (integer math only).
+The integer ones are bit-identical to ``repro.kernels.ref``; the
+attention one follows ``repro.models.layers.block_causal_attention``
+(float math, held to it by a tolerance).
 
 Word conventions (ROADMAP "Unsigned words"): a uint64 word is carried as
 an int64 tensor with the same bits, and a uint32 lane as an int32 tensor
@@ -13,7 +15,10 @@ arithmetic runs in int64 masked to 32 bits.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 M32 = 0xFFFFFFFF
 #: the int64 sign bit; ``x ^ SIGN`` maps uint64 order onto int64 order
@@ -137,3 +142,81 @@ def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
         bnd[1:] = neq
     csum = torch.cumsum(signs.to(torch.int32), 0, dtype=torch.int32)
     return bnd, csum
+
+
+# ------------------------------------------------------------- attention
+
+#: the masked score: finite, so a row that is masked so far keeps a finite
+#: running max (as the reference kernels have it)
+NEG = -1e30
+
+
+def attn_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B,bq,H,hd) x (B,bk,KV,hd) -> (B,H,bq,bk) float32 scores, query
+    heads grouped onto their KV head (GQA). The product runs in float32,
+    as the reference's ``preferred_element_type=F32``."""
+    B, bq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, bq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    return s.reshape(B, H, bq, k.shape[1])
+
+
+def attn_sv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B,H,bq,bk) x (B,bk,KV,hd) -> (B,bq,H,hd) in v's dtype: ``p`` is
+    cast to v's dtype first, as in the reference."""
+    B, H, bq, bk = p.shape
+    KV = v.shape[2]
+    pg = p.reshape(B, KV, H // KV, bq, bk)
+    o = torch.einsum("bkgqs,bskh->bqkgh", pg.to(v.dtype), v)
+    return o.reshape(B, bq, H, v.shape[3])
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over block pairs: the algorithm of the
+    reference's ``block_causal_attention`` without a window.
+
+    q: (B,S,H,hd); k/v: (B,Sk,KV,hd), H % KV == 0. Causal masking is
+    top-left (query i sees keys <= i); keys are padded to the block and
+    masked. Block pairs run in qi-major order with float32 running max,
+    denominator and numerator; block pairs above the diagonal are skipped.
+    Returns (B,S,H,hd) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    Sk = k.shape[1]
+    block = min(block, S, Sk)
+    while S % block:        # largest q-block size that tiles the sequence
+        block -= 1
+    pad_k = (-Sk) % block
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    n_k = (Sk + pad_k) // block
+    scale = 1.0 / math.sqrt(hd)
+    row = torch.arange(block, device=q.device)
+    out = torch.empty_like(q)
+    for qi in range(S // block):
+        qs = q[:, qi * block:(qi + 1) * block]
+        m = torch.full((B, H, block), -math.inf, device=q.device)
+        l = torch.zeros((B, H, block), device=q.device)
+        acc = torch.zeros((B, H, block, hd), device=q.device)
+        for ki in range(min(qi + 1, n_k) if causal else n_k):
+            ks = k[:, ki * block:(ki + 1) * block]
+            vs = v[:, ki * block:(ki + 1) * block]
+            s = attn_qk(qs, ks) * scale                     # (B,H,bq,bk)
+            kpos = ki * block + row[None, :]
+            mask = kpos < Sk
+            if causal:
+                mask = mask & (qi * block + row[:, None] >= kpos)
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                attn_sv(p, vs).float().transpose(1, 2)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, qi * block:(qi + 1) * block] = o.transpose(1, 2).to(q.dtype)
+    return out

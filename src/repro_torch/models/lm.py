@@ -1,0 +1,217 @@
+"""Decoder LM of the port: dense attention + gated-MLP layers.
+
+Counterpart of ``repro.models.lm`` for configs whose every slot is
+``attn`` with an ``mlp`` FFN (no MoE, SSM, cross-attention, encoder,
+learned positions or sliding window: those raise ``NotImplementedError``).
+Layers are a ``ModuleList`` run in a Python loop in place of the
+reference's ``lax.scan`` over stacked periods; layer ``l`` is period
+``l // period``, slot ``l % period`` of the reference's parameter tree.
+
+Entry points (the reference's, as methods):
+  LM(cfg, device=None, generator=None)   -> weights drawn from a seed
+  forward(tokens)                        -> logits (B, S, V)
+  init_cache(B, seq_cap)                 -> zero decode cache
+  prefill(tokens, seq_cap=...)           -> (last_logits (B, V), cache)
+  decode_step(token, cache)              -> (logits (B, V), cache)
+
+The cache has the reference's layout: ``{"len": n, "slot<i>": {"k", "v"}}``
+with k/v of shape (P, B, seq_cap, KV, hd) in the model dtype. ``len`` is a
+Python int here (the reference keeps an int32 scalar). ``decode_step``
+writes the new position into the cache tensors in place (the reference
+returns updated copies) and returns the cache with ``len + 1``; the slot
+it writes is past the old ``len``, so the old cache still reads the same.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from .layers import (block_causal_attention, decode_attention, gated_mlp,
+                     rms_norm, rope)
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    """Raise unless the port's LM runs ``cfg`` (dense attn + mlp)."""
+    if (set(cfg.slot_kinds()) != {"attn"} or set(cfg.ffn_kinds()) != {"mlp"}
+            or cfg.is_encdec or cfg.cross_len or cfg.learned_pos
+            or cfg.sliding_window):
+        raise NotImplementedError(
+            f"{cfg.name}: the port's LM runs dense attention + gated-MLP "
+            f"configs only (slots {cfg.slot_kinds()}, ffn {cfg.ffn_kinds()},"
+            f" window {cfg.sliding_window}); see ROADMAP Queue 1")
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Layer(nn.Module):
+    """One attention + gated-MLP layer; its weights carry the reference's
+    slot key names (``wq`` is (d, H*hd): activations multiply from the
+    left, as in the reference's einsums)."""
+
+    def __init__(self, cfg: ArchConfig, dense, ones, zeros):
+        super().__init__()
+        d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        self.shape = (H, KV, hd)
+        self.ln1, self.ln2 = ones(d), ones(d)
+        self.wq = dense((d, H * hd))
+        self.wk = dense((d, KV * hd))
+        self.wv = dense((d, KV * hd))
+        self.wo = dense((H * hd, d))
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            self.bq, self.bk, self.bv = zeros(H * hd), zeros(KV * hd), \
+                zeros(KV * hd)
+        self.w1 = dense((d, cfg.d_ff))
+        self.w3 = dense((d, cfg.d_ff))
+        self.w2 = dense((cfg.d_ff, d))
+
+    def qkv(self, h: torch.Tensor):
+        """(B,S,d) -> q (B,S,H,hd), k and v (B,S,KV,hd)."""
+        B, S, _ = h.shape
+        H, KV, hd = self.shape
+        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
+        if self.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+                v.reshape(B, S, KV, hd))
+
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        return gated_mlp({"w1": self.w1, "w3": self.w3, "w2": self.w2}, h)
+
+
+class LM(nn.Module):
+    """Dense decoder LM on ``device`` (``None``: the card, which must be
+    there; ``"cpu"`` only when asked).
+
+    Weights have the reference's shapes and scales (``init_params``):
+    embed and head N(0, 0.02²), norms one, QKV biases zero, every other
+    matrix N(0, 1/P) with P = ``cfg.n_periods`` (the reference's ``_dense``
+    takes the leading, stacked period axis as its fan-in), rounded to bf16
+    and then cast to ``cfg.dtype``. They are drawn on ``generator``'s device
+    (default: a generator on ``device`` seeded 0), so a CPU generator gives
+    the same weights on every device.
+    """
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        gen = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        w_scale = 1.0 / math.sqrt(cfg.n_periods)
+
+        def dense(shape, scale=w_scale):
+            t = torch.randn(shape, generator=gen, dtype=F32,
+                            device=gen.device) * scale
+            return _frozen(t.to(BF16).to(device=dev, dtype=self.dtype))
+
+        def ones(n):
+            return _frozen(torch.ones(n, dtype=self.dtype, device=dev))
+
+        def zeros(n):
+            return _frozen(torch.zeros(n, dtype=self.dtype, device=dev))
+
+        self.embed = dense((cfg.vocab, cfg.d_model), 0.02)
+        self.final_norm = ones(cfg.d_model)
+        self.lm_head = dense((cfg.d_model, cfg.vocab), 0.02)
+        self.layers = nn.ModuleList(Layer(cfg, dense, ones, zeros)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _trunk(self, tokens: torch.Tensor, attn_block: int,
+               kv_out: Optional[list] = None) -> torch.Tensor:
+        """Embed, every layer over the full sequence, final norm."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens].to(self.dtype)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        for layer in self.layers:
+            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            q, k, v = layer.qkv(h)
+            if cfg.rope:
+                q = rope(q, positions, cfg.rope_theta)
+                k = rope(k, positions, cfg.rope_theta)
+            a = block_causal_attention(q, k, v, block=attn_block)
+            x = x + a.reshape(B, S, -1) @ layer.wo
+            if kv_out is not None:
+                kv_out.append((k, v))
+            x = x + layer.mlp(rms_norm(x, layer.ln2, cfg.norm_eps))
+        return rms_norm(x, self.final_norm, cfg.norm_eps)
+
+    def forward(self, tokens: torch.Tensor, *,
+                attn_block: int = 1024) -> torch.Tensor:
+        """tokens (B, S) integer -> logits (B, S, V)."""
+        return self._trunk(tokens, attn_block) @ self.lm_head
+
+    def init_cache(self, B: int, seq_cap: int) -> Dict:
+        cfg = self.cfg
+        shape = (cfg.n_periods, B, seq_cap, cfg.n_kv_heads, cfg.hd)
+        cache: Dict = {"len": 0}
+        for i in range(cfg.period):
+            cache[f"slot{i}"] = {
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        return cache
+
+    def prefill(self, tokens: torch.Tensor, *, seq_cap: int,
+                attn_block: int = 1024):
+        """Full forward that fills a fresh cache of ``seq_cap`` positions.
+        Returns the logits of the last position (B, V) and the cache."""
+        B, S = tokens.shape
+        if S > seq_cap:
+            raise ValueError(f"prefill of {S} positions into a cache of "
+                             f"{seq_cap}")
+        kv: list = []
+        x = self._trunk(tokens, attn_block, kv)
+        cache = self.init_cache(B, seq_cap)
+        cache["len"] = S
+        period = self.cfg.period
+        for layer_idx, (k, v) in enumerate(kv):
+            c = cache[f"slot{layer_idx % period}"]
+            c["k"][layer_idx // period, :, :S] = k
+            c["v"][layer_idx // period, :, :S] = v
+        return x[:, -1] @ self.lm_head, cache
+
+    def decode_step(self, token: torch.Tensor, cache: Dict):
+        """One serving step: token (B, 1) + cache -> (logits (B, V), cache
+        with ``len + 1``)."""
+        cfg = self.cfg
+        B = token.shape[0]
+        pos = cache["len"]
+        cap = cache["slot0"]["k"].shape[2]
+        if pos >= cap:
+            raise ValueError(f"decode at position {pos}: the cache holds "
+                             f"{cap}")
+        x = self.embed[token[:, 0]][:, None].to(self.dtype)
+        pvec = torch.full((B, 1), pos, device=x.device)
+        for layer_idx, layer in enumerate(self.layers):
+            c = cache[f"slot{layer_idx % cfg.period}"]
+            kc = c["k"][layer_idx // cfg.period]
+            vc = c["v"][layer_idx // cfg.period]
+            q, k, v = layer.qkv(rms_norm(x, layer.ln1, cfg.norm_eps))
+            if cfg.rope:
+                q = rope(q, pvec, cfg.rope_theta)
+                k = rope(k, pvec, cfg.rope_theta)
+            kc[:, pos] = k[:, 0]
+            vc[:, pos] = v[:, 0]
+            a = decode_attention(q, kc, vc, pos + 1)
+            x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.wo
+            x = x + layer.mlp(rms_norm(x, layer.ln2, cfg.norm_eps))
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return x[:, 0] @ self.lm_head, {**cache, "len": pos + 1}

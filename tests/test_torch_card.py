@@ -9,11 +9,16 @@ the GPU host:
 (``--noconftest``: the suite's conftest imports the JAX reference, which
 the GPU host does not have; this file imports nothing of it.)
 
-Every kernel output must equal its plain version exactly (integer
-kernels: no tolerance), including the shapes that stress the launch
-geometry: empty inputs, one element, ragged last blocks, and a stream
-long enough for the segsum tile-total scan to loop.
+Every integer kernel output must equal its plain version exactly (no
+tolerance), including the shapes that stress the launch geometry: empty
+inputs, one element, ragged last blocks, and a stream long enough for the
+segsum tile-total scan to loop. The flash attention kernel is held to its
+plain version in bf16 at atol = rtol = 2e-2 (the plain version rounds
+each block's P.V product to bf16, the kernel accumulates it in fp32), and
+its relative L2 error at ``chip_smoke.FLASH_REL_TOL``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +26,12 @@ import torch
 from repro_torch.benchmarks import digests
 from repro_torch.distributed import sharding
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted
 from repro_torch.kernels.segsum_diff import segsum
-from chip_smoke import GOLDEN, GOLDEN_MERGE
+from chip_smoke import FLASH_REL_TOL, GOLDEN, GOLDEN_MERGE
 
 pytestmark = pytest.mark.card
 
@@ -175,4 +181,70 @@ def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
 def test_golden_digests_on_the_card(cuda, pk):
     assert digests.run_workload(pk, device=cuda) == GOLDEN[pk]
     assert digests.run_merge_workload(pk, device=cuda) == GOLDEN_MERGE[pk]
-    assert all(v > 0 for v in build.LAUNCHES.values()), build.LAUNCHES
+    assert all(build.LAUNCHES[k] > 0 for k in build.VCS_SOURCES), \
+        build.LAUNCHES
+
+
+def _qkv(dev, b, sq, sk, h, kv, hd, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).bfloat16()
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (2, 100, 100, 4, 4, 64, True),       # ragged square, B > 1
+    (1, 130, 130, 8, 2, 128, True),      # GQA 4:1 at hd 128
+    (3, 77, 200, 4, 1, 64, False),       # all pairs, MQA, Sq < Sk ragged
+    (2, 256, 190, 6, 3, 128, False),     # all pairs, Sk off the tile
+    (1, 64, 150, 4, 2, 64, True),        # top-left causal, Sq < Sk
+    (1, 150, 64, 4, 4, 64, True),        # causal, Sq > Sk
+    (1, 1, 1, 2, 2, 64, True),           # one position
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, hd,
+                                              causal):
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + sk)
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref.attention(q, k, v, causal=causal, block=32)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) <= FLASH_REL_TOL
+    assert build.LAUNCHES["flash_attention"] == 1
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 2, 2, 64)
+    with pytest.raises(ValueError):
+        flash_attention(q.float(), k.float(), v.float())
+    q, k, v = _qkv(cuda, 1, 64, 64, 2, 2, 96)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    assert build.LAUNCHES["flash_attention"] == 0
+
+
+def test_server_prefills_through_the_flash_kernel(cuda):
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models.lm import LM
+    srv = Server("qwen1.5-0.5b", device=cuda, seq_cap=128)
+    # the reduced config's head dim (16) has no kernel instance: widen it
+    srv.cfg = dataclasses.replace(srv.cfg, head_dim=64)
+    srv.model = LM(srv.cfg, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, srv.cfg.vocab, size=n), 4)
+            for i, n in enumerate((32, 64, 96, 32, 64))]
+    done, _, _ = srv.run(reqs)
+    assert build.LAUNCHES["flash_attention"] == \
+        srv.cfg.n_layers * len(reqs)
+    assert all(len(r.out) == 4 and all(0 <= t < srv.cfg.vocab
+                                       for t in r.out) for r in done)
+
+
+def test_serve_cli_runs_the_published_widths(cuda, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "qwen1.5-0.5b", "--requests", "3", "--max-new",
+                "4", "--batch", "2"])
+    assert capsys.readouterr().out.startswith("served 3 requests")
+    assert build.LAUNCHES["flash_attention"] == 24 * 3

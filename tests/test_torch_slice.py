@@ -232,12 +232,15 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     bad = [(f.name, m) for f in files for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
     assert not bad, bad
     code = ("import sys, repro_torch.core, repro_torch.benchmarks.digests, "
-            "repro_torch.interop, repro_torch.kernels.build; "
+            "repro_torch.interop, repro_torch.kernels.build, "
+            "repro_torch.configs, repro_torch.models.lm, "
+            "repro_torch.models.convert, repro_torch.launch.serve, "
+            "repro_torch.benchmarks.serve_consistency; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'repro')]; assert not bad, bad")
+            "('jax', 'ml_dtypes', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(REPO / "src"),
                         "PATH": "/usr/bin:/bin"})
