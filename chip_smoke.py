@@ -8,6 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each:
   1. device   — the card (``nvidia-smi`` name and power limit), torch, CUDA
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``
+     (and the flash library's SASS must hold Hopper's HGMMA and
+                UTMALDG instructions: wgmma and TMA loads)
   3. kernels  — each kernel at the main path's shapes against its plain
                 PyTorch version on the same inputs (the integer kernels
                 EXACTLY equal, flash attention within atol = rtol = 2e-2
@@ -15,13 +17,22 @@ Phases, one line each:
                 mask shown to exceed the latter), with its CUDA-event
                 time, its bound, the plain
                 version's time and, where one PyTorch call computes the
-                same function, that call's time
+                same function, that call's time; flash attention also
+                with its profiler device time, TFLOP/s, CTA tile,
+                registers and shared memory and SDPA's device time; and at
+                every prompt length of the serve phase, with each CTA tile
+                (64 and 128 query rows) also forced (flash_serve)
   4. golden   — the fixed-seed diff/merge workloads on the card, compared
                 with the reference package's recorded digests
   5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
                 snapshot, clone, a 100,000-row update (change set C4),
                 cold and warm SNAPSHOT DIFF, SQL diff and a three-way
-                ACCEPT merge, with every kernel's launch count
+                ACCEPT merge, with every kernel's launch count; then
+                searchsorted at the main path's own shapes: its launches
+                split by query count, and the commonest shape of all, of
+                each group and of the largest table held EXACTLY against
+                the plain version and timed (searchsorted_split; the
+                kernels line takes searchsorted's times from the first)
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -37,6 +48,8 @@ full record goes to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -64,6 +77,7 @@ BF16_FLOPS_PER_S = 989.4e12
 FLASH_SHAPES = ((1, 2048, 2048, 16, 16, 64, True),
                 (1, 4096, 4096, 16, 8, 128, True),
                 (2, 1024, 1500, 16, 16, 64, False))
+FLASH_BLOCK_N = 128         # keys per K/V tile of the kernel
 FLASH_TOL = 2e-2            # atol = rtol, bf16 against the plain version
 # and ||kernel - plain|| / ||plain|| at most this: two bf16 roundings of the
 # output and of p in a different key-tile order give 2-3.5e-3 (plain
@@ -74,12 +88,22 @@ SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_PROMPTS = (512, 1024, 2048, 1536, 768, 2048, 1024, 512)
 SERVE_NEW = 32
 SERVE_CONSIST = (2048, 32)  # prompt length, positions then decoded
+# the flash kernel at every prompt length of the serve phase (qwen1.5-0.5b:
+# 16 heads of 64, causal): the serve path's flash time is the sum over
+# prompts of layers x the kernel's time at that length
+FLASH_SERVE_SHAPES = tuple((1, n, n, 16, 16, 64, True)
+                           for n in sorted(set(SERVE_PROMPTS)))
 # Prefill (flash kernel) vs decode (plain attention) last logits, bf16:
 # ||L1 - L2|| / ||L1|| at most this. On the H100 at full width the bf16
 # rounding noise of this randomly initialised model read 0.059-0.105 over
 # four weight and prompt seeds, and a decode one position ahead or behind
 # 1.31-1.40 (repro_torch.benchmarks.serve_consistency and this check).
 SERVE_REL_TOL = 0.3
+# searchsorted launches of the main path, grouped by query count: the
+# 1-query zone windows of core/table.py, small, Δ-sized and table-sized
+SEARCH_GROUPS = (("1 query", 1, 1), ("2-1023 queries", 2, 1023),
+                 ("1024-999,999 queries", 1024, 999_999),
+                 (">= 1,000,000 queries", 1_000_000, None))
 
 # Digests recorded by the reference package on its fixed-seed workloads:
 # GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
@@ -147,6 +171,22 @@ def bound(nbytes: float, nops: float, flops: float = 0.0):
 
 # ------------------------------------------------------------------ kernels
 
+def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
+               nops) -> dict:
+    """One kernel measurement: its outputs EXACTLY equal to the plain
+    version's (else the run fails), times and bound."""
+    err = max(float((a.to(torch.float64) - b.to(torch.float64))
+                    .abs().max()) if a.numel() else 0.0
+              for a, b in zip(out_k, out_p))
+    exact = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    b_ms, b_by = bound(nbytes, nops)
+    check(exact, f"{name} {shape}: kernel differs from plain version")
+    return {"shape": shape, "ok": exact, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "int_ops": nops}
+
+
 def kernel_phase(torch, seed: int) -> dict:
     """Every kernel at the main path's shapes against its plain version."""
     from repro_torch.kernels import ops, ref
@@ -174,18 +214,8 @@ def kernel_phase(torch, seed: int) -> dict:
 
     results = {}
 
-    def record(name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes, nops):
-        err = max(float((a.to(torch.float64) - b.to(torch.float64))
-                        .abs().max()) if a.numel() else 0.0
-                  for a, b in zip(out_k, out_p))
-        exact = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-        b_ms, b_by = bound(nbytes, nops)
-        results.setdefault(name, []).append({
-            "shape": shape, "ok": exact, "max_abs_err": err,
-            "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "int_ops": nops})
-        check(exact, f"{name} {shape}: kernel differs from plain version")
+    def record(name, *args):
+        results.setdefault(name, []).append(kernel_row(torch, name, *args))
 
     # rowhash: the 12-column lineitem row (24 lanes) and its 2-column key
     for c in (24, 4):
@@ -218,7 +248,9 @@ def kernel_phase(torch, seed: int) -> dict:
            cuda_ms(torch, lambda: ref.probe(t_lo, t_hi, qlo, qhi), 5),
            None, n * 16 + q * 16 + q * 16, q * (depth + 1) * 2 * 10)
 
-    # searchsorted: a tombstone-target-sized table, table-sized queries
+    # searchsorted: a tombstone-target-sized table, table-sized queries (no
+    # main-path launch has as many: searchsorted_split checks and times
+    # the kernel at the main path's own shapes)
     n, q = 100_000, SF1_ROWS
     tab = torch.sort(words(n)).values
     tab = ref.flip(tab)      # ascending as uint64 words
@@ -268,31 +300,48 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
     return full * (full + 1) // 2 + (sq - full) * sk
 
 
-def flash_phase(torch, seed: int) -> list:
+def flash_close(torch, got, want):
+    """(within FLASH_TOL and FLASH_REL_TOL, max abs error, rel-L2 error)."""
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, atol=FLASH_TOL, rtol=FLASH_TOL) and rel <= FLASH_REL_TOL
+    return ok, err, rel
+
+
+def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
+                plain: bool = True, tiles: bool = False) -> list:
     """The flash kernel against its plain version (bf16, FLASH_TOL) and
-    scaled_dot_product_attention (timed only) at FLASH_SHAPES."""
+    scaled_dot_product_attention (timed only) at ``shapes``: CUDA-event
+    time over back-to-back launches (as every kernel here), the device
+    time of the kernel and of SDPA from a profiler trace, TFLOP/s, and
+    the launch configuration. ``plain`` also times the plain version;
+    ``tiles`` also checks and times the kernel with each CTA tile forced
+    (64 and 128 query rows), which tests its choice of tile."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import config, flash_attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     rows, bad = [], []
-    for b, sq, sk, h, kv, hd, causal in FLASH_SHAPES:
+
+    def per_launch_ms(fn, focus):
+        prof = device_profile(torch, lambda: [fn() for _ in range(20)],
+                              focus=focus)
+        return prof["focus_ms"] / 20 if prof["focus_count"] else None
+
+    for b, sq, sk, h, kv, hd, causal in shapes:
         q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
         k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
         v = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
         got = flash_attention(q, k, v, causal=causal).float()
         want = ref.attention(q, k, v, causal=causal, block=256).float()
-        err = float((got - want).abs().max())
-        rel = float((got - want).norm() / want.norm())
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(
-            got, want, atol=FLASH_TOL, rtol=FLASH_TOL) and \
-            rel <= FLASH_REL_TOL
+        ok, err, rel = flash_close(torch, got, want)
         lost_mask = None
-        if sk % 64:     # the kernel's zero-filled key tail, left unmasked
-            pad = (0, 0, 0, 0, 0, -sk % 64)
+        if sk % FLASH_BLOCK_N:  # the zero-filled key tail, left unmasked
+            pad = (0, 0, 0, 0, 0, -sk % FLASH_BLOCK_N)
             lost_mask = float((ref.attention(
                 q, torch.nn.functional.pad(k, pad),
                 torch.nn.functional.pad(v, pad), causal=causal,
@@ -306,20 +355,42 @@ def flash_phase(torch, seed: int) -> list:
         flops = 4.0 * b * h * hd * attention_pairs(sq, sk, causal)
         nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
         b_ms, b_by = bound(nbytes, 0, flops)
+
+        def run(block_m=None):
+            return flash_attention(q, k, v, causal=causal, block_m=block_m)
+
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        ms = cuda_ms(torch, run, 20)
+        dev_ms = per_launch_ms(run, "flash_fwd")
+        # every kernel SDPA launches (the trace holds nothing else)
+        lib_dev_ms = per_launch_ms(lib, "")
+        by_tile = {}
+        for bm in ((64, 128) if tiles else ()):
+            t_ok, t_err, t_rel = flash_close(torch, run(bm).float(), want)
+            ok = ok and t_ok
+            by_tile[str(bm)] = {"ok": t_ok, "max_abs_err": t_err,
+                                "rel_l2_err": t_rel,
+                                "device_ms": per_launch_ms(lambda: run(bm),
+                                                           "flash_fwd")}
         rows.append({
             "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
             "ok": ok, "tol": FLASH_TOL, "rel_tol": FLASH_REL_TOL,
             "max_abs_err": err, "rel_l2_err": rel,
             "lost_mask_rel_l2": lost_mask,
             "library_max_abs_err": lib_err,
-            "ms": cuda_ms(torch, lambda: flash_attention(q, k, v,
-                                                         causal=causal), 20),
+            "ms": ms, "tflops": flops / ms / 1e9,
+            "device_ms": dev_ms,
+            "device_tflops": flops / dev_ms / 1e9 if dev_ms else None,
             "plain_ms": cuda_ms(torch, lambda: ref.attention(
-                q, k, v, causal=causal, block=256), 3),
-            "library_ms": cuda_ms(torch, lambda: sdpa(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), 20),
+                q, k, v, causal=causal, block=256), 3) if plain else None,
+            "library_ms": cuda_ms(torch, lib, 20),
+            "library_device_ms": lib_dev_ms,
+            "device_vs_library": dev_ms / lib_dev_ms
+            if dev_ms and lib_dev_ms else None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops})
+            "flops": flops, "config": config(b, sq, h, hd, dev),
+            "by_block_m": by_tile})
         if not ok:
             bad.append((rows[-1]["shape"], err, rel))
         del q, k, v, qt, kt, vt, got, want
@@ -329,12 +400,26 @@ def flash_phase(torch, seed: int) -> list:
     return rows
 
 
+def hopper_sass(build) -> dict:
+    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    built flash library's SASS (``cuobjdump -sass``); fails without them."""
+    lib = build._lib_path("flash_attention")
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    check(all(counts.values()), f"{lib.name} lacks Hopper's wgmma or TMA "
+                                f"instructions: {counts}")
+    return counts
+
+
 # ----------------------------------------------------------------- mainpath
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, focus: str = "flash_fwd") -> dict:
     """Device busy time under ``fn`` from a torch.profiler trace: the sum
     of kernel time on the card over the host wall time of the window
-    (one stream, so kernels do not overlap), with the largest kernels."""
+    (one stream, so kernels do not overlap), with the largest kernels and
+    the time and count of the kernels whose name holds ``focus``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -352,7 +437,11 @@ def device_profile(torch, fn) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = sorted(kern, key=dev_us, reverse=True)[:8]
+    mine = [e for e in kern if focus in e.key]
     return {"wall_s": wall,
+            "focus": focus,
+            "focus_ms": sum(dev_us(e) for e in mine) / 1e3,
+            "focus_count": sum(e.count for e in mine),
             "device_busy_s": busy if kern else None,
             "busy_share": busy / wall if kern else None,
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
@@ -367,13 +456,125 @@ def span_summary(tracer) -> list:
                           for c in s.children]} for s in tracer.roots]
 
 
+@contextlib.contextmanager
+def searchsorted_shapes(ops):
+    """Count the searchsorted kernel's launches inside the block by
+    (table rows, queries): wraps the kernel entry of ``ops``, which every
+    lower/upper bound and searchsorted128 of the package goes through,
+    and counts where the wrapper launches (a CUDA query, neither side
+    empty). The package's own count, ``build.LAUNCHES``, stays plain."""
+    hist = collections.Counter()
+    kernel = ops._searchsorted_kernel
+
+    def counted(tab, q, side="left"):
+        if q.device.type == "cuda" and q.shape[0] and tab.shape[0]:
+            hist[(int(tab.shape[0]), int(q.shape[0]))] += 1
+        return kernel(tab, q, side)
+    ops._searchsorted_kernel = counted
+    try:
+        yield hist
+    finally:
+        ops._searchsorted_kernel = kernel
+
+
+def split_by_queries(hist: collections.Counter):
+    """The main path's searchsorted launches, a (table rows, queries) ->
+    launches count, in SEARCH_GROUPS by query count: each group's
+    launches, shapes and commonest shape; and the shapes at which to hold
+    the kernel against its plain version: the commonest of all first,
+    each group's commonest, then the largest table's commonest."""
+    def commonest(shapes):
+        return max(shapes.items(), key=lambda kv: (kv[1], kv[0]))[0]
+    groups, checks = [], [commonest(hist)] if hist else []
+    for name, lo, hi in SEARCH_GROUPS:
+        shapes = {k: c for k, c in hist.items()
+                  if k[1] >= lo and (hi is None or k[1] <= hi)}
+        top = sorted(shapes.items(), key=lambda kv: (kv[1], kv[0]),
+                     reverse=True)
+        groups.append({"group": name, "launches": sum(shapes.values()),
+                       "distinct_shapes": len(shapes),
+                       "top_shapes": [[n, q, c] for (n, q), c in top[:5]],
+                       "timed_shape": list(top[0][0]) if top else None})
+        if top:
+            checks.append(top[0][0])
+    if hist:
+        largest = max(n for n, _ in hist)
+        checks.append(commonest({k: c for k, c in hist.items()
+                                 if k[0] == largest}))
+    return groups, list(dict.fromkeys(checks))
+
+
+def searchsorted_split(torch, hist: collections.Counter, seed: int):
+    """The kernel at the main path's own searchsorted shapes
+    (``split_by_queries``): at each, both sides EXACTLY equal to the
+    plain version, with CUDA-event times of the kernel, the plain version
+    and ``torch.searchsorted``, the bound of that shape (the table words
+    its descents can touch, queries and results once), and for the left
+    side the kernel's device time from a profiler trace and the host time
+    of one launch that ends in a synchronize (what a 1-query zone window
+    pays before its ``.tolist()``). Returns the groups, each with its
+    commonest shape's times, and the kernel rows, commonest shape first."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.searchsorted import searchsorted
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    i64 = torch.iinfo(torch.int64)
+
+    def words(n):
+        w = torch.randint(i64.min, i64.max, (n,), generator=g,
+                          device="cuda", dtype=torch.int64)
+        return ref.flip(torch.sort(w).values).contiguous()
+
+    groups, checks = split_by_queries(hist)
+    rows, timed = [], {}
+    for n, q in checks:
+        tab, qs = words(n), words(q)
+        lib_tab, lib_q = ref.flip(tab), ref.flip(qs)
+        depth = max(1, math.ceil(math.log2(n)))
+        for side in ("left", "right"):
+            rows.append(kernel_row(
+                torch, "searchsorted", [n, q, side],
+                (searchsorted(tab, qs, side),),
+                (ref.lower_bound(tab, qs, side),),
+                cuda_ms(torch, lambda: searchsorted(tab, qs, side), 20),
+                cuda_ms(torch, lambda: ref.lower_bound(tab, qs, side), 3),
+                cuda_ms(torch, lambda: torch.searchsorted(
+                    lib_tab, lib_q, side=side), 20),
+                min(n, q * (depth + 1)) * 8 + q * 16, q * (depth + 1) * 6))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            searchsorted(tab, qs)
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        prof = device_profile(
+            torch, lambda: [searchsorted(tab, qs) for _ in range(20)],
+            focus="bound_kernel")
+        rows[-2].update({
+            "device_ms": (prof["focus_ms"] / prof["focus_count"]
+                          if prof["focus_count"] else None),
+            "host_ms_synced": host_ms})
+        timed[(n, q)] = rows[-2]
+        del tab, qs, lib_tab, lib_q
+    for grp in groups:
+        if grp["timed_shape"] is None:
+            continue
+        row = timed[tuple(grp["timed_shape"])]
+        grp.update({f: row[f] for f in ("ms", "device_ms", "host_ms_synced",
+                                        "bound_ms", "bound_by")})
+        grp.update({"launches_x_ms": grp["launches"] * row["ms"],
+                    "launches_x_host_ms": grp["launches"]
+                    * row["host_ms_synced"]})
+    return groups, rows
+
+
 def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
     import numpy as np
 
     from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
     from repro_torch.core import (ConflictMode, snapshot_diff, sql_diff,
                                   telemetry, three_way_merge)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -388,7 +589,7 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         return out
 
     build.reset_launches()
-    with telemetry.trace() as tracer:
+    with searchsorted_shapes(ops) as shapes, telemetry.trace() as tracer:
         engine, base = timed("load_s",
                              lambda: _mk_engine(rows, pk, device=dev))
         tracer.bind(engine)
@@ -415,7 +616,12 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
            "merge": merge, "times_s": times, "launches": launches,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "table_lane_bytes": engine.lane_nbytes("lineitem"),
-           "spans": span_summary(tracer)}
+           "spans": span_summary(tracer),
+           "searchsorted_shapes": [[n, q, c] for (n, q), c in
+                                   sorted(shapes.items())]}
+    check(sum(shapes.values()) == launches["searchsorted"],
+          f"searchsorted shapes count {sum(shapes.values())} launches, "
+          f"the wrapper {launches['searchsorted']}")
 
     def requery():
         engine.store.delta_cache.clear()   # re-scan Δ; visibility is warm
@@ -597,16 +803,31 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         build.build_all()
-        record["build"] = phase("build", seconds=time.perf_counter() - t0,
-                                sources=list(build.SOURCES))
+        seconds = time.perf_counter() - t0
+        record["build"] = phase("build", seconds=seconds,
+                                sources=list(build.SOURCES),
+                                flash_sass=hopper_sass(build))
 
         kern = kernel_phase(torch, args.seed)
         record["kernels"] = kern
+        flash_extra = ("tflops", "device_ms", "device_tflops",
+                       "library_device_ms", "device_vs_library", "config")
         phase("kernels", **{k: [{f: e[f] for f in ("shape", "ok",
                                                    "max_abs_err", "ms",
                                                    "bound_ms", "plain_ms",
                                                    "library_ms")}
+                                | {f: e[f] for f in flash_extra if f in e}
                                 for e in v] for k, v in kern.items()})
+        flash_serve = flash_phase(torch, args.seed, FLASH_SERVE_SHAPES,
+                                  plain=False, tiles=True)
+        record["flash_serve"] = phase("flash_serve", rows=[
+            {f: e[f] for f in ("shape", "ok", "rel_l2_err", "ms", "tflops",
+                               "device_ms", "device_tflops", "library_ms",
+                               "library_device_ms", "bound_ms")}
+            | {"block_m": e["config"]["block_m"],
+               "device_ms_by_block_m": {bm: t["device_ms"] for bm, t in
+                                        e["by_block_m"].items()}}
+            for e in flash_serve])
 
         gold = {}
         for pk in (True, False):
@@ -622,10 +843,27 @@ def main(argv=None) -> int:
         for pk in (True, False):
             rec = mainpath_phase(torch, pk, args.rows, args.change)
             runs.append(rec)
-            phase("mainpath", **rec)
+            phase("mainpath", **{k: v for k, v in rec.items()
+                                 if k != "searchsorted_shapes"})
         record["mainpath"] = runs
+        hist = collections.Counter()
+        for rec in runs:
+            hist.update({(n, q): c for n, q, c in rec["searchsorted_shapes"]})
+        groups, search_rows = searchsorted_split(torch, hist, args.seed)
+        record["searchsorted_split"] = phase(
+            "searchsorted_split", groups=groups, checked=[
+                {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms",
+                                   "plain_ms", "library_ms", "bound_ms")}
+                for e in search_rows])
+        # the kernels line reads the first row: the main path's commonest
+        # shape, not the kernels phase's table-sized one
+        kern["searchsorted"] = search_rows + kern["searchsorted"]
 
         serve = serve_phase(torch, args.seed)
+        by_len = {e["shape"][1]: e["device_ms"] for e in flash_serve}
+        if all(by_len.values()):
+            serve["flash_ms_from_kernel_times"] = sum(
+                serve["n_layers"] * by_len[n] for n in SERVE_PROMPTS)
         record["serve"] = serve
         phase("serve", **{k: v for k, v in serve.items()
                           if not k.startswith("profile")})
@@ -647,7 +885,7 @@ def main(argv=None) -> int:
     }
     line = []
     for name in build.SOURCES:
-        e = kern[name][0]   # the first (largest main-path) shape
+        e = kern[name][0]   # the first (a main-path) shape
         line.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -8,6 +8,7 @@ CUDA tensor launches the kernel; a CPU tensor runs the plain version,
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -16,16 +17,26 @@ from . import build, ref
 NAME = "flash_attention"
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
+#: fields of :func:`config`, in the order ``rt_flash_attention_config``
+#: writes them
+CONFIG_FIELDS = ("block_m", "block_n", "stages", "threads", "regs",
+                 "producer_regs", "consumer_regs", "smem_bytes",
+                 "static_smem_bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, block: int = 256) -> torch.Tensor:
+                    causal: bool = True, block: int = 256,
+                    block_m: Optional[int] = None) -> torch.Tensor:
     """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) with H % KV == 0 -> (B,Sq,H,hd).
 
     On the card: bf16, contiguous, hd in :data:`HEAD_DIMS`; anything else
-    raises ``ValueError`` (no cast, no fallback). The kernel's tiles are
-    fixed (64 query rows x 64 keys); ``block`` is the plain version's
-    block size on the CPU, which changes only the order of float sums."""
+    raises ``ValueError`` (no cast, no fallback). The kernel chooses its
+    own tiles (:func:`config`) unless ``block_m`` (64 or 128 query rows
+    per CTA) forces them, for timing that choice. ``block`` is the plain
+    version's block size on the CPU, which changes only the order of
+    float sums."""
+    if block_m not in (None, 64, 128):
+        raise ValueError(f"{NAME}: block_m {block_m} is not 64 or 128")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, block=block)
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
@@ -46,14 +57,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if Sq == 0 or B == 0:
         return o
-    fn = build.c_function(NAME, "rt_flash_attention", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+    args = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p] + [ctypes.c_int] * 7
     dev = q.device.index
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.launched(NAME, fn(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), B, Sq, Sk, H, KV, hd, int(causal),
-                            stream))
+    sizes = (dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+             Sq, Sk, H, KV, hd, int(causal))
+    if block_m is None:
+        fn = build.c_function(NAME, "rt_flash_attention",
+                              args + [ctypes.c_void_p])
+        build.launched(NAME, fn(*sizes, stream))
+    else:
+        fn = build.c_function(NAME, "rt_flash_attention_rows",
+                              args + [ctypes.c_int, ctypes.c_void_p])
+        build.launched(NAME, fn(*sizes, block_m, stream))
     return o
+
+
+def config(b: int, sq: int, h: int, hd: int, device=None) -> dict:
+    """The launch configuration the kernel takes for these sizes on a CUDA
+    ``device``: the CTA tile (``block_m`` query rows, ``block_n`` keys),
+    ring stages, threads, registers per thread (at launch, and after
+    ``setmaxnreg`` for the producer and consumer warpgroups) and shared
+    memory per CTA. Builds the kernel if needed; launches nothing."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {hd} not in {HEAD_DIMS}")
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    fn = build.c_function(NAME, "rt_flash_attention_config", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(CONFIG_FIELDS))()
+    err = fn(index, b, sq, h, hd, out)
+    if err:
+        raise RuntimeError(f"{NAME} config query failed: CUDA error {err}")
+    return dict(zip(CONFIG_FIELDS, out))

@@ -199,6 +199,17 @@ def _qkv(dev, b, sq, sk, h, kv, hd, seed=0):
     (1, 64, 150, 4, 2, 64, True),        # top-left causal, Sq < Sk
     (1, 150, 64, 4, 4, 64, True),        # causal, Sq > Sk
     (1, 1, 1, 2, 2, 64, True),           # one position
+    # the K/V ring wraps several times (8 key tiles over 3 / 2 stages)
+    (1, 1024, 1024, 4, 4, 64, True),
+    (1, 1024, 1024, 4, 4, 128, True),
+    # Sk off the TMA box at a batch boundary: a tile that read batch b + 1
+    # instead of zeros would show; with 24 heads the CTAs take 128 rows
+    (3, 200, 200, 24, 8, 128, False),
+    (3, 150, 200, 4, 4, 64, False),
+    # the serving shape at a short prompt: the 64-row tile of small grids
+    (1, 512, 512, 16, 16, 64, True),
+    # 128-row tiles, causal, ragged Sq, GQA 5:1
+    (2, 1000, 1000, 80, 16, 64, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, hd,
                                               causal):
@@ -212,6 +223,40 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, hd,
     assert float((got.float() - want.float()).norm()
                  / want.float().norm()) <= FLASH_REL_TOL
     assert build.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (1, 1024, 1024, 4, 4, 128, True),    # the ring wraps
+    (2, 1000, 1000, 80, 16, 64, True),   # causal, ragged Sq, GQA 5:1
+    (3, 150, 200, 4, 4, 64, False),      # Sk off the box, B > 1
+])
+def test_flash_attention_forced_tiles_match_plain(cuda, block_m, b, sq, sk,
+                                                  h, kv, hd, causal):
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + sk)
+    got = flash_attention(q, k, v, causal=causal, block_m=block_m).float()
+    want = ref.attention(q, k, v, causal=causal, block=32).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= FLASH_REL_TOL
+    assert build.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("b,sq,h,hd,block_m", [
+    (1, 512, 16, 64, 64),      # 64 CTAs of 128 rows would idle half the SMs
+    (1, 1024, 16, 64, 64),
+    (1, 1536, 16, 64, 128),
+    (1, 2048, 16, 64, 128),
+    (1, 4096, 16, 128, 128),
+])
+def test_flash_attention_config_takes_the_tile_by_grid(cuda, b, sq, h, hd,
+                                                       block_m):
+    from repro_torch.kernels.flash_attention import config
+    cfg = config(b, sq, h, hd, cuda)
+    assert cfg["block_m"] == block_m and cfg["block_n"] == 128
+    assert cfg["threads"] == 128 * (block_m // 64 + 1)
+    assert cfg["stages"] >= 2 and 0 < cfg["regs"] <= 255
+    assert cfg["smem_bytes"] <= 232448
+    assert build.LAUNCHES["flash_attention"] == 0
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
