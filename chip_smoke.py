@@ -30,9 +30,19 @@ Phases, one line each:
                 ACCEPT merge, with every kernel's launch count; then
                 searchsorted at the main path's own shapes: its launches
                 split by query count, and the commonest shape of all, of
-                each group and of the largest table held EXACTLY against
-                the plain version and timed (searchsorted_split; the
-                kernels line takes searchsorted's times from the first)
+                each group, of the largest table and of the zone windows
+                held EXACTLY against the plain version (both entries: a
+                side for all queries, a side per query) and timed
+                (searchsorted_split; the kernels line takes
+                searchsorted's times from the first); probe alike
+                (probe_split: launches by table rows and queries, each
+                checked shape EXACTLY equal to the plain version, with
+                event, device and synced host times; the kernels line
+                takes probe's times from its commonest shape); then
+                launch_cost, the host cost of one searchsorted call at
+                100,000 x 1 step by step: an empty C call through ctypes,
+                the stream read, the allocation, the checks, the C call
+                that launches, the whole wrapper, and torch.searchsorted
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -50,6 +60,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -104,6 +115,14 @@ SERVE_REL_TOL = 0.3
 SEARCH_GROUPS = (("1 query", 1, 1), ("2-1023 queries", 2, 1023),
                  ("1024-999,999 queries", 1024, 999_999),
                  (">= 1,000,000 queries", 1_000_000, None))
+# probe launches of the main path, grouped by query count: a 32-query tile
+# and less, up to a thousand, the per-object share of a Δ-sized probe
+# (C4's 100,000 keys over the objects of an SF1 table), and more
+PROBE_GROUPS = (("1-32 queries", 1, 32), ("33-1023 queries", 33, 1023),
+                ("1024-65,535 queries", 1024, 65_535),
+                (">= 65,536 queries", 65_536, None))
+# table rows, queries: one query, so the launch is all of a call's cost
+LAUNCH_COST_SHAPE = (100_000, 1)
 
 # Digests recorded by the reference package on its fixed-seed workloads:
 # GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
@@ -457,65 +476,121 @@ def span_summary(tracer) -> list:
 
 
 @contextlib.contextmanager
-def searchsorted_shapes(ops):
-    """Count the searchsorted kernel's launches inside the block by
-    (table rows, queries): wraps the kernel entry of ``ops``, which every
-    lower/upper bound and searchsorted128 of the package goes through,
-    and counts where the wrapper launches (a CUDA query, neither side
-    empty). The package's own count, ``build.LAUNCHES``, stays plain."""
+def kernel_shapes(ops, entry: str, q_arg: int):
+    """Count the launches of the kernel entry ``ops.<entry>`` inside the
+    block by (table rows, queries), the table being its first argument
+    and the queries its ``q_arg``-th: wraps the entry, which every caller
+    in the package goes through, and counts where the wrapper launches (a
+    CUDA query, neither side empty). The package's own count,
+    ``build.LAUNCHES``, stays plain."""
     hist = collections.Counter()
-    kernel = ops._searchsorted_kernel
+    kernel = getattr(ops, entry)
 
-    def counted(tab, q, side="left"):
+    def counted(*args, **kwargs):
+        tab, q = args[0], args[q_arg]
         if q.device.type == "cuda" and q.shape[0] and tab.shape[0]:
             hist[(int(tab.shape[0]), int(q.shape[0]))] += 1
-        return kernel(tab, q, side)
-    ops._searchsorted_kernel = counted
+        return kernel(*args, **kwargs)
+    setattr(ops, entry, counted)
     try:
         yield hist
     finally:
-        ops._searchsorted_kernel = kernel
+        setattr(ops, entry, kernel)
 
 
-def split_by_queries(hist: collections.Counter):
-    """The main path's searchsorted launches, a (table rows, queries) ->
-    launches count, in SEARCH_GROUPS by query count: each group's
-    launches, shapes and commonest shape; and the shapes at which to hold
-    the kernel against its plain version: the commonest of all first,
-    each group's commonest, then the largest table's commonest."""
+def searchsorted_shapes(ops):
+    """searchsorted's launches by (table rows, queries) through its
+    one-side entry: every lower/upper bound and searchsorted128 of the
+    package."""
+    return kernel_shapes(ops, "_searchsorted_kernel", 1)
+
+
+def window_shapes(ops):
+    """searchsorted's launches by (table rows, queries) through its
+    per-query-side entry: the zone windows of one sorted probe call."""
+    return kernel_shapes(ops, "_searchsorted_sides_kernel", 1)
+
+
+def probe_shapes(ops):
+    """probe's launches by (table rows, queries): every probe128."""
+    return kernel_shapes(ops, "_probe_kernel", 2)
+
+
+def split_by_queries(hist: collections.Counter, groups=SEARCH_GROUPS):
+    """A kernel's main-path launches, a (table rows, queries) -> launches
+    count, in ``groups`` by query count: each group's launches, shapes
+    and commonest shape; and the shapes at which to hold the kernel
+    against its plain version: the commonest of all first, each group's
+    commonest, then the largest table's commonest."""
     def commonest(shapes):
         return max(shapes.items(), key=lambda kv: (kv[1], kv[0]))[0]
-    groups, checks = [], [commonest(hist)] if hist else []
-    for name, lo, hi in SEARCH_GROUPS:
+    split, checks = [], [commonest(hist)] if hist else []
+    for name, lo, hi in groups:
         shapes = {k: c for k, c in hist.items()
                   if k[1] >= lo and (hi is None or k[1] <= hi)}
         top = sorted(shapes.items(), key=lambda kv: (kv[1], kv[0]),
                      reverse=True)
-        groups.append({"group": name, "launches": sum(shapes.values()),
-                       "distinct_shapes": len(shapes),
-                       "top_shapes": [[n, q, c] for (n, q), c in top[:5]],
-                       "timed_shape": list(top[0][0]) if top else None})
+        split.append({"group": name, "launches": sum(shapes.values()),
+                      "distinct_shapes": len(shapes),
+                      "top_shapes": [[n, q, c] for (n, q), c in top[:5]],
+                      "timed_shape": list(top[0][0]) if top else None})
         if top:
             checks.append(top[0][0])
     if hist:
         largest = max(n for n, _ in hist)
         checks.append(commonest({k: c for k, c in hist.items()
                                  if k[0] == largest}))
-    return groups, list(dict.fromkeys(checks))
+    return split, list(dict.fromkeys(checks))
 
 
-def searchsorted_split(torch, hist: collections.Counter, seed: int):
+def launch_times(torch, fn, focus: str) -> dict:
+    """The kernel's device time per launch from a profiler trace of 20
+    launches (``focus``: the kernel's own name), and the host time of one
+    launch that ends in a synchronize."""
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    prof = device_profile(torch, lambda: [fn() for _ in range(20)],
+                          focus=focus)
+    return {"device_ms": (prof["focus_ms"] / prof["focus_count"]
+                          if prof["focus_count"] else None),
+            "host_ms_synced": host_ms}
+
+
+def time_groups(groups: list, timed: dict) -> list:
+    """Each group with its commonest shape's times (``timed``: shape ->
+    kernel row) and its launches times them."""
+    for grp in groups:
+        if grp["timed_shape"] is None:
+            continue
+        row = timed[tuple(grp["timed_shape"])]
+        grp.update({f: row[f] for f in ("ms", "device_ms", "host_ms_synced",
+                                        "bound_ms", "bound_by")})
+        grp.update({"launches_x_ms": grp["launches"] * row["ms"],
+                    "launches_x_host_ms": grp["launches"]
+                    * row["host_ms_synced"]})
+    return groups
+
+
+def searchsorted_split(torch, hist: collections.Counter, seed: int,
+                       windows: collections.Counter = None):
     """The kernel at the main path's own searchsorted shapes
     (``split_by_queries``): at each, both sides EXACTLY equal to the
     plain version, with CUDA-event times of the kernel, the plain version
     and ``torch.searchsorted``, the bound of that shape (the table words
     its descents can touch, queries and results once), and for the left
     side the kernel's device time from a profiler trace and the host time
-    of one launch that ends in a synchronize (what a 1-query zone window
-    pays before its ``.tolist()``). Returns the groups, each with its
+    of one launch that ends in a synchronize (what a zone-window launch
+    pays before its ``.tolist()``), and the per-query-side entry with the
+    first half of the queries left, the rest right, as the zone windows
+    call it. ``windows``, the zone windows' own launches, adds their
+    commonest shape to the checks. Returns the groups, each with its
     commonest shape's times, and the kernel rows, commonest shape first."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.searchsorted import searchsorted
+    from repro_torch.kernels.searchsorted import (searchsorted,
+                                                  searchsorted_sides)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -527,6 +602,9 @@ def searchsorted_split(torch, hist: collections.Counter, seed: int):
         return ref.flip(torch.sort(w).values).contiguous()
 
     groups, checks = split_by_queries(hist)
+    if windows:
+        top = max(windows.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        checks = list(dict.fromkeys(checks + [top]))
     rows, timed = [], {}
     for n, q in checks:
         tab, qs = words(n), words(q)
@@ -542,30 +620,150 @@ def searchsorted_split(torch, hist: collections.Counter, seed: int):
                 cuda_ms(torch, lambda: torch.searchsorted(
                     lib_tab, lib_q, side=side), 20),
                 min(n, q * (depth + 1)) * 8 + q * 16, q * (depth + 1) * 6))
-        t0 = time.perf_counter()
-        for _ in range(20):
-            searchsorted(tab, qs)
-            torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / 20 * 1e3
-        prof = device_profile(
-            torch, lambda: [searchsorted(tab, qs) for _ in range(20)],
-            focus="bound_kernel")
-        rows[-2].update({
-            "device_ms": (prof["focus_ms"] / prof["focus_count"]
-                          if prof["focus_count"] else None),
-            "host_ms_synced": host_ms})
+        rows[-2].update(launch_times(torch, lambda: searchsorted(tab, qs),
+                                     "bound_kernel"))
         timed[(n, q)] = rows[-2]
+        # the per-query-side entry: the first half left, the rest right
+        # (no single library call takes a side per query)
+        k = q // 2
+        rows.append(kernel_row(
+            torch, "searchsorted", [n, q, f"sides {k}/{q - k}"],
+            (searchsorted_sides(tab, qs, k),),
+            (ref.lower_bound_sides(tab, qs, k),),
+            cuda_ms(torch, lambda: searchsorted_sides(tab, qs, k), 20),
+            cuda_ms(torch, lambda: ref.lower_bound_sides(tab, qs, k), 3),
+            None, min(n, q * (depth + 1)) * 8 + q * 16, q * (depth + 1) * 6))
         del tab, qs, lib_tab, lib_q
-    for grp in groups:
-        if grp["timed_shape"] is None:
-            continue
-        row = timed[tuple(grp["timed_shape"])]
-        grp.update({f: row[f] for f in ("ms", "device_ms", "host_ms_synced",
-                                        "bound_ms", "bound_by")})
-        grp.update({"launches_x_ms": grp["launches"] * row["ms"],
-                    "launches_x_host_ms": grp["launches"]
-                    * row["host_ms_synced"]})
-    return groups, rows
+    return time_groups(groups, timed), rows
+
+
+def probe_split(torch, hist: collections.Counter, seed: int):
+    """The probe kernel at the main path's own shapes (``split_by_queries``
+    over PROBE_GROUPS): at each, EXACTLY equal to the plain version, with
+    CUDA-event times of the kernel and the plain version, its device time
+    from a profiler trace, the host time of one launch that ends in a
+    synchronize, and the bound of that shape (the table rows its descents
+    can touch, queries and results once, 16 bytes each). Returns the
+    groups, each with its commonest shape's times, and the kernel rows,
+    commonest shape first."""
+    from repro_torch.benchmarks.probe_steps import probe_inputs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.probe import probe
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    groups, checks = split_by_queries(hist, PROBE_GROUPS)
+    rows, timed = [], {}
+    for n, q in checks:
+        args = probe_inputs(g, n, q)
+        depth = max(1, math.ceil(math.log2(n)))
+        row = kernel_row(
+            torch, "probe", [n, q], probe(*args), ref.probe(*args),
+            cuda_ms(torch, lambda: probe(*args), 20),
+            cuda_ms(torch, lambda: ref.probe(*args), 3), None,
+            min(n, q * (depth + 1)) * 16 + q * 16 + q * 16,
+            q * (depth + 1) * 2 * 10)
+        row.update(launch_times(torch, lambda: probe(*args), "probe_kernel"))
+        rows.append(row)
+        timed[(n, q)] = row
+        del args
+    return time_groups(groups, timed), rows
+
+
+def empty_c_function(build, argtypes):
+    """A C function of rt_searchsorted's C signature (``argtypes``) that
+    returns at once, built with the kernels' own nvcc flags and bound
+    through ctypes as the wrappers bind theirs: the floor of a call's
+    ctypes cost."""
+    work = ROOT / "build" / "launch_cost"
+    work.mkdir(parents=True, exist_ok=True)
+    src, lib = work / "empty.cu", work / "libempty.so"
+    src.write_text("#include <cstdint>\n"
+                   "extern \"C\" int rt_empty(int, const void*, int64_t, "
+                   "const void*, int64_t, int, void*, void*) { return 0; }\n")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).rt_empty
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
+    """Host cost of one searchsorted call at LAUNCH_COST_SHAPE, step by
+    step: each step's host µs per call over ``iters`` back-to-back calls
+    (a step that launches a kernel enqueues it; the card keeps up, as a
+    launch here takes a few µs of device time), then the whole wrapper
+    and torch.searchsorted by CUDA events and with a synchronize each."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.searchsorted import _ONE_SIDE, searchsorted
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i64 = torch.iinfo(torch.int64)
+    n, nq = LAUNCH_COST_SHAPE
+    tab = ref.flip(torch.sort(torch.randint(
+        i64.min, i64.max, (n,), generator=g, device=dev,
+        dtype=torch.int64)).values).contiguous()
+    q = tab[n // 3:n // 3 + nq].clone()
+    lib_tab, lib_q = ref.flip(tab), ref.flip(q)
+    out = torch.empty_like(q)
+    c_fn = build.c_function("searchsorted", "rt_searchsorted",
+                            _ONE_SIDE.argtypes)
+    empty = empty_c_function(build, _ONE_SIDE.argtypes)
+    di = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (di, tab.data_ptr(), n, q.data_ptr(), nq, 0, out.data_ptr(),
+            stream)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    def synced_us(fn):
+        return host_us(lambda: (fn(), torch.cuda.synchronize()))
+
+    steps = {
+        "ctypes_empty_call": lambda: empty(*args),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_current_stream": lambda: torch._C._cuda_getCurrentRawStream(di),
+        "torch_empty": lambda: torch.empty(q.shape, dtype=torch.int64,
+                                           device=q.device),
+        "empty_like": lambda: torch.empty_like(q),
+        "new_empty": lambda: q.new_empty((nq,)),
+        # the bound C entry as the wrapper calls it: stream read, launch,
+        # error check and count
+        "launcher_call": lambda: _ONE_SIDE(*args[:-1]),
+        "check_cuda_x2": lambda: (
+            build.check_cuda(tab, torch.int64, 1, "tab"),
+            build.check_cuda(q, torch.int64, 1, "q")),
+        "c_function_lookup": lambda: build.c_function(
+            "searchsorted", "rt_searchsorted", _ONE_SIDE.argtypes),
+        "c_call_with_launch": lambda: c_fn(*args),
+        "wrapper": lambda: searchsorted(tab, q),
+        "torch_searchsorted": lambda: torch.searchsorted(lib_tab, lib_q),
+    }
+    rec = {"shape": [n, nq], "iters": iters,
+           "host_us": {k: host_us(f) for k, f in steps.items()},
+           "synced_host_us": {
+               "wrapper": synced_us(lambda: searchsorted(tab, q)),
+               "torch_searchsorted": synced_us(
+                   lambda: torch.searchsorted(lib_tab, lib_q))},
+           "events_ms": {
+               "wrapper": cuda_ms(torch, lambda: searchsorted(tab, q), 200),
+               "torch_searchsorted": cuda_ms(torch, lambda: torch.searchsorted(
+                   lib_tab, lib_q), 200)}}
+    check(torch.equal(searchsorted(tab, q),
+                      torch.searchsorted(lib_tab, lib_q)),
+          "searchsorted differs from torch.searchsorted at the launch-cost "
+          "shape")
+    return rec
 
 
 def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
@@ -589,7 +787,8 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         return out
 
     build.reset_launches()
-    with searchsorted_shapes(ops) as shapes, telemetry.trace() as tracer:
+    with searchsorted_shapes(ops) as shapes, window_shapes(ops) as wshapes, \
+            probe_shapes(ops) as pshapes, telemetry.trace() as tracer:
         engine, base = timed("load_s",
                              lambda: _mk_engine(rows, pk, device=dev))
         tracer.bind(engine)
@@ -617,11 +816,18 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "table_lane_bytes": engine.lane_nbytes("lineitem"),
            "spans": span_summary(tracer),
+           "zone_window_launches": sum(wshapes.values()),
+           "zone_window_shapes": [[n, q, c] for (n, q), c in
+                                  sorted(wshapes.items())],
            "searchsorted_shapes": [[n, q, c] for (n, q), c in
-                                   sorted(shapes.items())]}
-    check(sum(shapes.values()) == launches["searchsorted"],
-          f"searchsorted shapes count {sum(shapes.values())} launches, "
-          f"the wrapper {launches['searchsorted']}")
+                                   sorted((shapes + wshapes).items())],
+           "probe_shapes": [[n, q, c] for (n, q), c in
+                            sorted(pshapes.items())]}
+    for name, hist in (("searchsorted", shapes + wshapes),
+                       ("probe", pshapes)):
+        check(sum(hist.values()) == launches[name],
+              f"{name} shapes count {sum(hist.values())} launches, "
+              f"the wrapper {launches[name]}")
 
     def requery():
         engine.store.delta_cache.clear()   # re-scan Δ; visibility is warm
@@ -844,12 +1050,17 @@ def main(argv=None) -> int:
             rec = mainpath_phase(torch, pk, args.rows, args.change)
             runs.append(rec)
             phase("mainpath", **{k: v for k, v in rec.items()
-                                 if k != "searchsorted_shapes"})
+                                 if not k.endswith("_shapes")})
         record["mainpath"] = runs
-        hist = collections.Counter()
-        for rec in runs:
-            hist.update({(n, q): c for n, q, c in rec["searchsorted_shapes"]})
-        groups, search_rows = searchsorted_split(torch, hist, args.seed)
+
+        def main_hist(key):
+            hist = collections.Counter()
+            for rec in runs:
+                hist.update({(n, q): c for n, q, c in rec[key]})
+            return hist
+        groups, search_rows = searchsorted_split(
+            torch, main_hist("searchsorted_shapes"), args.seed,
+            main_hist("zone_window_shapes"))
         record["searchsorted_split"] = phase(
             "searchsorted_split", groups=groups, checked=[
                 {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms",
@@ -858,6 +1069,17 @@ def main(argv=None) -> int:
         # the kernels line reads the first row: the main path's commonest
         # shape, not the kernels phase's table-sized one
         kern["searchsorted"] = search_rows + kern["searchsorted"]
+        groups, probe_rows = probe_split(torch, main_hist("probe_shapes"),
+                                         args.seed)
+        record["probe_split"] = phase(
+            "probe_split", groups=groups, checked=[
+                {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms",
+                                   "device_ms", "host_ms_synced", "plain_ms",
+                                   "bound_ms")}
+                for e in probe_rows])
+        kern["probe"] = probe_rows + kern["probe"]
+        record["launch_cost"] = phase("launch_cost",
+                                      **launch_cost(torch, args.seed))
 
         serve = serve_phase(torch, args.seed)
         by_len = {e["shape"][1]: e["device_ms"] for e in flash_serve}

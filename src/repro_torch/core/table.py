@@ -25,11 +25,19 @@ def _is_sorted_lo(lo: torch.Tensor) -> bool:
     return bool((f[1:] >= f[:-1]).all())
 
 
-def _zone_window(q_lo: torch.Tensor, zone: torch.Tensor) -> Tuple[int, int]:
-    """[a, b): the slice of lo-sorted queries inside an object's zone."""
-    ab = torch.cat([ops.lower_bound(q_lo, zone[:1]),
-                    ops.upper_bound(q_lo, zone[1:])]).tolist()
-    return int(ab[0]), int(ab[1])
+def _zone_windows(q_lo: torch.Tensor,
+                  objs: List[DataObject]) -> List[Tuple[int, int]]:
+    """[a, b) per non-empty object: the slice of lo-sorted queries inside
+    its zone (its first and last key_lo; objects are key-sorted). One
+    searchsorted launch takes every zone's minimum on the left and its
+    maximum on the right, and one host read brings the windows back."""
+    k = len(objs)
+    if k == 0:
+        return []
+    edges = torch.cat([o.key_lo[:1] for o in objs]
+                      + [o.key_lo[-1:] for o in objs])
+    ab = ops.lower_upper_bound(q_lo, edges, k).tolist()
+    return list(zip(ab[:k], ab[k:]))
 
 
 def _in_zone(q_lo: torch.Tensor, zone: torch.Tensor) -> torch.Tensor:
@@ -151,18 +159,17 @@ class Table:
         m = self._store.metrics
         m.add("probe.queries", q)
         out = _i64(q, key_lo.device)
-        # sorted queries turn each object's zone filter into two binary
-        # searches + one unresolved scan over the window
+        # sorted queries turn each object's zone filter into its window of
+        # the queries (every window from one launch) + one unresolved scan
         srt = q > 1 and _is_sorted_lo(key_lo)
         pending = None if srt else torch.arange(q, device=key_lo.device)
-        for oid in reversed(d.data_oids):  # newest objects first
+        objs = self._live_objects(d)        # newest objects first
+        wins = _zone_windows(key_lo, objs) if srt else [None] * len(objs)
+        for obj, win in zip(objs, wins):
             if pending is not None and pending.shape[0] == 0:
                 break
-            obj: DataObject = self._store.get(oid)
-            if obj.nrows == 0:
-                continue
             if srt:
-                a, b = _zone_window(key_lo, obj.zone)
+                a, b = win
                 cand = (a + torch.nonzero(out[a:b] == 0).flatten() if b > a
                         else _i64(0, key_lo.device))
             else:
@@ -178,6 +185,11 @@ class Table:
             if not srt:
                 pending = torch.cat([pending[~sel], cand[~hit]])
         return out
+
+    def _live_objects(self, d: Directory) -> List[DataObject]:
+        """The directory's non-empty data objects, newest first."""
+        objs = (self._store.get(oid) for oid in reversed(d.data_oids))
+        return [obj for obj in objs if obj.nrows]
 
     def _probe_object(self, obj: DataObject, vi, q_lo: torch.Tensor,
                       q_hi: torch.Tensor) -> torch.Tensor:
@@ -232,12 +244,11 @@ class Table:
         part_qids: List[torch.Tensor] = []
         remaining = need.to(device=dev, dtype=torch.int64).clone()
         srt = q > 1 and _is_sorted_lo(sig_lo)
-        for oid in reversed(d.data_oids):
-            obj: DataObject = self._store.get(oid)
-            if obj.nrows == 0:
-                continue
+        objs = self._live_objects(d)
+        wins = _zone_windows(sig_lo, objs) if srt else [None] * len(objs)
+        for obj, win in zip(objs, wins):
             if srt:
-                a, b = _zone_window(sig_lo, obj.zone)
+                a, b = win
                 act = (a + torch.nonzero(remaining[a:b] > 0).flatten()
                        if b > a else _i64(0, dev))
             else:

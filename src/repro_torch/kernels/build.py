@@ -10,6 +10,12 @@ rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the first wrapper that launches a
 kernel calls :func:`library`, and :func:`build_all` (used by
 ``chip_smoke.py``) starts one ``nvcc`` per source, all at once.
+
+Every wrapper launches through a :class:`Launcher`, and the path is lean
+because most main-path launches (searchsorted, probe) cost far more host
+time than device time: the C entry is bound once, the caller's current
+stream is read as a raw handle, and :func:`check_cuda` passes a good
+tensor with one test.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,10 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
-#: kernel name -> launches since the last reset. A wrapper adds one where
-#: it launches its CUDA kernel and nowhere else (the CPU path of a wrapper
-#: runs the plain version and does not count), so a run can prove that
-#: the main path went through the kernels.
+#: kernel name -> launches since the last reset. A wrapper's Launcher adds
+#: one where it launches its CUDA kernel and nowhere else (the CPU path of
+#: a wrapper runs the plain version and does not count), so a run can
+#: prove that the main path went through the kernels.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 
@@ -126,8 +134,45 @@ def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+class Launcher:
+    """One C entry of a kernel library, bound on its first launch (not
+    looked up per call), launching on the caller's current stream.
+
+    ``launcher(device, *args)`` calls the entry as ``fn(device, *args,
+    stream)`` with the raw handle of ``device``'s current stream (so a
+    launch under ``torch.cuda.stream(s)`` lands on ``s``), raises on a
+    non-zero CUDA error and counts the launch in :data:`LAUNCHES`."""
+
+    __slots__ = ("name", "symbol", "argtypes", "_fn", "_stream")
+
+    def __init__(self, name: str, symbol: str, argtypes) -> None:
+        self.name, self.symbol, self.argtypes = name, symbol, argtypes
+        self._fn = None
+        self._stream = None
+
+    def __call__(self, device: int, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._bind()
+        err = fn(device, *args, self._stream(device))
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES[self.name] += 1
+
+    def _bind(self):
+        # the raw cudaStream_t of the device's current stream, without the
+        # Python Stream object torch.cuda.current_stream builds per call
+        self._stream = torch._C._cuda_getCurrentRawStream
+        self._fn = c_function(self.name, self.symbol, self.argtypes)
+        return self._fn
+
+
 def check_cuda(t, dtype, ndim: int, what: str) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of dtype/rank."""
+    if t.is_cuda and t.dtype == dtype and t.dim() == ndim \
+            and t.is_contiguous():
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype or t.dim() != ndim:
@@ -135,10 +180,3 @@ def check_cuda(t, dtype, ndim: int, what: str) -> None:
                          f"{t.dim()}-d {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
-
-
-def launched(name: str, err: int) -> None:
-    """Account one launch of kernel ``name``; raise on a CUDA error."""
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1

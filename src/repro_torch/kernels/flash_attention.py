@@ -22,6 +22,12 @@ HEAD_DIMS = (64, 128)
 CONFIG_FIELDS = ("block_m", "block_n", "stages", "threads", "regs",
                  "producer_regs", "consumer_regs", "smem_bytes",
                  "static_smem_bytes")
+# (device, q, k, v, o, B, Sq, Sk, H, KV, hd, causal[, block_m], stream)
+_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p] + [ctypes.c_int] * 7
+_FLASH = build.Launcher(NAME, "rt_flash_attention", _ARGS + [ctypes.c_void_p])
+_FLASH_ROWS = build.Launcher(NAME, "rt_flash_attention_rows",
+                             _ARGS + [ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -57,20 +63,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if Sq == 0 or B == 0:
         return o
-    args = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p] + [ctypes.c_int] * 7
-    dev = q.device.index
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sizes = (dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-             Sq, Sk, H, KV, hd, int(causal))
+    sizes = (q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), B, Sq, Sk, H, KV, hd, int(causal))
     if block_m is None:
-        fn = build.c_function(NAME, "rt_flash_attention",
-                              args + [ctypes.c_void_p])
-        build.launched(NAME, fn(*sizes, stream))
+        _FLASH(*sizes)
     else:
-        fn = build.c_function(NAME, "rt_flash_attention_rows",
-                              args + [ctypes.c_int, ctypes.c_void_p])
-        build.launched(NAME, fn(*sizes, block_m, stream))
+        _FLASH_ROWS(*sizes, block_m)
     return o
 
 

@@ -22,6 +22,7 @@ from .flash_attention import flash_attention as _flash_kernel
 from .probe import probe as _probe_kernel
 from .rowhash import signatures as _rowhash_kernel
 from .searchsorted import searchsorted as _searchsorted_kernel
+from .searchsorted import searchsorted_sides as _searchsorted_sides_kernel
 from .segsum_diff import segsum as _segsum_kernel
 
 flip = ref.flip
@@ -71,6 +72,14 @@ def upper_bound(sorted_w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     the maximum word."""
     return _searchsorted_kernel(sorted_w.contiguous(), q.contiguous(),
                                 "right")
+
+
+def lower_upper_bound(sorted_w: torch.Tensor, q: torch.Tensor,
+                      n_left: int) -> torch.Tensor:
+    """``lower_bound`` of ``q[:n_left]`` and ``upper_bound`` of
+    ``q[n_left:]`` (unsigned), in one launch; int64."""
+    return _searchsorted_sides_kernel(sorted_w.contiguous(), q.contiguous(),
+                                      n_left)
 
 
 def searchsorted128(t_lo: torch.Tensor, t_hi: torch.Tensor,

@@ -75,21 +75,28 @@ def lower_bound(tab: torch.Tensor, q: torch.Tensor,
     """Branchless fixed-depth bound of uint64 queries in an ascending
     uint64 table (both int64 bits): numpy ``searchsorted(tab, q, side)``.
     The same descent the CUDA kernel runs, one query per element."""
+    return lower_bound_sides(tab, q, 0 if side == "right" else q.shape[0])
+
+
+def lower_bound_sides(tab: torch.Tensor, q: torch.Tensor,
+                      n_left: int) -> torch.Tensor:
+    """:func:`lower_bound` with a side per query: "left" for
+    ``q[:n_left]``, "right" for the rest (the kernel's second entry)."""
     n = tab.shape[0]
     if n == 0 or q.shape[0] == 0:
         return torch.zeros(q.shape, dtype=torch.int64, device=q.device)
     t, k = flip(tab), flip(q)
-    right = side == "right"
+    right = torch.arange(q.shape[0], device=q.device) >= n_left
     base = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
     length = n
     while length > 1:
         half = length >> 1
         v = t[base + half]
-        go = (v <= k) if right else (v < k)
+        go = (v < k) | (right & (v == k))
         base = base + go.to(torch.int64) * half
         length -= half
     v = t[base]
-    return base + ((v <= k) if right else (v < k)).to(torch.int64)
+    return base + ((v < k) | (right & (v == k))).to(torch.int64)
 
 
 def _less128(a_lo, a_hi, b_lo, b_hi):
@@ -101,7 +108,9 @@ def probe(t_lo: torch.Tensor, t_hi: torch.Tensor, q_lo: torch.Tensor,
           q_hi: torch.Tensor):
     """Fused 128-bit probe of a (lo, hi)-sorted table: per query the exact
     lower bound ``start`` and the equal-key run length ``cnt`` (int64).
-    Both descents share one fixed-depth loop, as in the CUDA kernel."""
+    A lower- and an upper-bound descent share one fixed-depth loop; the
+    CUDA kernel reaches the same two numbers by other paths (a tile's
+    shared-memory sample, a forward scan for the run)."""
     n = t_lo.shape[0]
     nq = q_lo.shape[0]
     dev = q_lo.device

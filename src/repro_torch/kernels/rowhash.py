@@ -14,6 +14,11 @@ from . import build, ref
 
 NAME = "rowhash"
 
+# (device, lanes, rows, cols, lo, hi, stream)
+_ROWHASH = build.Launcher(NAME, "rt_rowhash", [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
 
 def signatures(lanes: torch.Tensor):
     """(R, C) int32 lanes (uint32 bits) -> (sig_lo, sig_hi) (R,) int64
@@ -27,11 +32,6 @@ def signatures(lanes: torch.Tensor):
     hi = torch.empty((r,), dtype=torch.int64, device=lanes.device)
     if r == 0:
         return lo, hi
-    fn = build.c_function(NAME, "rt_rowhash", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    dev = lanes.device.index
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.launched(NAME, fn(dev, lanes.data_ptr(), r, c, lo.data_ptr(),
-                            hi.data_ptr(), stream))
+    _ROWHASH(lanes.get_device(), lanes.data_ptr(), r, c, lo.data_ptr(),
+             hi.data_ptr())
     return lo, hi

@@ -16,6 +16,12 @@ from . import build, ref
 NAME = "segsum_diff"
 TILE = 1024  # elements per block of the kernel's first pass
 
+# (device, lo, hi, r_lo, r_hi, signs, n, boundary, csum, scratch, stream)
+_SEGSUM = build.Launcher(NAME, "rt_segsum", [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
 
 def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
            r_lo=None, r_hi=None):
@@ -40,15 +46,9 @@ def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
         return bnd, csum
     scratch = torch.empty(((n + TILE - 1) // TILE,), dtype=torch.int32,
                           device=lo.device)
-    fn = build.c_function(NAME, "rt_segsum", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    dev = lo.device.index
-    stream = torch.cuda.current_stream(dev).cuda_stream
     r_lo_p = None if r_lo is None else r_lo.data_ptr()
     r_hi_p = None if r_hi is None else r_hi.data_ptr()
-    build.launched(NAME, fn(dev, lo.data_ptr(), hi.data_ptr(), r_lo_p,
-                            r_hi_p, signs.data_ptr(), n, bnd.data_ptr(),
-                            csum.data_ptr(), scratch.data_ptr(), stream))
+    _SEGSUM(lo.get_device(), lo.data_ptr(), hi.data_ptr(), r_lo_p, r_hi_p,
+            signs.data_ptr(), n, bnd.data_ptr(), csum.data_ptr(),
+            scratch.data_ptr())
     return bnd, csum

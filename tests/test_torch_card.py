@@ -29,7 +29,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
-from repro_torch.kernels.searchsorted import searchsorted
+from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
 from chip_smoke import FLASH_REL_TOL, GOLDEN, GOLDEN_MERGE
 
@@ -106,6 +106,125 @@ def test_probe_kernel_matches_plain(cuda, n, lo_dom, hi_dom):
                      _t(q_hi, "cpu"))
     for k, p in zip(got, want):
         _equal(k, p)
+
+
+@pytest.mark.parametrize("n,nq", [(1, 9), (1000, 46), (100_000, 46),
+                                  (65_537, 3000)])
+def test_searchsorted_per_query_side_matches_numpy(cuda, n, nq):
+    rng = np.random.default_rng(n + nq)
+    tab = np.sort(np.concatenate([_u64(rng, n - n // 4),
+                                  _u64(rng, n // 4, 50)]))
+    q = np.concatenate([rng.choice(tab, nq - 4),
+                        np.asarray([0, 2**63 - 1, 2**63, 2**64 - 1],
+                                   np.uint64)])
+    for k in sorted({0, 1, nq // 2, nq - 1, nq}):
+        got = searchsorted_sides(_t(tab, cuda), _t(q, cuda), k)
+        want = np.concatenate([np.searchsorted(tab, q[:k], "left"),
+                               np.searchsorted(tab, q[k:], "right")])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        _equal(got, ref.lower_bound_sides(_t(tab, "cpu"), _t(q, "cpu"), k))
+    assert build.LAUNCHES["searchsorted"] == len({0, 1, nq // 2, nq - 1, nq})
+
+
+def _sorted_keys(lo, hi):
+    o = np.lexsort((hi, lo))
+    return lo[o], hi[o]
+
+
+def _probe_case(case, rng):
+    """(table lo, hi sorted by (lo, hi); queries lo, hi) for one case."""
+    n = 262_144
+    lo, hi = _sorted_keys(_u64(rng, n), _u64(rng, n))
+    if case == "one-row windows":      # each tile repeats one key (or gap)
+        pick = np.sort(rng.integers(0, n, 40))
+        q_lo, q_hi = np.repeat(lo[pick], 32), np.repeat(hi[pick], 32)
+        q_hi[32 * 20:] += np.uint64(1)          # the last 20 tiles miss
+        return lo, hi, *_sorted_keys(q_lo, q_hi)
+    if case in ("thousands of rows", "unsorted", "half-sorted"):
+        pick = rng.integers(0, n, 2175)        # the main path's shape
+        q_lo = np.concatenate([lo[pick], _u64(rng, 2175)])
+        q_hi = np.concatenate([hi[pick], _u64(rng, 2175)])
+        q_lo, q_hi = _sorted_keys(q_lo, q_hi)
+        if case == "unsorted":
+            o = rng.permutation(q_lo.shape[0])
+            q_lo, q_hi = q_lo[o], q_hi[o]
+        elif case == "half-sorted":            # every other tile reversed
+            for a in range(0, q_lo.shape[0], 64):
+                q_lo[a:a + 32] = q_lo[a:a + 32][::-1].copy()
+                q_hi[a:a + 32] = q_hi[a:a + 32][::-1].copy()
+        return lo, hi, q_lo, q_hi
+    if case == "whole table":          # one tile spans every row
+        return lo, hi, *_sorted_keys(_u64(rng, 40), _u64(rng, 40))
+    if case == "ragged last tile":
+        pick = rng.integers(0, n, 1000)
+        return lo, hi, *_sorted_keys(lo[pick], hi[pick])
+    if case == "n = 1":
+        one_lo, one_hi = _u64(rng, 1), _u64(rng, 1)
+        q_lo = np.concatenate([one_lo, one_lo, one_lo, _u64(rng, 60)])
+        q_hi = np.concatenate([one_hi, one_hi - np.uint64(1),
+                               one_hi + np.uint64(1), _u64(rng, 60)])
+        return one_lo, one_hi, *_sorted_keys(q_lo, q_hi)
+    if case == "below and above":      # table in the middle of the range
+        mid_lo, mid_hi = _sorted_keys(
+            rng.integers(2**62, 2**63, 5000, dtype=np.uint64),
+            _u64(rng, 5000))
+        q_lo = np.concatenate([np.zeros(40, np.uint64), mid_lo[:3],
+                               np.full(40, 2**64 - 1, np.uint64)])
+        q_hi = np.concatenate([_u64(rng, 40), mid_hi[:3], _u64(rng, 40)])
+        return mid_lo, mid_hi, *_sorted_keys(q_lo, q_hi)
+    if case == "long runs":            # equal keys past the forward scan,
+        base_lo, base_hi = _u64(rng, 3000, 900), _u64(rng, 3000, 2)
+        lens = rng.integers(1, 40, 3000)   # and lo64 collision runs
+        lo, hi = _sorted_keys(np.repeat(base_lo, lens),
+                              np.repeat(base_hi, lens))
+        pick = rng.integers(0, lo.shape[0], 3000)
+        q_lo = np.concatenate([lo[pick], _u64(rng, 500, 900)])
+        q_hi = np.concatenate([hi[pick], _u64(rng, 500, 3)])
+        return lo, hi, *_sorted_keys(q_lo, q_hi)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "one-row windows", "thousands of rows", "whole table", "unsorted",
+    "half-sorted", "ragged last tile", "n = 1", "below and above",
+    "long runs"])
+def test_probe_kernel_paths_match_plain(cuda, case):
+    rng = np.random.default_rng(list(case.encode()))
+    arrays = _probe_case(case, rng)
+    got = probe(*(_t(a, cuda) for a in arrays))
+    want = ref.probe(*(_t(a, "cpu") for a in arrays))
+    for k, p in zip(got, want):
+        _equal(k, p)
+    if case == "long runs":
+        assert int(want[1].max()) > 4     # runs longer than the scan
+    assert build.LAUNCHES["probe"] == 1
+
+
+def test_kernels_launch_on_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` a launch lands on ``s``: its queries
+    are written on ``s`` behind a sleep, so a kernel on another stream
+    would read them before they are there."""
+    rng = np.random.default_rng(11)
+    lo, hi = _sorted_keys(_u64(rng, 70_000), _u64(rng, 70_000))
+    pick = np.sort(rng.integers(0, 70_000, 3000))
+    t_lo, t_hi, want_lo, want_hi = (_t(a, cuda) for a in
+                                    (lo, hi, lo[pick], hi[pick]))
+    q_lo, q_hi = torch.zeros_like(want_lo), torch.zeros_like(want_hi)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+        q_lo.copy_(want_lo)
+        q_hi.copy_(want_hi)
+        start, cnt = probe(t_lo, t_hi, q_lo, q_hi)
+        bounds = searchsorted_sides(t_lo, q_lo, 1500)
+        left = searchsorted(t_lo, q_lo)
+    s.synchronize()
+    np.testing.assert_array_equal(start.cpu().numpy(), pick)
+    assert bool((cnt == 1).all())
+    np.testing.assert_array_equal(left.cpu().numpy(), pick)
+    np.testing.assert_array_equal(bounds.cpu().numpy(), np.concatenate(
+        [pick[:1500], pick[1500:] + 1]))
 
 
 @pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 3 * 1024 * 1024 + 5])
