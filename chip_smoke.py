@@ -40,9 +40,9 @@ Phases, one line each:
                 event, device and synced host times; the kernels line
                 takes probe's times from its commonest shape); then
                 launch_cost, the host cost of one searchsorted call at
-                100,000 x 1 step by step: an empty C call through ctypes,
-                the stream read, the allocation, the checks, the C call
-                that launches, the whole wrapper, and torch.searchsorted
+                100,000 x 1 step by step: the stream read, the
+                allocation, the checks, the C call that launches, the
+                whole wrapper, and torch.searchsorted
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -60,7 +60,6 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
-import ctypes
 import json
 import math
 import subprocess
@@ -188,6 +187,48 @@ def bound(nbytes: float, nops: float, flops: float = 0.0):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def touched_rows(n: int, q: int) -> int:
+    """Distinct rows of a sorted ``n``-row table that the descents of
+    ``q`` sorted queries read: level l of the search tree holds 2**l rows,
+    of which the queries reach at most q, over levels 0..ceil(log2 n),
+    and never more than the table."""
+    depth = max(1, math.ceil(math.log2(n)))
+    return min(n, sum(min(1 << lvl, q) for lvl in range(depth + 1)))
+
+
+def random_words(torch, g, n: int):
+    """``n`` uniform int64 words on ``g``'s device."""
+    i64 = torch.iinfo(torch.int64)
+    return torch.randint(i64.min, i64.max, (n,), generator=g,
+                         device=g.device, dtype=torch.int64)
+
+
+def sorted_pairs(torch, g, n: int, collide_every: int = 0):
+    """``n`` random 128-bit keys (lo, hi) sorted by (lo, hi); with
+    ``collide_every`` k, every k-th key shares its lo word with the one
+    before (lo64 collisions: equal lo, distinct hi)."""
+    from repro_torch.kernels import ops
+    lo, hi = random_words(torch, g, n), random_words(torch, g, n)
+    if collide_every:
+        lo[1::collide_every] = lo[::collide_every][:lo[1::collide_every]
+                                                   .shape[0]]
+    o = ops._sort128(lo, hi)
+    return lo[o].contiguous(), hi[o].contiguous()
+
+
+def probe_inputs(torch, g, n: int, q: int, collide_every: int = 0):
+    """A sealed object's ``n`` keys and ``q`` queries, both sorted by (lo,
+    hi), as the main path hands them to probe: half the table's keys,
+    half keys it does not hold."""
+    from repro_torch.kernels import ops
+    lo, hi = sorted_pairs(torch, g, n, collide_every)
+    pick = torch.randint(0, n, (q // 2,), generator=g, device=g.device)
+    q_lo = torch.cat([lo[pick], random_words(torch, g, q - q // 2)])
+    q_hi = torch.cat([hi[pick], random_words(torch, g, q - q // 2)])
+    o = ops._sort128(q_lo, q_hi)
+    return lo, hi, q_lo[o].contiguous(), q_hi[o].contiguous()
+
+
 # ------------------------------------------------------------------ kernels
 
 def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
@@ -208,7 +249,7 @@ def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
 
 def kernel_phase(torch, seed: int) -> dict:
     """Every kernel at the main path's shapes against its plain version."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.probe import probe
     from repro_torch.kernels.rowhash import signatures
     from repro_torch.kernels.searchsorted import searchsorted
@@ -217,19 +258,9 @@ def kernel_phase(torch, seed: int) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    i64 = torch.iinfo(torch.int64)
 
     def words(n):
-        return torch.randint(i64.min, i64.max, (n,), generator=g,
-                             device=dev, dtype=torch.int64)
-
-    def sorted_pairs(n, collide_every=0):
-        lo, hi = words(n), words(n)
-        if collide_every:      # lo64 collisions: equal lo, distinct hi
-            lo[1::collide_every] = lo[::collide_every][:lo[1::collide_every]
-                                                       .shape[0]]
-        o = ops._sort128(lo, hi)
-        return lo[o].contiguous(), hi[o].contiguous()
+        return random_words(torch, g, n)
 
     results = {}
 
@@ -254,18 +285,13 @@ def kernel_phase(torch, seed: int) -> dict:
 
     # probe: one sealed object at capacity, sorted queries (hits + misses)
     n = q = 1 << 18
-    t_lo, t_hi = sorted_pairs(n, collide_every=97)
-    pick = torch.randint(0, n, (q // 2,), generator=g, device=dev)
-    qlo = torch.cat([t_lo[pick], words(q - q // 2)])
-    qhi = torch.cat([t_hi[pick], words(q - q // 2)])
-    o = ops._sort128(qlo, qhi)
-    qlo, qhi = qlo[o].contiguous(), qhi[o].contiguous()
+    t_lo, t_hi, qlo, qhi = probe_inputs(torch, g, n, q, collide_every=97)
     depth = max(1, math.ceil(math.log2(n)))
     record("probe", [n, q], probe(t_lo, t_hi, qlo, qhi),
            ref.probe(t_lo, t_hi, qlo, qhi),
            cuda_ms(torch, lambda: probe(t_lo, t_hi, qlo, qhi), 50),
            cuda_ms(torch, lambda: ref.probe(t_lo, t_hi, qlo, qhi), 5),
-           None, n * 16 + q * 16 + q * 16, q * (depth + 1) * 2 * 10)
+           None, touched_rows(n, q) * 16 + q * 32, q * (depth + 1) * 2 * 10)
 
     # searchsorted: a tombstone-target-sized table, table-sized queries (no
     # main-path launch has as many: searchsorted_split checks and times
@@ -284,12 +310,12 @@ def kernel_phase(torch, seed: int) -> dict:
                cuda_ms(torch, lambda: ref.lower_bound(tab, qs, side), 3),
                cuda_ms(torch, lambda: torch.searchsorted(
                    lib_tab, lib_q, side=side), 20),
-               n * 8 + q * 8 + q * 8, q * (depth + 1) * 6)
+               touched_rows(n, q) * 8 + q * 16, q * (depth + 1) * 6)
 
     # segsum: a Δ-sized stream and a table-sized one, PK-shaped (runs of
     # equal keys whose row signatures differ, signs +-1)
     for n in (200_000, SF1_ROWS):
-        k_lo, k_hi = sorted_pairs(n)
+        k_lo, k_hi = sorted_pairs(torch, g, n)
         dup = torch.rand(n, generator=g, device=dev) < 0.5
         dup[0] = False
         k_lo = torch.where(dup, k_lo.roll(1), k_lo).contiguous()
@@ -585,20 +611,19 @@ def searchsorted_split(torch, hist: collections.Counter, seed: int,
     of one launch that ends in a synchronize (what a zone-window launch
     pays before its ``.tolist()``), and the per-query-side entry with the
     first half of the queries left, the rest right, as the zone windows
-    call it. ``windows``, the zone windows' own launches, adds their
-    commonest shape to the checks. Returns the groups, each with its
-    commonest shape's times, and the kernel rows, commonest shape first."""
+    call it, with the same device and host times. ``windows``, the zone
+    windows' own launches, adds their commonest shape to the checks.
+    Returns the groups, each with its commonest shape's times, and the
+    kernel rows, commonest shape first."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.searchsorted import (searchsorted,
                                                   searchsorted_sides)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    i64 = torch.iinfo(torch.int64)
 
     def words(n):
-        w = torch.randint(i64.min, i64.max, (n,), generator=g,
-                          device="cuda", dtype=torch.int64)
+        w = random_words(torch, g, n)
         return ref.flip(torch.sort(w).values).contiguous()
 
     groups, checks = split_by_queries(hist)
@@ -619,7 +644,7 @@ def searchsorted_split(torch, hist: collections.Counter, seed: int,
                 cuda_ms(torch, lambda: ref.lower_bound(tab, qs, side), 3),
                 cuda_ms(torch, lambda: torch.searchsorted(
                     lib_tab, lib_q, side=side), 20),
-                min(n, q * (depth + 1)) * 8 + q * 16, q * (depth + 1) * 6))
+                touched_rows(n, q) * 8 + q * 16, q * (depth + 1) * 6))
         rows[-2].update(launch_times(torch, lambda: searchsorted(tab, qs),
                                      "bound_kernel"))
         timed[(n, q)] = rows[-2]
@@ -632,7 +657,9 @@ def searchsorted_split(torch, hist: collections.Counter, seed: int,
             (ref.lower_bound_sides(tab, qs, k),),
             cuda_ms(torch, lambda: searchsorted_sides(tab, qs, k), 20),
             cuda_ms(torch, lambda: ref.lower_bound_sides(tab, qs, k), 3),
-            None, min(n, q * (depth + 1)) * 8 + q * 16, q * (depth + 1) * 6))
+            None, touched_rows(n, q) * 8 + q * 16, q * (depth + 1) * 6))
+        rows[-1].update(launch_times(
+            torch, lambda: searchsorted_sides(tab, qs, k), "bound_kernel"))
         del tab, qs, lib_tab, lib_q
     return time_groups(groups, timed), rows
 
@@ -646,7 +673,6 @@ def probe_split(torch, hist: collections.Counter, seed: int):
     can touch, queries and results once, 16 bytes each). Returns the
     groups, each with its commonest shape's times, and the kernel rows,
     commonest shape first."""
-    from repro_torch.benchmarks.probe_steps import probe_inputs
     from repro_torch.kernels import ref
     from repro_torch.kernels.probe import probe
 
@@ -655,14 +681,13 @@ def probe_split(torch, hist: collections.Counter, seed: int):
     groups, checks = split_by_queries(hist, PROBE_GROUPS)
     rows, timed = [], {}
     for n, q in checks:
-        args = probe_inputs(g, n, q)
+        args = probe_inputs(torch, g, n, q)
         depth = max(1, math.ceil(math.log2(n)))
         row = kernel_row(
             torch, "probe", [n, q], probe(*args), ref.probe(*args),
             cuda_ms(torch, lambda: probe(*args), 20),
             cuda_ms(torch, lambda: ref.probe(*args), 3), None,
-            min(n, q * (depth + 1)) * 16 + q * 16 + q * 16,
-            q * (depth + 1) * 2 * 10)
+            touched_rows(n, q) * 16 + q * 32, q * (depth + 1) * 2 * 10)
         row.update(launch_times(torch, lambda: probe(*args), "probe_kernel"))
         rows.append(row)
         timed[(n, q)] = row
@@ -670,52 +695,26 @@ def probe_split(torch, hist: collections.Counter, seed: int):
     return time_groups(groups, timed), rows
 
 
-def empty_c_function(build, argtypes):
-    """A C function of rt_searchsorted's C signature (``argtypes``) that
-    returns at once, built with the kernels' own nvcc flags and bound
-    through ctypes as the wrappers bind theirs: the floor of a call's
-    ctypes cost."""
-    work = ROOT / "build" / "launch_cost"
-    work.mkdir(parents=True, exist_ok=True)
-    src, lib = work / "empty.cu", work / "libempty.so"
-    src.write_text("#include <cstdint>\n"
-                   "extern \"C\" int rt_empty(int, const void*, int64_t, "
-                   "const void*, int64_t, int, void*, void*) { return 0; }\n")
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).rt_empty
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
     """Host cost of one searchsorted call at LAUNCH_COST_SHAPE, step by
     step: each step's host µs per call over ``iters`` back-to-back calls
     (a step that launches a kernel enqueues it; the card keeps up, as a
     launch here takes a few µs of device time), then the whole wrapper
-    and torch.searchsorted by CUDA events and with a synchronize each."""
+    and torch.searchsorted by CUDA events and with a synchronize each.
+    The steps are those the wrapper takes: the stream read, the
+    allocation, the two checks and the bound C entry that launches."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.searchsorted import _ONE_SIDE, searchsorted
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    i64 = torch.iinfo(torch.int64)
     n, nq = LAUNCH_COST_SHAPE
-    tab = ref.flip(torch.sort(torch.randint(
-        i64.min, i64.max, (n,), generator=g, device=dev,
-        dtype=torch.int64)).values).contiguous()
+    tab = ref.flip(torch.sort(random_words(torch, g, n)).values).contiguous()
     q = tab[n // 3:n // 3 + nq].clone()
     lib_tab, lib_q = ref.flip(tab), ref.flip(q)
     out = torch.empty_like(q)
-    c_fn = build.c_function("searchsorted", "rt_searchsorted",
-                            _ONE_SIDE.argtypes)
-    empty = empty_c_function(build, _ONE_SIDE.argtypes)
     di = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (di, tab.data_ptr(), n, q.data_ptr(), nq, 0, out.data_ptr(),
-            stream)
 
     def host_us(fn):
         fn()
@@ -730,22 +729,16 @@ def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
         return host_us(lambda: (fn(), torch.cuda.synchronize()))
 
     steps = {
-        "ctypes_empty_call": lambda: empty(*args),
-        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "raw_current_stream": lambda: torch._C._cuda_getCurrentRawStream(di),
-        "torch_empty": lambda: torch.empty(q.shape, dtype=torch.int64,
-                                           device=q.device),
         "empty_like": lambda: torch.empty_like(q),
-        "new_empty": lambda: q.new_empty((nq,)),
-        # the bound C entry as the wrapper calls it: stream read, launch,
-        # error check and count
-        "launcher_call": lambda: _ONE_SIDE(*args[:-1]),
         "check_cuda_x2": lambda: (
             build.check_cuda(tab, torch.int64, 1, "tab"),
             build.check_cuda(q, torch.int64, 1, "q")),
-        "c_function_lookup": lambda: build.c_function(
-            "searchsorted", "rt_searchsorted", _ONE_SIDE.argtypes),
-        "c_call_with_launch": lambda: c_fn(*args),
+        # the bound C entry as the wrapper calls it: stream read, launch,
+        # error check and count
+        "launcher_call": lambda: _ONE_SIDE(di, tab.data_ptr(), n,
+                                           q.data_ptr(), nq, 0,
+                                           out.data_ptr()),
         "wrapper": lambda: searchsorted(tab, q),
         "torch_searchsorted": lambda: torch.searchsorted(lib_tab, lib_q),
     }
@@ -1063,8 +1056,9 @@ def main(argv=None) -> int:
             main_hist("zone_window_shapes"))
         record["searchsorted_split"] = phase(
             "searchsorted_split", groups=groups, checked=[
-                {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms",
-                                   "plain_ms", "library_ms", "bound_ms")}
+                {f: e.get(f) for f in ("shape", "ok", "max_abs_err", "ms",
+                                       "device_ms", "plain_ms", "library_ms",
+                                       "bound_ms")}
                 for e in search_rows])
         # the kernels line reads the first row: the main path's commonest
         # shape, not the kernels phase's table-sized one

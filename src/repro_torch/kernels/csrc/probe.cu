@@ -11,10 +11,12 @@
 // Bound. On the main path a sealed object of up to 262,144 rows (4 MiB of
 // key lanes) takes the sorted queries inside its zone: about 4,350 of the
 // 100,000 keys of an SF1 change set. The bytes that must move are the
-// table rows the descents can touch, min(n, q (log2 n + 1)) x 16 B ~ 1.3
-// MB, plus queries and results at 16 B each: ~0.4 us at 3.35 TB/s. What
-// the card waits on is the chain of dependent loads, each a trip to L2,
-// and the launch's own ~0.9 us of device time sits on top.
+// distinct table rows the descents can touch: sorted queries share the
+// upper levels, so level l gives at most min(2^l, q) rows, ~34,200 rows x
+// 16 B ~ 0.55 MB at 4,333 queries, plus queries and results at 16 B each:
+// ~0.69 MB, ~0.2 us at 3.35 TB/s. What the card waits on is the chain of
+// dependent loads, each a trip to L2, and the launch's own ~0.9 us of
+// device time sits on top.
 //
 // Design: one warp takes a tile of 32 consecutive queries, one CTA each,
 // so ~4,350 queries make ~136 CTAs over the 132 SMs, and cuts the chain

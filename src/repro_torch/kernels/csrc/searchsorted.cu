@@ -30,17 +30,15 @@
 
 namespace {
 
-// kSide: 0 every query left, 1 every query right, 2 queries [0, n_left)
-// left and the rest right (the per-query test costs the one-side
-// entries nothing)
-template <int kSide>
+// Queries [0, n_left) take side left and the rest side right: one
+// kernel serves both entries (a one-side launch passes n_left = nq or 0).
 __global__ void bound_kernel(const uint64_t* __restrict__ tab, int64_t n,
                              const uint64_t* __restrict__ q, int64_t nq,
                              int64_t n_left, int64_t* __restrict__ out) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nq) return;
   const uint64_t key = q[i];
-  const bool right = kSide == 1 || (kSide == 2 && i >= n_left);
+  const bool right = i >= n_left;
   int64_t base = 0;
   int64_t len = n;
   while (len > 1) {
@@ -67,13 +65,7 @@ int launch(int device, const void* tab, int64_t n, const void* q, int64_t nq,
   const uint64_t* t = static_cast<const uint64_t*>(tab);
   const uint64_t* qq = static_cast<const uint64_t*>(q);
   int64_t* o = static_cast<int64_t*>(out);
-  if (n_left >= nq) {
-    bound_kernel<0><<<blocks, kThreads, 0, s>>>(t, n, qq, nq, n_left, o);
-  } else if (n_left <= 0) {
-    bound_kernel<1><<<blocks, kThreads, 0, s>>>(t, n, qq, nq, n_left, o);
-  } else {
-    bound_kernel<2><<<blocks, kThreads, 0, s>>>(t, n, qq, nq, n_left, o);
-  }
+  bound_kernel<<<blocks, kThreads, 0, s>>>(t, n, qq, nq, n_left, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -273,12 +273,29 @@ def test_probe_groups_split_the_main_path_shapes():
     assert checks == [(262_144, 4_333)]
 
 
-def test_probe_steps_cut_the_kernel_after_each_anchor():
-    from repro_torch.benchmarks import probe_steps
-    whole = probe_steps.cut_source(len(probe_steps.STEPS))
-    assert whole == (build.CSRC / "probe.cu").read_text()
-    for k, (name, anchor, code) in enumerate(probe_steps.STEPS):
-        cut = probe_steps.cut_source(k)
-        assert whole.split("\n").count(anchor) == 1, name
-        assert cut.count(code) == 1
-        assert cut.index(code) == cut.index(anchor) + len(anchor) + 1
+def _rows_read_by_descents(tab: np.ndarray, qs: np.ndarray) -> int:
+    """Distinct rows that searchsorted.cu's fixed-depth lower-bound
+    descent reads for every query of ``qs``."""
+    base, length = np.zeros(qs.shape[0], np.int64), tab.shape[0]
+    read = set()
+    while length > 1:
+        half = length >> 1
+        read.update((base + half).tolist())
+        base = np.where(tab[base + half] < qs, base + half, base)
+        length -= half
+    read.update(base.tolist())
+    return len(read)
+
+
+@pytest.mark.parametrize("n,q", [(1, 3), (4_096, 1), (4_096, 100),
+                                 (65_536, 700), (1_000, 5_000)])
+def test_touched_rows_bounds_what_sorted_descents_read(n, q):
+    rng = np.random.default_rng(n + q)
+    tab = np.sort(rng.integers(0, U64_MAX, n, dtype=np.uint64))
+    qs = np.sort(rng.integers(0, U64_MAX, q, dtype=np.uint64))
+    rows = chip_smoke.touched_rows(n, q)
+    read = _rows_read_by_descents(tab, qs)
+    assert read <= rows <= n
+    if q == 1:     # one row per level; the last may repeat a pivot
+        assert rows == max(1, int(np.ceil(np.log2(n)))) + 1
+        assert rows - 1 <= read
