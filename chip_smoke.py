@@ -38,7 +38,14 @@ Phases, one line each:
                 (probe_split: launches by table rows and queries, each
                 checked shape EXACTLY equal to the plain version, with
                 event, device and synced host times; the kernels line
-                takes probe's times from its commonest shape); then
+                takes probe's times from its commonest shape); segsum
+                alike (segsum_split: launches by stream rows and row
+                pair, every such shape, the commonest, largest and
+                Δ-sized marked, EXACTLY equal to the plain version, with
+                event, device and synced host times, the bound, launches
+                x ms, and torch.cumsum's time, the scan half only; the
+                kernels line takes segsum's times from its commonest
+                shape); then
                 launch_cost, the host cost of one searchsorted call at
                 100,000 x 1 step by step: the stream read, the
                 allocation, the checks, the C call that launches, the
@@ -122,6 +129,12 @@ PROBE_GROUPS = (("1-32 queries", 1, 32), ("33-1023 queries", 33, 1023),
                 (">= 65,536 queries", 65_536, None))
 # table rows, queries: one query, so the launch is all of a call's cost
 LAUNCH_COST_SHAPE = (100_000, 1)
+# the segsum kernel's name in a profiler trace
+SEGSUM_FOCUS = "segsum_scan"
+# segsum_split's library_ms: no one PyTorch call computes the flags and the
+# sums together, so it times the sums alone and says so
+SCAN_HALF = ("torch.cumsum(signs, dtype=torch.int32): the scan half only, "
+             "not the same function")
 
 # Digests recorded by the reference package on its fixed-seed workloads:
 # GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
@@ -229,6 +242,34 @@ def probe_inputs(torch, g, n: int, q: int, collide_every: int = 0):
     return lo, hi, q_lo[o].contiguous(), q_hi[o].contiguous()
 
 
+def segsum_inputs(torch, g, n: int, pair: bool = True):
+    """A key-sorted signed stream of ``n`` rows as the main path hands it
+    to segsum: half the keys repeat the one before (runs of equal keys),
+    signs +-1, and with ``pair`` a row-signature pair whose lo word
+    repeats the one before half the time (PK; NoPK compares the key
+    alone). Returns segsum's arguments (lo, hi, signs[, r_lo, r_hi])."""
+    dev = g.device
+    k_lo, k_hi = sorted_pairs(torch, g, n)
+    dup = torch.rand(n, generator=g, device=dev) < 0.5
+    dup[0] = False
+    k_lo = torch.where(dup, k_lo.roll(1), k_lo).contiguous()
+    k_hi = torch.where(dup, k_hi.roll(1), k_hi).contiguous()
+    if pair:
+        r_lo, r_hi = random_words(torch, g, n), random_words(torch, g, n)
+        r_lo = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                           r_lo.roll(1), r_lo).contiguous()
+    sg = (torch.randint(0, 2, (n,), generator=g, device=dev,
+                        dtype=torch.int32) * 2 - 1)
+    return (k_lo, k_hi, sg) + ((r_lo, r_hi) if pair else ())
+
+
+def segsum_bound(n: int, pair: bool):
+    """Bytes and integer operations of one segsum call: the key words (16
+    bytes a row, 32 with the row pair), the sign, the flag and the sum
+    once each; a few compares and adds a row."""
+    return n * (41 if pair else 25), n * (20 if pair else 12)
+
+
 # ------------------------------------------------------------------ kernels
 
 def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
@@ -313,25 +354,17 @@ def kernel_phase(torch, seed: int) -> dict:
                touched_rows(n, q) * 8 + q * 16, q * (depth + 1) * 6)
 
     # segsum: a Δ-sized stream and a table-sized one, PK-shaped (runs of
-    # equal keys whose row signatures differ, signs +-1)
+    # equal keys whose row signatures differ, signs +-1; segsum_split
+    # checks and times the main path's own shapes)
     for n in (200_000, SF1_ROWS):
-        k_lo, k_hi = sorted_pairs(torch, g, n)
-        dup = torch.rand(n, generator=g, device=dev) < 0.5
-        dup[0] = False
-        k_lo = torch.where(dup, k_lo.roll(1), k_lo).contiguous()
-        k_hi = torch.where(dup, k_hi.roll(1), k_hi).contiguous()
-        r_lo, r_hi = words(n), words(n)
-        r_lo = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
-                           r_lo.roll(1), r_lo).contiguous()
-        sg = (torch.randint(0, 2, (n,), generator=g, device=dev,
-                            dtype=torch.int32) * 2 - 1)
-        record("segsum_diff", [n],
-               segsum(k_lo, k_hi, sg, r_lo, r_hi),
-               ref.segsum(k_lo, k_hi, sg, r_lo, r_hi),
-               cuda_ms(torch, lambda: segsum(k_lo, k_hi, sg, r_lo, r_hi), 20),
-               cuda_ms(torch, lambda: ref.segsum(k_lo, k_hi, sg, r_lo,
-                                                 r_hi), 5),
-               None, n * (32 + 4 + 1 + 4), n * 20)
+        args = segsum_inputs(torch, g, n)
+        record("segsum_diff", [n], segsum(*args), ref.segsum(*args),
+               cuda_ms(torch, lambda: segsum(*args), 20),
+               cuda_ms(torch, lambda: ref.segsum(*args), 5),
+               None, *segsum_bound(n, True))
+        results["segsum_diff"][-1].update(
+            launch_times(torch, lambda: segsum(*args), SEGSUM_FOCUS))
+        del args
     torch.cuda.synchronize()
     results["flash_attention"] = flash_phase(torch, seed)
     return results
@@ -502,20 +535,18 @@ def span_summary(tracer) -> list:
 
 
 @contextlib.contextmanager
-def kernel_shapes(ops, entry: str, q_arg: int):
+def kernel_shapes(ops, entry: str, shape_of):
     """Count the launches of the kernel entry ``ops.<entry>`` inside the
-    block by (table rows, queries), the table being its first argument
-    and the queries its ``q_arg``-th: wraps the entry, which every caller
-    in the package goes through, and counts where the wrapper launches (a
-    CUDA query, neither side empty). The package's own count,
-    ``build.LAUNCHES``, stays plain."""
+    block by ``shape_of(*args)``, None where the wrapper does not launch:
+    wraps the entry, which every caller in the package goes through. The
+    package's own count, ``build.LAUNCHES``, stays plain."""
     hist = collections.Counter()
     kernel = getattr(ops, entry)
 
     def counted(*args, **kwargs):
-        tab, q = args[0], args[q_arg]
-        if q.device.type == "cuda" and q.shape[0] and tab.shape[0]:
-            hist[(int(tab.shape[0]), int(q.shape[0]))] += 1
+        shape = shape_of(*args)
+        if shape is not None:
+            hist[shape] += 1
         return kernel(*args, **kwargs)
     setattr(ops, entry, counted)
     try:
@@ -524,22 +555,44 @@ def kernel_shapes(ops, entry: str, q_arg: int):
         setattr(ops, entry, kernel)
 
 
+def table_queries(q_arg: int):
+    """(table rows, queries) of a lookup launch, the table being the
+    entry's first argument and the queries its ``q_arg``-th; None unless
+    it launches (a CUDA query, neither side empty)."""
+    def shape_of(*args):
+        tab, q = args[0], args[q_arg]
+        if q.device.type == "cuda" and q.shape[0] and tab.shape[0]:
+            return int(tab.shape[0]), int(q.shape[0])
+        return None
+    return shape_of
+
+
 def searchsorted_shapes(ops):
     """searchsorted's launches by (table rows, queries) through its
     one-side entry: every lower/upper bound and searchsorted128 of the
     package."""
-    return kernel_shapes(ops, "_searchsorted_kernel", 1)
+    return kernel_shapes(ops, "_searchsorted_kernel", table_queries(1))
 
 
 def window_shapes(ops):
     """searchsorted's launches by (table rows, queries) through its
     per-query-side entry: the zone windows of one sorted probe call."""
-    return kernel_shapes(ops, "_searchsorted_sides_kernel", 1)
+    return kernel_shapes(ops, "_searchsorted_sides_kernel", table_queries(1))
 
 
 def probe_shapes(ops):
     """probe's launches by (table rows, queries): every probe128."""
-    return kernel_shapes(ops, "_probe_kernel", 2)
+    return kernel_shapes(ops, "_probe_kernel", table_queries(2))
+
+
+def segsum_shapes(ops):
+    """segsum's launches by (stream rows, with the row pair): every scan
+    of diff_aggregate and diff_aggregate_rows."""
+    def shape_of(lo, hi, signs, r_lo=None, r_hi=None):
+        if lo.device.type == "cuda" and lo.shape[0]:
+            return int(lo.shape[0]), r_lo is not None
+        return None
+    return kernel_shapes(ops, "_segsum_kernel", shape_of)
 
 
 def split_by_queries(hist: collections.Counter, groups=SEARCH_GROUPS):
@@ -571,8 +624,9 @@ def split_by_queries(hist: collections.Counter, groups=SEARCH_GROUPS):
 
 def launch_times(torch, fn, focus: str) -> dict:
     """The kernel's device time per launch from a profiler trace of 20
-    launches (``focus``: the kernel's own name), and the host time of one
-    launch that ends in a synchronize."""
+    calls (``focus``: the kernel's own name), all device work per call in
+    that trace (a memset or a second kernel of the call included), and
+    the host time of one call that ends in a synchronize."""
     t0 = time.perf_counter()
     for _ in range(20):
         fn()
@@ -582,6 +636,8 @@ def launch_times(torch, fn, focus: str) -> dict:
                           focus=focus)
     return {"device_ms": (prof["focus_ms"] / prof["focus_count"]
                           if prof["focus_count"] else None),
+            "device_ms_all": (prof["device_busy_s"] * 1e3 / 20
+                              if prof["device_busy_s"] else None),
             "host_ms_synced": host_ms}
 
 
@@ -695,6 +751,51 @@ def probe_split(torch, hist: collections.Counter, seed: int):
     return time_groups(groups, timed), rows
 
 
+def segsum_split(torch, hist: collections.Counter, seed: int,
+                 change: int) -> list:
+    """The segsum kernel at every one of the main path's own shapes
+    (``hist``: (stream rows, with the row pair) -> launches), the
+    commonest first, each with its roles: the commonest, the largest and
+    the Δ-sized one (nearest 2 x ``change`` rows). At each, EXACTLY equal
+    to the plain version, with CUDA-event times of the kernel, the plain
+    version and torch.cumsum of the signs (SCAN_HALF), the kernel's
+    device time and all device work per call from a profiler trace, the
+    host time of one call that ends in a synchronize, the bound and the
+    launches at that shape times the event time. Returns the kernel rows,
+    commonest shape first."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segsum_diff import segsum
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    shapes = sorted(hist, key=lambda s: (hist[s], s), reverse=True)
+    roles = {s: [] for s in shapes}
+    roles[shapes[0]].append("commonest")
+    roles[max(hist)].append("largest")
+    roles[min(hist, key=lambda s: (abs(s[0] - 2 * change), s))].append(
+        "delta")
+    rows = []
+    for (n, pair), role in roles.items():
+        args = segsum_inputs(torch, g, n, pair)
+        sg = args[2]
+        row = kernel_row(
+            torch, "segsum_diff", [n, "row pair" if pair else "key only"],
+            segsum(*args), ref.segsum(*args),
+            cuda_ms(torch, lambda: segsum(*args), 20),
+            cuda_ms(torch, lambda: ref.segsum(*args), 5),
+            cuda_ms(torch, lambda: torch.cumsum(sg, 0, dtype=torch.int32),
+                    20),
+            *segsum_bound(n, pair))
+        row.update(launch_times(torch, lambda: segsum(*args), SEGSUM_FOCUS))
+        launches = hist[(n, pair)]
+        row.update({"roles": role, "library_is": SCAN_HALF,
+                    "launches": launches,
+                    "launches_x_ms": launches * row["ms"]})
+        rows.append(row)
+        del args, sg
+    return rows
+
+
 def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
     """Host cost of one searchsorted call at LAUNCH_COST_SHAPE, step by
     step: each step's host µs per call over ``iters`` back-to-back calls
@@ -781,7 +882,8 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
 
     build.reset_launches()
     with searchsorted_shapes(ops) as shapes, window_shapes(ops) as wshapes, \
-            probe_shapes(ops) as pshapes, telemetry.trace() as tracer:
+            probe_shapes(ops) as pshapes, segsum_shapes(ops) as sshapes, \
+            telemetry.trace() as tracer:
         engine, base = timed("load_s",
                              lambda: _mk_engine(rows, pk, device=dev))
         tracer.bind(engine)
@@ -815,9 +917,11 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
            "searchsorted_shapes": [[n, q, c] for (n, q), c in
                                    sorted((shapes + wshapes).items())],
            "probe_shapes": [[n, q, c] for (n, q), c in
-                            sorted(pshapes.items())]}
+                            sorted(pshapes.items())],
+           "segsum_shapes": [[n, pair, c] for (n, pair), c in
+                             sorted(sshapes.items())]}
     for name, hist in (("searchsorted", shapes + wshapes),
-                       ("probe", pshapes)):
+                       ("probe", pshapes), ("segsum_diff", sshapes)):
         check(sum(hist.values()) == launches[name],
               f"{name} shapes count {sum(hist.values())} launches, "
               f"the wrapper {launches[name]}")
@@ -1072,6 +1176,17 @@ def main(argv=None) -> int:
                                    "bound_ms")}
                 for e in probe_rows])
         kern["probe"] = probe_rows + kern["probe"]
+        segsum_rows = segsum_split(torch, main_hist("segsum_shapes"),
+                                   args.seed, args.change)
+        record["segsum_split"] = phase(
+            "segsum_split", checked=[
+                {f: e[f] for f in ("shape", "roles", "ok", "max_abs_err",
+                                   "ms", "device_ms", "device_ms_all",
+                                   "host_ms_synced", "plain_ms", "bound_ms",
+                                   "launches", "launches_x_ms",
+                                   "library_ms", "library_is")}
+                for e in segsum_rows])
+        kern["segsum_diff"] = segsum_rows + kern["segsum_diff"]
         record["launch_cost"] = phase("launch_cost",
                                       **launch_cost(torch, args.seed))
 
@@ -1109,7 +1224,10 @@ def main(argv=None) -> int:
             "max_abs_err": max(x["max_abs_err"] for x in kern[name]),
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-            "library_ms": e["library_ms"]})
+            # segsum's library time is SCAN_HALF: no one call computes
+            # the same function
+            "library_ms": None if name == "segsum_diff"
+            else e["library_ms"]})
     record["kernel_line"] = line
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

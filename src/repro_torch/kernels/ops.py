@@ -169,11 +169,12 @@ class DiffAgg:
         n = boundary.shape[0]
         self._n = n
         if n:
-            cs = csum.to(torch.int64)
+            # gather two entries per run in int32, then widen: the same
+            # bits as widening the whole stream first
             ends = torch.cat([self.run_starts[1:],
-                              torch.tensor([n], device=cs.device)])
-            sums = cs[ends - 1]
-            sums[1:] -= cs[self.run_starts[1:] - 1]
+                              torch.tensor([n], device=csum.device)])
+            sums = csum[ends - 1].to(torch.int64)
+            sums[1:] -= csum[self.run_starts[1:] - 1].to(torch.int64)
             self.run_sums = sums.to(torch.int32)
         else:
             self.run_sums = torch.zeros((0,), dtype=torch.int32,
@@ -280,10 +281,10 @@ def _merge128_sharded(lo: torch.Tensor, hi: torch.Tensor,
 def _shard_slices(s_lo: torch.Tensor, s_hi: torch.Tensor,
                   shards: int) -> np.ndarray:
     """Slice starts for a key-range-sharded boundary pass over a SORTED
-    stream: equal-width candidate positions snapped to the START of the
-    equal-key run containing them, so no run straddles a slice. Returns
-    the interior slice starts (ascending, distinct, possibly empty) as
-    host offsets."""
+    CPU stream (the reference's slices; a CUDA stream is one launch):
+    equal-width candidate positions snapped to the START of the equal-key
+    run containing them, so no run straddles a slice. Returns the interior
+    slice starts (ascending, distinct, possibly empty) as host offsets."""
     n = s_lo.shape[0]
     pos = torch.from_numpy((np.arange(1, shards, dtype=np.int64) * n)
                            // shards).to(s_lo.device)
@@ -324,9 +325,11 @@ def diff_aggregate(sig_lo: torch.Tensor, sig_hi: torch.Tensor,
 
     Returns (order, DiffAgg): ``order`` is the permutation applied
     (identity if presorted). Runs are maximal groups of equal (sig_lo,
-    sig_hi). ``shards > 1`` partitions the segsum pass into key-range
-    slices aligned to run starts — byte-identical flags and sums. Only
-    meaningful with ``presorted``."""
+    sig_hi). A CUDA stream is scanned by one segsum launch whatever
+    ``shards`` says; on the CPU ``shards > 1`` partitions the pass into
+    key-range slices aligned to run starts, as the reference does. Flags
+    and sums are byte-identical either way. Only meaningful with
+    ``presorted``."""
     n = sig_lo.shape[0]
     dev = sig_lo.device
     if n == 0:
@@ -339,7 +342,7 @@ def diff_aggregate(sig_lo: torch.Tensor, sig_hi: torch.Tensor,
         order = _sort128(sig_lo, sig_hi)
         s_lo, s_hi, s_sg = sig_lo[order], sig_hi[order], signs[order]
     s_sg = s_sg.contiguous()
-    if presorted and shards > 1 and n > shards:
+    if presorted and shards > 1 and n > shards and dev.type == "cpu":
         starts = _shard_slices(s_lo, s_hi, shards)
         if starts.shape[0]:
             bnd, cs = _sharded_scan(n, starts, lambda a, b: _segsum_kernel(
@@ -360,8 +363,10 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
     runs are maximal groups of equal (key, row). For NoPK streams the key
     IS the row signature (the same tensor), and the segsum kernel compares
     one word pair; otherwise it ORs the row pair's change flags in, in the
-    same pass. ``shards > 1`` partitions the pass into slices aligned to
-    KEY-run starts (byte-identical). Returns (order, DiffAgg)."""
+    same pass. A CUDA stream takes one segsum launch whatever ``shards``
+    says; on the CPU ``shards > 1`` partitions the pass into slices aligned
+    to KEY-run starts, as the reference does. Flags and sums are
+    byte-identical either way. Returns (order, DiffAgg)."""
     n = key_lo.shape[0]
     dev = key_lo.device
     if n == 0:
@@ -385,7 +390,7 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
             None if same else r_lo[a:b].contiguous(),
             None if same else r_hi[a:b].contiguous())
 
-    if presorted and shards > 1 and n > shards:
+    if presorted and shards > 1 and n > shards and dev.type == "cpu":
         starts = _shard_slices(k_lo, k_hi, shards)
         if starts.shape[0]:
             return order, DiffAgg(*_sharded_scan(n, starts, scan))

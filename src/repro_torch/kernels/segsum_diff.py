@@ -14,7 +14,11 @@ import torch
 from . import build, ref
 
 NAME = "segsum_diff"
-TILE = 1024  # elements per block of the kernel's first pass
+#: the single-pass scan's tile (``kThreads``, ``kQuads``, ``kTile`` of the
+#: kernel): THREADS threads x QUADS quads of 4 consecutive rows. The
+#: scratch holds a tile counter and one status word per tile.
+THREADS, QUADS = 512, 2
+TILE = THREADS * QUADS * 4
 
 # (device, lo, hi, r_lo, r_hi, signs, n, boundary, csum, scratch, stream)
 _SEGSUM = build.Launcher(NAME, "rt_segsum", [
@@ -28,7 +32,8 @@ def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
     """(N,) key words sorted by (lo, hi) and (N,) int32 signs -> (boundary
     (N,) bool, csum (N,) int32): new-run flags (row 0 always; the optional
     second pair ``r_lo, r_hi`` ORs its change flags in) and the inclusive
-    cumulative sum of the signs over the whole stream."""
+    cumulative sum of the signs over the whole stream. A CUDA stream takes
+    one launch (after one memset of the scratch), whatever its length."""
     if lo.device.type == "cpu":
         return ref.segsum(lo, hi, signs, r_lo, r_hi)
     words = [lo, hi] + ([] if r_lo is None else [r_lo, r_hi])
@@ -44,7 +49,7 @@ def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
     csum = torch.empty((n,), dtype=torch.int32, device=lo.device)
     if n == 0:
         return bnd, csum
-    scratch = torch.empty(((n + TILE - 1) // TILE,), dtype=torch.int32,
+    scratch = torch.empty(((n + TILE - 1) // TILE + 1,), dtype=torch.int64,
                           device=lo.device)
     r_lo_p = None if r_lo is None else r_lo.data_ptr()
     r_hi_p = None if r_hi is None else r_hi.data_ptr()

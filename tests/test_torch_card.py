@@ -11,8 +11,9 @@ the GPU host does not have; this file imports nothing of it.)
 
 Every integer kernel output must equal its plain version exactly (no
 tolerance), including the shapes that stress the launch geometry: empty
-inputs, one element, ragged last blocks, and a stream long enough for the
-segsum tile-total scan to loop. The flash attention kernel is held to its
+inputs, one element, ragged last blocks, streams long enough for the
+segsum look-back to walk past a 32-tile window, and views that are not
+16-byte aligned. The flash attention kernel is held to its
 plain version in bf16 at atol = rtol = 2e-2 (the plain version rounds
 each block's P.V product to bf16, the kernel accumulates it in fp32), and
 its relative L2 error at ``chip_smoke.FLASH_REL_TOL``.
@@ -227,7 +228,9 @@ def test_kernels_launch_on_the_current_stream(cuda):
         [pick[:1500], pick[1500:] + 1]))
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 3 * 1024 * 1024 + 5])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 3 * 1024 * 1024 + 5,
+                               4095, 4096, 4097, 200_000, 6_001_215,
+                               12_002_430])
 @pytest.mark.parametrize("rows", [False, True])
 def test_segsum_kernel_matches_plain(cuda, n, rows):
     rng = np.random.default_rng(n + rows)
@@ -244,10 +247,55 @@ def test_segsum_kernel_matches_plain(cuda, n, rows):
                       *(_t(a, "cpu") for a in extra))
     for k, p in zip(got, want):
         _equal(k, p)
+    assert build.LAUNCHES["segsum_diff"] == 1
     empty = _t(np.zeros(0, np.uint64), cuda)
     b, c = segsum(empty, empty, torch.zeros(0, dtype=torch.int32,
                                             device=cuda))
     assert b.shape == c.shape == (0,)
+    assert build.LAUNCHES["segsum_diff"] == 1
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_segsum_kernel_on_unaligned_views(cuda, rows):
+    """Views that start one element in (8-byte words, 4-byte signs) take
+    the kernel's scalar loads and stores, with the same result."""
+    rng = np.random.default_rng(5 + rows)
+    n = 70_001
+    lo = np.sort(_u64(rng, n + 1, n // 2))
+    words = [_t(lo, cuda), _t(lo % np.uint64(3), cuda)]
+    if rows:
+        r = _t(_u64(rng, n + 1, 2), cuda)
+        words += [r, r]
+    sg = torch.from_numpy(rng.choice(np.array([-1, 1], np.int32),
+                                     n + 1)).to(cuda)
+    views = [w[1:] for w in words]
+    assert all(v.data_ptr() % 16 for v in views) and sg[1:].data_ptr() % 16
+    got = segsum(views[0], views[1], sg[1:], *views[2:])
+    want = ref.segsum(*(v.cpu() for v in views[:2]), sg[1:].cpu(),
+                      *(v.cpu() for v in views[2:]))
+    for k, p in zip(got, want):
+        _equal(k, p)
+
+
+def test_segsum_launches_on_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the scratch memset and the scan land
+    on ``s``: the signs are written on ``s`` behind a sleep."""
+    rng = np.random.default_rng(12)
+    n = 1_000_003
+    lo = _t(np.sort(_u64(rng, n, n // 2)), cuda)
+    hi = torch.zeros_like(lo)
+    want_sg = torch.from_numpy(rng.choice(np.array([-1, 1], np.int32),
+                                          n)).to(cuda)
+    sg = torch.zeros_like(want_sg)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+        sg.copy_(want_sg)
+        got = segsum(lo, hi, sg)
+    s.synchronize()
+    for k, p in zip(got, ref.segsum(lo.cpu(), hi.cpu(), want_sg.cpu())):
+        _equal(k, p)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -281,9 +329,20 @@ def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
         _equal(got, want)
     _equal(*both(ops._sort128, q_lo, q_hi))
     for shards in (1, 4):
+        # the card scans the stream in one launch whatever `shards` says
+        build.reset_launches()
         (g_o, g), (w_o, w) = both(
             lambda a, b, c: ops.diff_aggregate(a, b, c, presorted=True,
                                                shards=shards), lo, hi, sg)
+        assert build.LAUNCHES["segsum_diff"] == 1
+        _equal(g.boundary, w.boundary)
+        _equal(g.run_sums, w.run_sums)
+        build.reset_launches()
+        (g_o, g), (w_o, w) = both(
+            lambda a, b, c, d, e: ops.diff_aggregate_rows(
+                a, b, c, d, e, presorted=True, shards=shards),
+            lo, hi, r_lo, r_hi, sg)
+        assert build.LAUNCHES["segsum_diff"] == 1
         _equal(g.boundary, w.boundary)
         _equal(g.run_sums, w.run_sums)
     merged = []
