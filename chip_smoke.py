@@ -129,10 +129,13 @@ PROBE_GROUPS = (("1-32 queries", 1, 32), ("33-1023 queries", 33, 1023),
                 (">= 65,536 queries", 65_536, None))
 # table rows, queries: one query, so the launch is all of a call's cost
 LAUNCH_COST_SHAPE = (100_000, 1)
+# SQL diff re-runs after the main path, plain and split into steps
+SQL_DIFF_REPEATS = 6
 # the segsum kernel's name in a profiler trace
 SEGSUM_FOCUS = "segsum_scan"
-# segsum_split's library_ms: no one PyTorch call computes the flags and the
-# sums together, so it times the sums alone and says so
+# what segsum_split's scan_half_ms times: no one PyTorch call computes the
+# flags and the sums together (its library_ms is None), so it times the
+# sums alone, under a key of their own, and says so
 SCAN_HALF = ("torch.cumsum(signs, dtype=torch.int32): the scan half only, "
              "not the same function")
 
@@ -758,7 +761,8 @@ def segsum_split(torch, hist: collections.Counter, seed: int,
     commonest first, each with its roles: the commonest, the largest and
     the Δ-sized one (nearest 2 x ``change`` rows). At each, EXACTLY equal
     to the plain version, with CUDA-event times of the kernel, the plain
-    version and torch.cumsum of the signs (SCAN_HALF), the kernel's
+    version and, as ``scan_half_ms``, torch.cumsum of the signs
+    (SCAN_HALF; no library call computes the same function), the kernel's
     device time and all device work per call from a profiler trace, the
     host time of one call that ends in a synchronize, the bound and the
     launches at that shape times the event time. Returns the kernel rows,
@@ -783,12 +787,12 @@ def segsum_split(torch, hist: collections.Counter, seed: int,
             segsum(*args), ref.segsum(*args),
             cuda_ms(torch, lambda: segsum(*args), 20),
             cuda_ms(torch, lambda: ref.segsum(*args), 5),
-            cuda_ms(torch, lambda: torch.cumsum(sg, 0, dtype=torch.int32),
-                    20),
-            *segsum_bound(n, pair))
+            None, *segsum_bound(n, pair))
         row.update(launch_times(torch, lambda: segsum(*args), SEGSUM_FOCUS))
         launches = hist[(n, pair)]
-        row.update({"roles": role, "library_is": SCAN_HALF,
+        row.update({"roles": role, "scan_half_is": SCAN_HALF,
+                    "scan_half_ms": cuda_ms(torch, lambda: torch.cumsum(
+                        sg, 0, dtype=torch.int32), 20),
                     "launches": launches,
                     "launches_x_ms": launches * row["ms"]})
         rows.append(row)
@@ -860,6 +864,62 @@ def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
     return rec
 
 
+def sql_diff_steps(torch, store, a, b, repeats: int) -> dict:
+    """SQL diff re-run ``repeats`` times, alternately plain (host clock to
+    a synchronize at the end) and split into steps: each step below is
+    wrapped to synchronize before and after it, so a step's host time
+    holds its device work; "rest" is the remainder of the synchronized
+    call (the stream concatenation, the representative choice and the
+    gathers). The steps are the functions sql_diff calls by name, so a
+    tree of any earlier slice splits the same way."""
+    from repro_torch.core import diff as core_diff
+    from repro_torch.core.delta import SignedStream
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+
+    steps = (("scan", core_diff, "full_scan_stream"),
+             ("plan_key_cuts", sharding, "plan_key_cuts"),
+             ("merge_by_key", SignedStream, "merge_by_key"),
+             ("diff_aggregate_rows", ops, "diff_aggregate_rows"))
+    spent = collections.Counter()
+
+    def timed_step(name, fn):
+        def step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return step
+
+    def run_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core_diff.sql_diff(store, a, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain, split = [], []
+    for _ in range(repeats):
+        plain.append(run_once() * 1e3)
+        kept = [(owner, attr, getattr(owner, attr))
+                for _, owner, attr in steps]
+        for (name, owner, attr), (_, _, fn) in zip(steps, kept):
+            setattr(owner, attr, timed_step(name, fn))
+        spent.clear()
+        try:
+            total = run_once()
+        finally:
+            for owner, attr, fn in kept:
+                setattr(owner, attr, fn)
+        row = {name: spent[name] * 1e3 for name, _, _ in steps}
+        row["rest"] = total * 1e3 - sum(row.values())
+        row["total"] = total * 1e3
+        split.append(row)
+    return {"plain_ms": plain, "steps_ms": split}
+
+
 def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
     import numpy as np
 
@@ -925,6 +985,9 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         check(sum(hist.values()) == launches[name],
               f"{name} shapes count {sum(hist.values())} launches, "
               f"the wrapper {launches[name]}")
+
+    rec["sql_diff_steps"] = sql_diff_steps(torch, engine.store, cur, sn3,
+                                           SQL_DIFF_REPEATS)
 
     def requery():
         engine.store.delta_cache.clear()   # re-scan Δ; visibility is warm
@@ -1184,7 +1247,7 @@ def main(argv=None) -> int:
                                    "ms", "device_ms", "device_ms_all",
                                    "host_ms_synced", "plain_ms", "bound_ms",
                                    "launches", "launches_x_ms",
-                                   "library_ms", "library_is")}
+                                   "scan_half_ms", "scan_half_is")}
                 for e in segsum_rows])
         kern["segsum_diff"] = segsum_rows + kern["segsum_diff"]
         record["launch_cost"] = phase("launch_cost",
@@ -1224,10 +1287,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(x["max_abs_err"] for x in kern[name]),
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-            # segsum's library time is SCAN_HALF: no one call computes
-            # the same function
-            "library_ms": None if name == "segsum_diff"
-            else e["library_ms"]})
+            "library_ms": e["library_ms"]})
     record["kernel_line"] = line
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

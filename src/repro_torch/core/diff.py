@@ -175,7 +175,7 @@ def _aggregate_stream(schema: Schema, stream: SignedStream,
     st = stream.merge_by_key(cuts=cuts)  # always globally key-sorted, n > 0
     _, agg = ops.diff_aggregate_rows(st.key_lo, st.key_hi,
                                      st.row_lo, st.row_hi, st.sign,
-                                     presorted=True, shards=shards)
+                                     presorted=True)
     surviving = agg.run_sums != 0
     if bool(surviving.all()):  # pure-churn diffs: nothing cancelled
         keep = None

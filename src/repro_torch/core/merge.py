@@ -374,11 +374,11 @@ def _merge_nopk(engine: Engine, target: str, source: Snapshot,
                       torch.ones((d_s.n,), dtype=torch.int8, device=dev)])
     # both branch streams are value-sorted (NoPK key == value), so the
     # combined stream is a stable 2-run merge and aggregation is sort-free
-    from ..distributed import sharding as ksh
-    shards = ksh.key_shard_count(combined.n)
     if combined.sorted_by_key:
         st = combined
     else:
+        from ..distributed import sharding as ksh
+        shards = ksh.key_shard_count(combined.n)
         cuts = None
         if shards > 1 and combined.runs is not None:
             cuts = ksh.plan_key_cuts(combined.key_lo, combined.key_hi,
@@ -392,8 +392,7 @@ def _merge_nopk(engine: Engine, target: str, source: Snapshot,
                  else ops._sort128(combined.row_lo, combined.row_hi))
         st, side = combined.take(order), side[order]
     _, agg = ops.diff_aggregate(st.row_lo, st.row_hi,
-                                torch.ones_like(st.sign), presorted=True,
-                                shards=shards)
+                                torch.ones_like(st.sign), presorted=True)
     ro_lo, ro_hi = st.row_lo, st.row_hi
     sd, sg, rid = side, st.sign, st.rowid
     starts = agg.run_starts

@@ -253,11 +253,13 @@ void launch(unsigned tiles, cudaStream_t s, const void* lo, const void* hi,
 
 // lo/hi: (n,) uint64 sorted keys; r_lo/r_hi: (n,) uint64 or null;
 // signs: (n,) int32; bnd: (n,) uint8; csum: (n,) int32;
-// scratch: (ceil(n / 4096) + 1,) uint64, zeroed here. n >= 0.
+// scratch: scratch_words uint64, at least ceil(n / 4096) + 1 (else
+// cudaErrorInvalidValue and no launch), zeroed here. n >= 0.
 extern "C" int rt_segsum(int device, const void* lo, const void* hi,
                          const void* r_lo, const void* r_hi,
                          const void* signs, int64_t n, void* bnd, void* csum,
-                         void* scratch, void* stream) {
+                         void* scratch, int64_t scratch_words,
+                         void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -265,6 +267,9 @@ extern "C" int rt_segsum(int device, const void* lo, const void* hi,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (n + kTile - 1) / kTile;
+  if (scratch_words < tiles + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   err = cudaMemsetAsync(scratch, 0, (tiles + 1) * sizeof(u64), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool rows = r_lo != nullptr;

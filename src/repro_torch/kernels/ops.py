@@ -278,58 +278,15 @@ def _merge128_sharded(lo: torch.Tensor, hi: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _shard_slices(s_lo: torch.Tensor, s_hi: torch.Tensor,
-                  shards: int) -> np.ndarray:
-    """Slice starts for a key-range-sharded boundary pass over a SORTED
-    CPU stream (the reference's slices; a CUDA stream is one launch):
-    equal-width candidate positions snapped to the START of the equal-key
-    run containing them, so no run straddles a slice. Returns the interior
-    slice starts (ascending, distinct, possibly empty) as host offsets."""
-    n = s_lo.shape[0]
-    pos = torch.from_numpy((np.arange(1, shards, dtype=np.int64) * n)
-                           // shards).to(s_lo.device)
-    aligned = searchsorted128(s_lo, s_hi, s_lo[pos], s_hi[pos],
-                              side="left").cpu().numpy()
-    # keys at ascending positions are non-decreasing, so aligned is too:
-    # dedupe by adjacent-distinct (no sort) and drop degenerate 0 starts
-    aligned = aligned[aligned > 0]
-    if aligned.shape[0] > 1:
-        keep = np.empty(aligned.shape, bool)
-        keep[0] = True
-        keep[1:] = aligned[1:] != aligned[:-1]
-        aligned = aligned[keep]
-    return aligned
-
-
-def _sharded_scan(n: int, starts: np.ndarray, scan):
-    """Run ``scan(a, b) -> (bnd, csum)`` per slice and stitch the slices:
-    flags concatenate, and each slice's cumulative sum is offset by the
-    total of the slices before it (no host round trip)."""
-    edges = np.concatenate([[0], starts, [n]])
-    bnds, sums = [], []
-    carry = None
-    for a, b in zip(edges[:-1].tolist(), edges[1:].tolist()):
-        bnd, cs = scan(a, b)
-        if carry is not None:
-            cs = cs + carry
-        carry = cs[-1]
-        bnds.append(bnd)
-        sums.append(cs)
-    return torch.cat(bnds), torch.cat(sums)
-
-
 def diff_aggregate(sig_lo: torch.Tensor, sig_hi: torch.Tensor,
-                   signs: torch.Tensor, *, presorted: bool = False,
-                   shards: int = 1):
+                   signs: torch.Tensor, *, presorted: bool = False):
     """Sort a signed stream by 128-bit signature and aggregate runs.
 
     Returns (order, DiffAgg): ``order`` is the permutation applied
     (identity if presorted). Runs are maximal groups of equal (sig_lo,
-    sig_hi). A CUDA stream is scanned by one segsum launch whatever
-    ``shards`` says; on the CPU ``shards > 1`` partitions the pass into
-    key-range slices aligned to run starts, as the reference does. Flags
-    and sums are byte-identical either way. Only meaningful with
-    ``presorted``."""
+    sig_hi). The stream is scanned by one segsum call on either device:
+    its flags and sums are byte-identical to the reference's key-range
+    slices at any shard count."""
     n = sig_lo.shape[0]
     dev = sig_lo.device
     if n == 0:
@@ -341,21 +298,14 @@ def diff_aggregate(sig_lo: torch.Tensor, sig_hi: torch.Tensor,
     else:
         order = _sort128(sig_lo, sig_hi)
         s_lo, s_hi, s_sg = sig_lo[order], sig_hi[order], signs[order]
-    s_sg = s_sg.contiguous()
-    if presorted and shards > 1 and n > shards and dev.type == "cpu":
-        starts = _shard_slices(s_lo, s_hi, shards)
-        if starts.shape[0]:
-            bnd, cs = _sharded_scan(n, starts, lambda a, b: _segsum_kernel(
-                s_lo[a:b], s_hi[a:b], s_sg[a:b]))
-            return order, DiffAgg(bnd, cs)
     return order, DiffAgg(*_segsum_kernel(s_lo.contiguous(),
-                                          s_hi.contiguous(), s_sg))
+                                          s_hi.contiguous(),
+                                          s_sg.contiguous()))
 
 
 def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
                         row_lo: torch.Tensor, row_hi: torch.Tensor,
-                        signs: torch.Tensor, *, presorted: bool = False,
-                        shards: int = 1):
+                        signs: torch.Tensor, *, presorted: bool = False):
     """Aggregate a signed stream into (key, row-signature) runs along KEY
     order — the sort-free execution of Listing-2 value grouping.
 
@@ -363,10 +313,9 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
     runs are maximal groups of equal (key, row). For NoPK streams the key
     IS the row signature (the same tensor), and the segsum kernel compares
     one word pair; otherwise it ORs the row pair's change flags in, in the
-    same pass. A CUDA stream takes one segsum launch whatever ``shards``
-    says; on the CPU ``shards > 1`` partitions the pass into slices aligned
-    to KEY-run starts, as the reference does. Flags and sums are
-    byte-identical either way. Returns (order, DiffAgg)."""
+    same pass. The stream is scanned by one segsum call on either device:
+    its flags and sums are byte-identical to the reference's slices aligned
+    to KEY-run starts at any shard count. Returns (order, DiffAgg)."""
     n = key_lo.shape[0]
     dev = key_lo.device
     if n == 0:
@@ -381,20 +330,11 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
         k_lo, k_hi = key_lo[order], key_hi[order]
         r_lo, r_hi = row_lo[order], row_hi[order]
         s_sg = signs[order]
-    s_sg = s_sg.contiguous()
     same = r_lo is k_lo and r_hi is k_hi  # NoPK: key IS the row signature
-
-    def scan(a, b):
-        return _segsum_kernel(
-            k_lo[a:b].contiguous(), k_hi[a:b].contiguous(), s_sg[a:b],
-            None if same else r_lo[a:b].contiguous(),
-            None if same else r_hi[a:b].contiguous())
-
-    if presorted and shards > 1 and n > shards and dev.type == "cpu":
-        starts = _shard_slices(k_lo, k_hi, shards)
-        if starts.shape[0]:
-            return order, DiffAgg(*_sharded_scan(n, starts, scan))
-    return order, DiffAgg(*scan(0, n))
+    return order, DiffAgg(*_segsum_kernel(
+        k_lo.contiguous(), k_hi.contiguous(), s_sg.contiguous(),
+        None if same else r_lo.contiguous(),
+        None if same else r_hi.contiguous()))
 
 
 # --------------------------------------------------------- attention entry

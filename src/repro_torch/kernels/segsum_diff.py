@@ -16,15 +16,17 @@ from . import build, ref
 NAME = "segsum_diff"
 #: the single-pass scan's tile (``kThreads``, ``kQuads``, ``kTile`` of the
 #: kernel): THREADS threads x QUADS quads of 4 consecutive rows. The
-#: scratch holds a tile counter and one status word per tile.
+#: scratch holds a tile counter and one status word per tile; the kernel
+#: refuses a scratch shorter than its own tile count needs.
 THREADS, QUADS = 512, 2
 TILE = THREADS * QUADS * 4
 
-# (device, lo, hi, r_lo, r_hi, signs, n, boundary, csum, scratch, stream)
+# (device, lo, hi, r_lo, r_hi, signs, n, boundary, csum, scratch,
+#  scratch words, stream)
 _SEGSUM = build.Launcher(NAME, "rt_segsum", [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
 
 
 def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
@@ -49,11 +51,12 @@ def segsum(lo: torch.Tensor, hi: torch.Tensor, signs: torch.Tensor,
     csum = torch.empty((n,), dtype=torch.int32, device=lo.device)
     if n == 0:
         return bnd, csum
-    scratch = torch.empty(((n + TILE - 1) // TILE + 1,), dtype=torch.int64,
+    scratch_words = (n + TILE - 1) // TILE + 1
+    scratch = torch.empty((scratch_words,), dtype=torch.int64,
                           device=lo.device)
     r_lo_p = None if r_lo is None else r_lo.data_ptr()
     r_hi_p = None if r_hi is None else r_hi.data_ptr()
     _SEGSUM(lo.get_device(), lo.data_ptr(), hi.data_ptr(), r_lo_p, r_hi_p,
             signs.data_ptr(), n, bnd.data_ptr(), csum.data_ptr(),
-            scratch.data_ptr())
+            scratch.data_ptr(), scratch_words)
     return bnd, csum

@@ -298,10 +298,28 @@ def test_segsum_launches_on_the_current_stream(cuda):
         _equal(k, p)
 
 
+def test_segsum_refuses_a_short_scratch(cuda):
+    """The C entry checks the scratch it is handed against its own tile
+    count and launches nothing when it is short."""
+    from repro_torch.kernels import segsum_diff
+    n = 3 * segsum_diff.TILE + 1
+    lo = torch.arange(n, dtype=torch.int64, device=cuda)
+    sg = torch.ones((n,), dtype=torch.int32, device=cuda)
+    bnd = torch.empty((n,), dtype=torch.bool, device=cuda)
+    csum = torch.empty((n,), dtype=torch.int32, device=cuda)
+    scratch = torch.empty((4,), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        segsum_diff._SEGSUM(lo.get_device(), lo.data_ptr(), lo.data_ptr(),
+                            None, None, sg.data_ptr(), n, bnd.data_ptr(),
+                            csum.data_ptr(), scratch.data_ptr(), 4)
+    assert build.LAUNCHES["segsum_diff"] == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
     """The ops around the kernels (refinement of lo64 collisions, segment
-    expansion, sharded scans, stable merges) give the CPU's answers."""
+    expansion, one-launch scans, stable merges) give the CPU's answers."""
     rng = np.random.default_rng([seed] + list(b"OPS"))
     n = 5000
     lo, hi = _u64(rng, n, 40), _u64(rng, n, 7)
@@ -328,23 +346,21 @@ def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
     for got, want in zip(*both(ops.probe128, lo, hi, q_lo, q_hi)):
         _equal(got, want)
     _equal(*both(ops._sort128, q_lo, q_hi))
-    for shards in (1, 4):
-        # the card scans the stream in one launch whatever `shards` says
-        build.reset_launches()
-        (g_o, g), (w_o, w) = both(
-            lambda a, b, c: ops.diff_aggregate(a, b, c, presorted=True,
-                                               shards=shards), lo, hi, sg)
-        assert build.LAUNCHES["segsum_diff"] == 1
-        _equal(g.boundary, w.boundary)
-        _equal(g.run_sums, w.run_sums)
-        build.reset_launches()
-        (g_o, g), (w_o, w) = both(
-            lambda a, b, c, d, e: ops.diff_aggregate_rows(
-                a, b, c, d, e, presorted=True, shards=shards),
-            lo, hi, r_lo, r_hi, sg)
-        assert build.LAUNCHES["segsum_diff"] == 1
-        _equal(g.boundary, w.boundary)
-        _equal(g.run_sums, w.run_sums)
+    # the card scans a stream in one launch, with the CPU's bytes
+    build.reset_launches()
+    (g_o, g), (w_o, w) = both(
+        lambda a, b, c: ops.diff_aggregate(a, b, c, presorted=True),
+        lo, hi, sg)
+    assert build.LAUNCHES["segsum_diff"] == 1
+    _equal(g.boundary, w.boundary)
+    _equal(g.run_sums, w.run_sums)
+    build.reset_launches()
+    (g_o, g), (w_o, w) = both(
+        lambda a, b, c, d, e: ops.diff_aggregate_rows(
+            a, b, c, d, e, presorted=True), lo, hi, r_lo, r_hi, sg)
+    assert build.LAUNCHES["segsum_diff"] == 1
+    _equal(g.boundary, w.boundary)
+    _equal(g.run_sums, w.run_sums)
     merged = []
     for dev in (cuda, "cpu"):
         lo_t, hi_t = _t(r_lo, dev), _t(r_hi, dev)

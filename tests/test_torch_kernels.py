@@ -236,11 +236,11 @@ def test_diff_aggregate_matches_reference(seed):
                       rops.diff_aggregate(lo, hi, sg))
     o = np.lexsort((hi, lo))
     lo, hi, sg = lo[o], hi[o], sg[o]
-    want = rops.diff_aggregate(lo, hi, sg, presorted=True)
+    # one scan gives the bytes of the reference's key-range slices
+    got = ops.diff_aggregate(T(lo), T(hi), T(sg), presorted=True)
     for shards in (1, 2, 4, 9):
-        _assert_agg_equal(ops.diff_aggregate(T(lo), T(hi), T(sg),
-                                             presorted=True, shards=shards),
-                          want)
+        _assert_agg_equal(got, rops.diff_aggregate(lo, hi, sg, presorted=True,
+                                                   shards=shards))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -250,17 +250,17 @@ def test_diff_aggregate_rows_matches_reference(seed):
     sg = rng.choice(np.array([-1, 1], np.int32), 500)
     r_lo = rng.permutation(500).astype(np.uint64)
     r_hi = rng.integers(0, 2, 500).astype(np.uint64)
-    want = rops.diff_aggregate_rows(lo, hi, r_lo, r_hi, sg, presorted=True)
+    got = ops.diff_aggregate_rows(T(lo), T(hi), T(r_lo), T(r_hi), T(sg),
+                                  presorted=True)
     for shards in (1, 2, 4, 9):
-        got = ops.diff_aggregate_rows(T(lo), T(hi), T(r_lo), T(r_hi), T(sg),
-                                      presorted=True, shards=shards)
-        _assert_agg_equal(got, want)
+        _assert_agg_equal(got, rops.diff_aggregate_rows(
+            lo, hi, r_lo, r_hi, sg, presorted=True, shards=shards))
     # NoPK aliasing: key IS the row signature (one word pair compared)
     k_lo, k_hi = T(lo), T(hi)
     got = ops.diff_aggregate_rows(k_lo, k_hi, k_lo, k_hi, T(sg),
-                                  presorted=True, shards=4)
+                                  presorted=True)
     _assert_agg_equal(got, rops.diff_aggregate_rows(lo, hi, lo, hi, sg,
-                                                    presorted=True))
+                                                    presorted=True, shards=4))
     # unsorted rows input takes the key sort
     p = rng.permutation(500)
     _assert_agg_equal(
@@ -317,15 +317,6 @@ def test_key_shard_count_policy():
     prev = sharding.set_key_shards(3)
     assert sharding.key_shard_count(10) == 3
     sharding.set_key_shards(prev)
-
-
-def test_shard_slices_match_reference():
-    rng = np.random.default_rng(list(b"SLICE"))
-    lo, hi = _sorted_table(rng, 400, 25, 2)
-    for shards in (2, 5, 11):
-        np.testing.assert_array_equal(
-            ops._shard_slices(T(lo), T(hi), shards),
-            rops._shard_slices(lo, hi, shards))
 
 
 # ------------------------------------------------------- packing and misc

@@ -10,15 +10,20 @@ over per-tile status words, with the tiles publishing and looking back in
 shuffled orders. The replay, the port's plain version (``ref.segsum``, what
 a CPU tensor runs) and the reference's oracle
 (``repro.kernels.ref.diff_aggregate``) must agree bit for bit, with and
-without the row pair. ``ops.diff_aggregate(_rows)`` on CPU tensors keeps
-the reference's key-range slices at forced shard counts.
+without the row pair. ``ops.diff_aggregate(_rows)`` scans a stream once,
+and its bytes equal the reference's key-range slices at any shard count.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro_torch.benchmarks import digests
+from repro_torch.distributed import sharding
 from repro_torch.interop import from_numpy as T
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.segsum_diff import QUADS, THREADS, TILE, segsum
@@ -261,7 +266,13 @@ def test_replay_folds_aggregates_and_wraps_like_int32():
 
 def test_tile_follows_the_kernel():
     """The replay and the scratch size follow the kernel's tile: 512
-    threads x 2 quads of 4 rows, 32 (step, warp) totals for one warp."""
+    threads x 2 quads of 4 rows, 32 (step, warp) totals for one warp, as
+    the constants of ``csrc/segsum_diff.cu`` say."""
+    src = (Path(ops.__file__).parent / "csrc" / "segsum_diff.cu").read_text()
+    consts = dict(re.findall(r"constexpr \w+ (k\w+) = (\d+);", src))
+    assert (int(consts["kThreads"]), int(consts["kQuads"])) == (THREADS,
+                                                                QUADS)
+    assert "kTile = kThreads * kQuads * 4;" in src
     assert (THREADS, QUADS, TILE) == (512, 2, 4096)
     assert QUADS * WARPS == 32
     rows = _tile_rows(1)
@@ -283,14 +294,43 @@ def _assert_agg_equal(got, want):
 @pytest.mark.parametrize("case", ["straddles 1, 2 and 3 tiles",
                                   "all keys equal", "tile + 1"])
 def test_cpu_diff_aggregate_keeps_the_reference_slices(case, shards):
+    """One scan of the whole stream gives the bytes of the reference's
+    key-range slices at every shard count."""
     lo, hi, sg, r_lo, r_hi = _stream(case, True, seed=1)
     _assert_agg_equal(
-        ops.diff_aggregate(T(lo), T(hi), T(sg), presorted=True,
-                           shards=shards),
+        ops.diff_aggregate(T(lo), T(hi), T(sg), presorted=True),
         rops.diff_aggregate(lo, hi, sg, presorted=True, shards=shards))
     _assert_agg_equal(
         ops.diff_aggregate_rows(T(lo), T(hi), T(r_lo), T(r_hi), T(sg),
-                                presorted=True, shards=shards),
+                                presorted=True),
         rops.diff_aggregate_rows(lo, hi, r_lo, r_hi, sg, presorted=True,
                                  shards=shards))
     assert build.LAUNCHES["segsum_diff"] == 0
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_forced_key_shards_take_one_scan_per_stream(pk, monkeypatch):
+    """Key shards steer the merge's key cuts, not the aggregation: the
+    diff/merge workload makes as many segsum calls, at the same lengths,
+    with 4 shards forced as with none."""
+    kernel = ops._segsum_kernel
+
+    def run(shards):
+        lengths = []
+
+        def counted(lo, *args):
+            lengths.append(int(lo.shape[0]))
+            return kernel(lo, *args)
+        monkeypatch.setattr(ops, "_segsum_kernel", counted)
+        prev = sharding.set_key_shards(shards)
+        try:
+            digest = digests.run_workload(pk, n_rows=20_000, csize=1_500,
+                                          device="cpu")
+        finally:
+            sharding.set_key_shards(prev)
+        return digest, lengths
+
+    want, plain = run(None)
+    got, forced = run(4)
+    assert got == want
+    assert forced == plain and max(plain) > 20_000
