@@ -22,8 +22,9 @@ Phases, one line each:
                 registers and shared memory and SDPA's device time; and at
                 every prompt length of the serve phase, with each CTA tile
                 (64 and 128 query rows) also forced (flash_serve)
-  4. golden   — the fixed-seed diff/merge workloads on the card, compared
-                with the reference package's recorded digests
+  4. golden   — the fixed-seed diff, merge, revert and publish workloads
+                on the card, compared with the reference package's
+                recorded digests (GOLDEN and GOLDEN_APPLY)
   5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
                 snapshot, clone, a 100,000-row update (change set C4),
                 cold and warm SNAPSHOT DIFF, SQL diff and a three-way
@@ -50,6 +51,22 @@ Phases, one line each:
                 100,000 x 1 step by step: the stream read, the
                 allocation, the checks, the C call that launches, the
                 whole wrapper, and torch.searchsorted
+     workflow — after each main path, on its engine: the workflow
+                porcelain at SF1 — a branch, a C4 edit on it, then a pull
+                request's review diff, CI checks on the merged preview,
+                publish, revert of the publish, a Δ-revert of the main
+                path's ACCEPT merge, the branch dropped and GC; each step
+                timed, with the kernels' launches in that window, the
+                spans, GC's counts and device memory around it, and a
+                second round under the profiler (busy share, device-to-
+                host copies); it fails unless the diff, the publish report,
+                the preview's cleanup, the reverts (empty diffs), zero
+                rehashing, GC and the launches are as they must be, and
+                unless each kernel's launches by shape sum to its count;
+                then workflow_split: the window's searchsorted, probe and
+                segsum launches by shape, timed at the commonest shapes
+                as the main path's are, and every distinct shape of both
+                rounds held EXACTLY against the plain version
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -59,14 +76,17 @@ Phases, one line each:
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
-is the one-line JSON result; the line before it lists the kernels. The
-full record goes to ``build/chip_smoke.json``.
+is the one-line JSON result; the line before it lists the kernels, with
+the launches of every path's window (main path and workflow, both modes;
+flash from serving). The full record goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -140,7 +160,7 @@ SCAN_HALF = ("torch.cumsum(signs, dtype=torch.int32): the scan half only, "
              "not the same function")
 
 # Digests recorded by the reference package on its fixed-seed workloads:
-# GOLDEN and GOLDEN_APPLY (merge entries) of tests/test_diff_digest.py.
+# GOLDEN and GOLDEN_APPLY of tests/test_diff_digest.py.
 GOLDEN = {
     True: {"diff": "4953744753d67b10", "sql_diff": "4953744753d67b10",
            "merge": "2000/2000/0", "scan": "8ef72a49adf021ca",
@@ -149,16 +169,22 @@ GOLDEN = {
             "merge": "2000/2000/0", "scan": "a7500c287b142086",
             "pitr": "7de964732d98a93e"},
 }
-GOLDEN_MERGE = {
+GOLDEN_APPLY = {
     True: {"merge_fail": "1500/1500/0/1500/0/9175a02fb5212c8b",
            "merge_skip": "1500/1500/750/1500/0/4bed1479eb2d935c",
            "merge_accept": "2250/2250/750/1500/0/3dcc9d6952350aea",
            "merge_cell": "2250/2250/750/1500/750/1a9fce248a60f246",
-           "merge_nobase": "3000/3000/3000/0a867bd86d60e5c0"},
+           "merge_nobase": "3000/3000/3000/0a867bd86d60e5c0",
+           "revert": "d7d4eebfa086d68b",
+           "publish": "1f0ff3dab3c88b9c",
+           "publish_revert": "255d731b902dc7bf"},
     False: {"merge_fail": "1500/1500/0/3000/0/c3ad540e2e7ab79f",
             "merge_skip": "1500/1500/750/3000/0/d8d647613324fefa",
             "merge_accept": "1500/3000/750/3000/0/04a454d7d8aa2a54",
-            "merge_nobase": "2250/0/0/f79b73c6652df224"},
+            "merge_nobase": "2250/0/0/f79b73c6652df224",
+            "revert": "267ea3643bb54dd8",
+            "publish": "6cdb0f2c0762963f",
+            "publish_revert": "d6722819d4896927"},
 }
 
 
@@ -236,13 +262,20 @@ def probe_inputs(torch, g, n: int, q: int, collide_every: int = 0):
     """A sealed object's ``n`` keys and ``q`` queries, both sorted by (lo,
     hi), as the main path hands them to probe: half the table's keys,
     half keys it does not hold."""
-    from repro_torch.kernels import ops
     lo, hi = sorted_pairs(torch, g, n, collide_every)
+    return (lo, hi) + probe_queries(torch, g, lo, hi, q)
+
+
+def probe_queries(torch, g, lo, hi, q: int):
+    """``q`` queries sorted by (lo, hi) for the table (lo, hi): half its
+    keys, half keys it does not hold."""
+    from repro_torch.kernels import ops
+    n = lo.shape[0]
     pick = torch.randint(0, n, (q // 2,), generator=g, device=g.device)
     q_lo = torch.cat([lo[pick], random_words(torch, g, q - q // 2)])
     q_hi = torch.cat([hi[pick], random_words(torch, g, q - q // 2)])
     o = ops._sort128(q_lo, q_hi)
-    return lo, hi, q_lo[o].contiguous(), q_hi[o].contiguous()
+    return q_lo[o].contiguous(), q_hi[o].contiguous()
 
 
 def segsum_inputs(torch, g, n: int, pair: bool = True):
@@ -519,7 +552,9 @@ def device_profile(torch, fn, focus: str = "flash_fwd") -> dict:
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = sorted(kern, key=dev_us, reverse=True)[:8]
     mine = [e for e in kern if focus in e.key]
+    copies = [e for e in kern if "DtoH" in e.key]
     return {"wall_s": wall,
+            "dtoh_copies": sum(e.count for e in copies),
             "focus": focus,
             "focus_ms": sum(dev_us(e) for e in mine) / 1e3,
             "focus_count": sum(e.count for e in mine),
@@ -596,6 +631,43 @@ def segsum_shapes(ops):
             return int(lo.shape[0]), r_lo is not None
         return None
     return kernel_shapes(ops, "_segsum_kernel", shape_of)
+
+
+@contextlib.contextmanager
+def path_shapes(ops):
+    """The four shape recorders of a VCS window at once: searchsorted's
+    one-side entry, its zone windows, probe and segsum."""
+    with searchsorted_shapes(ops) as shapes, window_shapes(ops) as wshapes, \
+            probe_shapes(ops) as pshapes, segsum_shapes(ops) as sshapes:
+        yield shapes, wshapes, pshapes, sshapes
+
+
+def shape_record(launches: dict, shapes, wshapes, pshapes,
+                 sshapes) -> dict:
+    """A window's launches by shape, as lists of [shape..., launches];
+    fails unless each kernel's shapes sum to its ``build.LAUNCHES``."""
+    for name, hist in (("searchsorted", shapes + wshapes),
+                       ("probe", pshapes), ("segsum_diff", sshapes)):
+        check(sum(hist.values()) == launches[name],
+              f"{name} shapes count {sum(hist.values())} launches, "
+              f"the wrapper {launches[name]}")
+    return {"zone_window_launches": sum(wshapes.values()),
+            "zone_window_shapes": [[n, q, c] for (n, q), c in
+                                   sorted(wshapes.items())],
+            "searchsorted_shapes": [[n, q, c] for (n, q), c in
+                                    sorted((shapes + wshapes).items())],
+            "probe_shapes": [[n, q, c] for (n, q), c in
+                             sorted(pshapes.items())],
+            "segsum_shapes": [[n, pair, c] for (n, pair), c in
+                              sorted(sshapes.items())]}
+
+
+def shape_hist(recs: list, key: str) -> collections.Counter:
+    """Launches by shape summed over records of ``shape_record``."""
+    hist = collections.Counter()
+    for rec in recs:
+        hist.update({tuple(e[:-1]): e[-1] for e in rec[key]})
+    return hist
 
 
 def split_by_queries(hist: collections.Counter, groups=SEARCH_GROUPS):
@@ -800,6 +872,112 @@ def segsum_split(torch, hist: collections.Counter, seed: int,
     return rows
 
 
+def exact_sweep(torch, hists: dict, seed: int,
+                device: str = "cuda") -> dict:
+    """Every distinct shape of a path's launches held EXACTLY against the
+    plain version on random inputs of that shape. ``hists``: kernel ->
+    shape -> launches, for "searchsorted" (table rows, queries; both
+    sides), "zone_windows" (the per-query-side entry, the first half of
+    the queries left), "probe" (table rows, queries) and "segsum_diff"
+    (stream rows, with the row pair); a table is drawn once per size.
+    Fails at the first difference; returns per kernel the shapes and
+    launches covered and the largest error. On the CPU (``device``) the
+    wrappers run their plain versions: only the sweep itself is tried."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.probe import probe
+    from repro_torch.kernels.searchsorted import (searchsorted,
+                                                  searchsorted_sides)
+    from repro_torch.kernels.segsum_diff import segsum
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    out = {}
+
+    def held(name, shape, got, want):
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} {list(shape)}: kernel differs from plain version")
+        e = out.setdefault(name, {"shapes": 0, "launches": 0,
+                                  "max_abs_err": 0.0})
+        e["max_abs_err"] = max([e["max_abs_err"]] + [
+            float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+            for a, b in zip(got, want) if a.numel()])
+
+    def by_table(hist):
+        sizes = collections.defaultdict(list)
+        for n, q in sorted(hist):
+            sizes[n].append(q)
+        return sorted(sizes.items())
+
+    def sorted_words(n):
+        return ref.flip(torch.sort(random_words(torch, g, n)).values
+                        ).contiguous()
+
+    for name in ("searchsorted", "zone_windows"):
+        for n, qs in by_table(hists[name]):
+            tab = sorted_words(n)
+            for q in qs:
+                qw = sorted_words(q)
+                if name == "searchsorted":
+                    for side in ("left", "right"):
+                        held(name, (n, q, side),
+                             (searchsorted(tab, qw, side),),
+                             (ref.lower_bound(tab, qw, side),))
+                else:
+                    held(name, (n, q, q // 2),
+                         (searchsorted_sides(tab, qw, q // 2),),
+                         (ref.lower_bound_sides(tab, qw, q // 2),))
+            del tab
+    for n, qs in by_table(hists["probe"]):
+        lo, hi = sorted_pairs(torch, g, n)
+        for q in qs:
+            args = (lo, hi) + probe_queries(torch, g, lo, hi, q)
+            held("probe", (n, q), probe(*args), ref.probe(*args))
+        del lo, hi, args
+    for n, pair in sorted(hists["segsum_diff"]):
+        args = segsum_inputs(torch, g, n, pair)
+        held("segsum_diff", (n, pair), segsum(*args), ref.segsum(*args))
+        del args
+    for name, hist in hists.items():
+        e = out.setdefault(name, {"shapes": 0, "launches": 0,
+                                  "max_abs_err": 0.0})
+        e.update(shapes=len(hist), launches=sum(hist.values()))
+    return out
+
+
+def workflow_split(torch, flows: list, kern: dict, seed: int,
+                   change: int) -> dict:
+    """The workflow window's kernels at its own shapes: its counted
+    launches (both modes' first rounds) by query group, each group's
+    commonest shape timed as the main path's are, every segsum shape
+    timed; then every distinct shape of both rounds of both modes held
+    EXACTLY against the plain version (``exact_sweep``). The timed rows
+    go to the end of ``kern``'s lists (the kernels line reads the
+    first, a main-path shape, and the largest error of all)."""
+    hist = functools.partial(shape_hist, flows)
+    s_groups, s_rows = searchsorted_split(
+        torch, hist("searchsorted_shapes"), seed, hist("zone_window_shapes"))
+    p_groups, p_rows = probe_split(torch, hist("probe_shapes"), seed)
+    seg_rows = segsum_split(torch, hist("segsum_shapes"), seed, change)
+    kern["searchsorted"] += s_rows
+    kern["probe"] += p_rows
+    kern["segsum_diff"] += seg_rows
+    rounds = flows + [f["second_round"] for f in flows]
+    swept = exact_sweep(torch, {
+        "searchsorted": shape_hist(rounds, "searchsorted_shapes"),
+        "zone_windows": shape_hist(rounds, "zone_window_shapes"),
+        "probe": shape_hist(rounds, "probe_shapes"),
+        "segsum_diff": shape_hist(rounds, "segsum_shapes")}, seed)
+
+    def rows(rs):
+        return [{f: e[f] for f in ("shape", "roles", "ok", "max_abs_err",
+                                   "ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "launches")
+                 if f in e} for e in rs]
+    return phase("workflow_split", searchsorted_groups=s_groups,
+                 probe_groups=p_groups, checked=rows(s_rows + p_rows),
+                 segsum=rows(seg_rows), exact=swept)
+
+
 def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
     """Host cost of one searchsorted call at LAUNCH_COST_SHAPE, step by
     step: each step's host µs per call over ``iters`` back-to-back calls
@@ -920,7 +1098,10 @@ def sql_diff_steps(torch, store, a, b, repeats: int) -> dict:
     return {"plain_ms": plain, "steps_ms": split}
 
 
-def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
+def mainpath_phase(torch, pk: bool, rows: int, change: int):
+    """The main path at SF1; returns its record and what the workflow
+    phase continues from: the engine, the loaded batch, and the table's
+    snapshots before and after the ACCEPT merge."""
     import numpy as np
 
     from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
@@ -929,6 +1110,8 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
     from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
+    gc.collect()         # an earlier engine: its PRs point back at it
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = {}
 
@@ -941,9 +1124,7 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         return out
 
     build.reset_launches()
-    with searchsorted_shapes(ops) as shapes, window_shapes(ops) as wshapes, \
-            probe_shapes(ops) as pshapes, segsum_shapes(ops) as sshapes, \
-            telemetry.trace() as tracer:
+    with path_shapes(ops) as hists, telemetry.trace() as tracer:
         engine, base = timed("load_s",
                              lambda: _mk_engine(rows, pk, device=dev))
         tracer.bind(engine)
@@ -952,7 +1133,6 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
         rng = np.random.default_rng([change] + list(b"C4"))
         timed("update_s", lambda: _random_update(engine, "t", base, change,
                                                  rng, pk))
-        del base
         sn3 = engine.create_snapshot("sn3", "t")
         cur = engine.current_snapshot("lineitem")
         d_cold = timed("diff_cold_s",
@@ -970,21 +1150,8 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
            "merge": merge, "times_s": times, "launches": launches,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "table_lane_bytes": engine.lane_nbytes("lineitem"),
-           "spans": span_summary(tracer),
-           "zone_window_launches": sum(wshapes.values()),
-           "zone_window_shapes": [[n, q, c] for (n, q), c in
-                                  sorted(wshapes.items())],
-           "searchsorted_shapes": [[n, q, c] for (n, q), c in
-                                   sorted((shapes + wshapes).items())],
-           "probe_shapes": [[n, q, c] for (n, q), c in
-                            sorted(pshapes.items())],
-           "segsum_shapes": [[n, pair, c] for (n, pair), c in
-                             sorted(sshapes.items())]}
-    for name, hist in (("searchsorted", shapes + wshapes),
-                       ("probe", pshapes), ("segsum_diff", sshapes)):
-        check(sum(hist.values()) == launches[name],
-              f"{name} shapes count {sum(hist.values())} launches, "
-              f"the wrapper {launches[name]}")
+           "spans": span_summary(tracer)}
+    rec.update(shape_record(launches, *hists))
 
     rec["sql_diff_steps"] = sql_diff_steps(torch, engine.store, cur, sn3,
                                            SQL_DIFF_REPEATS)
@@ -1002,6 +1169,127 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int) -> dict:
     check(merge == f"{change}/{change}/0", f"merge report {merge}")
     check(all(launches[k] > 0 for k in build.VCS_SOURCES),
           f"a kernel was not launched on the main path: {launches}")
+    post = engine.current_snapshot("lineitem")
+    return rec, (engine, base, cur, post)
+
+
+# ----------------------------------------------------------------- workflow
+
+def on_card(*tensors) -> bool:
+    return all(t.device.type == "cuda" for t in tensors)
+
+
+def workflow_round(torch, pk: bool, engine, base, change: int, seed: int,
+                   merged=None) -> dict:
+    """One round of the workflow porcelain on the loaded SF1 engine:
+    branch, a ``change``-row edit on the branch, then (the window, with
+    the launch counts set to 0 just before it) open a PR, review diff,
+    CI checks on the merged preview, publish, revert the publish, revert
+    the main path's ACCEPT merge (``merged``: its before and after
+    snapshots) by its inverse Δ, drop the branch and GC. Each step
+    is host-clocked to a ``torch.cuda.synchronize()``; every check fails
+    the run."""
+    import numpy as np
+
+    from repro_torch.benchmarks.vcs_tables import _random_update
+    from repro_torch.core import snapshot_diff, telemetry
+    from repro_torch.kernels import build, ops
+
+    store, stats, table = engine.store, engine.commit_stats, "lineitem"
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def empty_diff(a, what):
+        d = snapshot_diff(store, a, engine.current_snapshot(table))
+        check(on_card(d.diff_cnt, d.rowid), f"{what}: diff off the card")
+        check(d.is_empty(), f"{what}: {d.n_groups} groups differ")
+
+    timed("branch_s", lambda: engine.create_branch("dev", [table]))
+    rng = np.random.default_rng([seed, change] + list(b"WF"))
+    timed("edit_s", lambda: _random_update(engine, f"dev/{table}", base,
+                                           change, rng, pk, tag=7))
+    hashed = (stats.rows_rehashed, stats.lob_rows_hashed)
+    build.reset_launches()
+    with path_shapes(ops) as hists, telemetry.trace(engine) as tracer:
+        pr = timed("open_pr_s", lambda: engine.open_pr("main", "dev"))
+        diffs = timed("pr_diff_s", pr.diff)
+        d = diffs[table]
+        check(d.n_groups == 2 * change,
+              f"PR diff: {d.n_groups} groups, not {2 * change}")
+        check(on_card(d.diff_cnt, d.key_lo, d.row_lo, d.rowid),
+              "PR diff off the card")
+        pin = pr.base_pins[table]
+        # a Δ-sized CI check: the merged preview differs from the pinned
+        # base by exactly the PR's groups
+        pr.add_check(lambda ctx: snapshot_diff(
+            ctx.engine.store, pin, ctx.engine.current_snapshot(table)
+        ).n_groups == 2 * change, "preview-groups")
+        state = (set(store.oids()), store._next_oid)
+        results = timed("checks_s", pr.run_checks)
+        check(all(r.ok for r in results), f"CI checks failed: {results}")
+        check((set(store.oids()), store._next_oid) == state,
+              "the CI preview left objects or moved the oid counter")
+        pre_publish = engine.current_snapshot(table)
+        reports = timed("publish_s", pr.publish)
+        rep = reports[table]
+        got = f"{rep.inserted}/{rep.deleted}/{rep.true_conflicts}"
+        check(got == f"{change}/{change}/0", f"publish report {got}")
+        timed("revert_publish_s", pr.revert_publish)
+        empty_diff(pre_publish, "after revert_publish")
+        if merged is not None:
+            timed("revert_s", lambda: engine.revert(table, *merged))
+            empty_diff(merged[0], "after reverting the ACCEPT merge")
+        check((stats.rows_rehashed, stats.lob_rows_hashed) == hashed,
+              "publish or revert rehashed rows: "
+              f"{hashed} -> {(stats.rows_rehashed, stats.lob_rows_hashed)}")
+        newest = store.get(engine.table(table).directory.data_oids[-1])
+        check(on_card(newest.row_lo, newest.key_lo, newest.commit_ts),
+              "sealed lanes off the card")
+        # a reverted PR is final and holds no pins (close() refuses it,
+        # in the reference too): the branch drops as it stands
+        check(pr.status == "reverted", f"PR status {pr.status}")
+        engine.drop_branch("dev")
+        mem_before = torch.cuda.memory_allocated()
+        swept = timed("gc_s", engine.gc)
+        mem_after = torch.cuda.memory_allocated()
+    launches = dict(build.LAUNCHES)
+    check(swept.objects_freed > 0,
+          "gc freed nothing after the branch dropped")
+    check(all(launches[k] > 0
+              for k in ("searchsorted", "probe", "segsum_diff")),
+          f"a VCS kernel was not launched in the workflow window: "
+          f"{launches}")
+    return {"times_s": times, "launches": launches,
+            "publish": got, "pr_diff_groups": d.n_groups,
+            "gc": vars(swept), "memory_allocated_before_gc": mem_before,
+            "memory_allocated_after_gc": mem_after,
+            "spans": span_summary(tracer),
+            **shape_record(launches, *hists)}
+
+
+def workflow_phase(torch, pk: bool, engine, base, merged, change: int,
+                   seed: int) -> dict:
+    """The workflow porcelain at SF1 on the main path's engine: a timed
+    round, then a second round (without the merge revert, which the first
+    round already applied) under the profiler for the device's busy share
+    and its device-to-host copies, with its launches by shape as
+    ``second_round``."""
+    rec = {"pk": pk, "change": change}
+    rec.update(workflow_round(torch, pk, engine, base, change, seed,
+                              merged))
+    second = []
+    rec["profile_round"] = device_profile(
+        torch, lambda: second.append(workflow_round(
+            torch, pk, engine, base, change, seed + 1)), focus="segsum")
+    rec["second_round"] = {k: v for k, v in second[0].items()
+                           if k == "launches" or k.endswith("_shapes")}
     return rec
 
 
@@ -1036,8 +1324,6 @@ def host_cost(torch, model, prompt) -> dict:
 def serve_phase(torch, seed: int) -> dict:
     """The serving path at full width: continuous batching over
     SERVE_PROMPTS, then the prefill-vs-decode consistency check."""
-    import gc
-
     import numpy as np
 
     from repro_torch.benchmarks.serve_consistency import (
@@ -1198,26 +1484,31 @@ def main(argv=None) -> int:
         gold = {}
         for pk in (True, False):
             got = digests.run_workload(pk, device="cuda")
-            got.update(digests.run_merge_workload(pk, device="cuda"))
-            want = {**GOLDEN[pk], **GOLDEN_MERGE[pk]}
+            got.update(digests.run_apply_workload(pk, device="cuda"))
+            want = {**GOLDEN[pk], **GOLDEN_APPLY[pk]}
             bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
             check(not bad, f"golden digests differ (pk={pk}): {bad}")
             gold["pk" if pk else "nopk"] = "match"
         record["golden"] = phase("golden", **gold)
 
-        runs = []
+        runs, flows = [], []
         for pk in (True, False):
-            rec = mainpath_phase(torch, pk, args.rows, args.change)
+            rec, (engine, base, pre, post) = mainpath_phase(
+                torch, pk, args.rows, args.change)
             runs.append(rec)
             phase("mainpath", **{k: v for k, v in rec.items()
                                  if not k.endswith("_shapes")})
+            flow = workflow_phase(torch, pk, engine, base, (pre, post),
+                                  args.change, args.seed)
+            flows.append(flow)
+            phase("workflow", **{k: v for k, v in flow.items()
+                                 if k != "second_round"
+                                 and not k.endswith("_shapes")})
+            del engine, base, pre, post
         record["mainpath"] = runs
+        record["workflow"] = flows
 
-        def main_hist(key):
-            hist = collections.Counter()
-            for rec in runs:
-                hist.update({(n, q): c for n, q, c in rec[key]})
-            return hist
+        main_hist = functools.partial(shape_hist, runs)
         groups, search_rows = searchsorted_split(
             torch, main_hist("searchsorted_shapes"), args.seed,
             main_hist("zone_window_shapes"))
@@ -1250,6 +1541,8 @@ def main(argv=None) -> int:
                                    "scan_half_ms", "scan_half_is")}
                 for e in segsum_rows])
         kern["segsum_diff"] = segsum_rows + kern["segsum_diff"]
+        record["workflow_split"] = workflow_split(torch, flows, kern,
+                                                  args.seed, args.change)
         record["launch_cost"] = phase("launch_cost",
                                       **launch_cost(torch, args.seed))
 
@@ -1267,7 +1560,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    launches = {k: sum(r["launches"][k] for r in runs)
+    # every path's window: the main path's and the workflow's, both modes
+    launches = {k: sum(r["launches"][k] for r in runs + flows)
                 for k in build.VCS_SOURCES}
     launches["flash_attention"] = serve["flash_launches"]
     replaces = {

@@ -3,7 +3,8 @@
 The same fixed-seed workloads as the reference's regression guard
 (``tests/test_diff_digest.py``): a PK and a NoPK lineitem table, an update
 on a clone, then built-in and SQL diffs, a three-way merge, a post-merge
-scan and a PITR diff — each hashed with sha256 over the bytes of its
+scan and a PITR diff; and the apply path — merges in every conflict mode,
+a Δ-revert, a publish through a pull request and its revert — each hashed with sha256 over the bytes of its
 lanes (uint64 words hash as the same 8 bytes as int64). Equal digests
 mean the port produced byte-identical results to the reference, on
 whichever device it ran.
@@ -157,4 +158,30 @@ def run_merge_workload(pk: bool, device=None) -> dict:
     out["merge_nobase"] = (f"{rep.inserted}/{rep.deleted}/"
                            f"{rep.true_conflicts}/"
                            + scan_digest(engine, "lineitem"))
+    return out
+
+
+def run_apply_workload(pk: bool, device=None) -> dict:
+    """Every apply-path digest of ``GOLDEN_APPLY``: the merges of
+    ``run_merge_workload``, a revert of an ACCEPT merge by its inverse Δ,
+    and a publish of a branch edit through a pull request and its
+    revert (the post-apply table bytes each)."""
+    out = run_merge_workload(pk, device=device)
+    engine, sn1, sn3 = _apply_setup(pk, 0.0, device=device)
+    pre = engine.create_snapshot("pre", "lineitem")
+    three_way_merge(engine, "lineitem", sn3, base=sn1,
+                    mode=ConflictMode.ACCEPT)
+    post = engine.create_snapshot("post", "lineitem")
+    engine.revert("lineitem", pre, post)
+    out["revert"] = scan_digest(engine, "lineitem")
+    engine, base = _mk_engine(30_000, pk, device=device)
+    engine.create_branch("dev", ["lineitem"])
+    rng = np.random.default_rng([77, pk])
+    idx = np.sort(rng.choice(30_000, size=1_500, replace=False))
+    _edit(engine, "dev/lineitem", base, idx, pk, tag=3)
+    pr = engine.open_pr("main", "dev")
+    pr.publish()
+    out["publish"] = scan_digest(engine, "lineitem")
+    pr.revert_publish()
+    out["publish_revert"] = scan_digest(engine, "lineitem")
     return out

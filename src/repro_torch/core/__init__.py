@@ -1,8 +1,9 @@
 """repro_torch.core — the git-for-data engine over immutable columnar
 storage with MVCC (MatrixOne §§3-5), on torch tensors.
 
-Public API of this slice:
-    Engine, Txn          — tables, transactions, snapshots, clone
+Public API of the port so far:
+    Engine, Txn          — tables, transactions, snapshots, clone/restore, gc
+    Branch, PullRequest  — branches, pull requests, atomic publish, revert
     Schema, Column, CType
     snapshot_diff, sql_diff, DiffResult
     three_way_merge, two_way_merge, ConflictMode, MergeReport
@@ -11,10 +12,10 @@ Public API of this slice:
 from .schema import CType, Column, Schema                      # noqa: F401
 from .directory import Directory, Snapshot                     # noqa: F401
 from .engine import (CommitRecord, CommitStats, Engine,        # noqa: F401
-                     PKViolation, Txn, TxnConflict)
+                     GCStats, PKViolation, Txn, TxnConflict)
 from .sigs import SigBatch, compute_sigs, resolve_sigs         # noqa: F401
-from .diff import (DiffResult, gather_payload, snapshot_diff,  # noqa: F401
-                   sql_diff)
+from .diff import (DiffResult, gather_payload, gather_rowsigs,  # noqa: F401
+                   snapshot_diff, sql_diff)
 from .merge import (ConflictMode, MergeConflictError, MergeReport,  # noqa: F401
                     ThreeWayDiff, plan_merge, three_way_diff,
                     three_way_merge, two_way_merge)
@@ -22,5 +23,8 @@ from .wal import WAL                                           # noqa: F401
 from .faults import (FaultPlan, InjectedCrash, crash_point,    # noqa: F401
                      inject, register, registered)
 from .refs import (AmbiguousRefError, Ref, RefSyntaxError,     # noqa: F401
-                   ResolvedRef, UnknownRefError, format_ref, parse_ref,
-                   resolve)
+                   ResolvedRef, UnknownRefError, as_branch,
+                   format_ref, parse_ref, resolve)
+from .workspace import (TRUNK, Branch, CheckContext,           # noqa: F401
+                        CheckResult, PublishBlocked, PullRequest,
+                        RevertConflict)

@@ -122,6 +122,19 @@ class SignedStream:
             out.runs = _RUN0 if out.n else np.zeros((0,), np.int64)
         return out
 
+    def inverse(self) -> "SignedStream":
+        """The algebraic inverse Δ(b→a) of this stream Δ(a→b): same rows,
+        flipped signs. Signs do not take part in the sortedness
+        invariant, so runs and key aliasing carry over and every field
+        but ``sign`` is SHARED with this stream — which may be a
+        ``DeltaCache`` entry. torch has no read-only flag, so nothing may
+        write into the inverse's tensors in place; ``-sign`` is a fresh
+        tensor."""
+        # lint: runs-ok the same rows in the same order as this stream
+        return SignedStream(-self.sign, self.key_lo, self.key_hi,
+                            self.row_lo, self.row_hi, self.rowid,
+                            runs=self.runs, key_is_row=self.key_is_row)
+
     def merge_by_key(self, cuts=None) -> "SignedStream":
         """Materialize the globally key-sorted stream: a stable k-way
         merge of the presorted runs (ties keep emission order), falling

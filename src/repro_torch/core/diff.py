@@ -16,7 +16,7 @@ store's device. Payload values are gathered lazily by rowid.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,6 +140,32 @@ def gather_payload(store: ObjectStore, schema: Schema,
            for c in lob_names}
     # lint: runs-ok the claim is the caller's, about this input order
     return batch, SigBatch(row_lo, row_hi, key_lo, key_hi, lob, runs=runs)
+
+
+def gather_rowsigs(store: ObjectStore, rowids: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-value signatures at physical rowids (preserves input order).
+
+    The Δ-sized value identity probe: two rows are byte-identical iff
+    their 128-bit row signatures match, so revert's "is the current row
+    still the one being reverted away?" check never gathers payloads.
+    Only the distinct oids come to the host; every gather runs on the
+    rowids' device."""
+    oids = rowid_oid(rowids)
+    offs = rowid_off(rowids)
+    uniq = torch.unique(oids).tolist()
+    if len(uniq) == 1:
+        obj = store.get(int(uniq[0]))  # single-object fast path
+        return obj.row_lo[offs], obj.row_hi[offs]
+    lo = torch.zeros_like(rowids)
+    hi = torch.zeros_like(rowids)
+    for oid in uniq:
+        sel = torch.nonzero(oids == oid).flatten()
+        obj = store.get(int(oid))
+        o = offs[sel]
+        lo[sel] = obj.row_lo[o]
+        hi[sel] = obj.row_hi[o]
+    return lo, hi
 
 
 def _aggregate_stream(schema: Schema, stream: SignedStream,

@@ -6,10 +6,11 @@ serialized through ``_commit`` (the TN role), every logical change is
 WAL'd (the LogService role), and all bulk row work runs on tensors on the
 engine's device through the kernel ops (the CN role).
 
-This slice of the port covers tables, Txn, commit and seal, snapshots and
-clone. Branches, pull requests, revert, restore, drop, materialized
-clones, compaction, secondary indices, ALTER, GC and WAL replay are not
-ported yet.
+This port covers tables, Txn, commit and seal, snapshots, clone,
+restore, drop, GC, and the workflow porcelain's engine-level shims
+(branches, pull requests, Δ-revert; the verbs live in ``workspace``).
+Materialized clones, compaction, secondary indices, ALTER and WAL replay
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,12 +23,12 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
-from .directory import Snapshot
+from .directory import Directory, Snapshot
 from .objects import (OBJECT_CAPACITY, DataObject, ObjectStore,
                       TombstoneObject, rowid_off, rowid_oid,
                       seal_data_object)
-from .refs import AtRef, require, validate_name
-from .refs import resolve as resolve_ref
+from .refs import AtRef, BareRef, parse_ref, require, validate_name
+from .refs import RefSyntaxError, resolve as resolve_ref
 from .schema import Schema, concat_batches, is_lob
 from .sigs import (SigBatch, concat_sigs, key_sigs_for_lookup, resolve_sigs,
                    validate_runs)
@@ -45,6 +46,8 @@ SP_COMMIT_SEAL = telemetry.register_span(
 SP_COMMIT_SWING = telemetry.register_span(
     "commit.swing", "commit phase 2: swing every directory (the WAL "
     "group is already logged)")
+SP_GC = telemetry.register_span(
+    "gc", "mark-sweep garbage collection over the object store")
 
 CP_TORCH_COMMIT_PRE_SEAL = register(
     "torch.engine.commit.pre_seal",
@@ -58,6 +61,10 @@ CP_TORCH_COMMIT_MID_SWING = register(
     "torch.engine.commit.mid_swing",
     "between directory swings of a multi-table commit — the WAL already "
     "holds the FULL group (log-before-swing)")
+CP_TORCH_GC_MID_SWEEP = register(
+    "torch.engine.gc.mid_sweep",
+    "between object deletions of a GC sweep — GC is not WAL-logged, so "
+    "the logical state is unchanged, with more garbage left")
 
 
 class TxnConflict(Exception):
@@ -137,6 +144,12 @@ class Txn:
         self.insert(table, batch)
         return n
 
+    @property
+    def staged(self) -> bool:
+        """True iff the workspace holds any insert or delete."""
+        return (any(b for b in self._ins.values())
+                or any(d.shape[0] for ds in self._del.values() for d in ds))
+
     def commit(self, *, _log: bool = True) -> int:
         ts = self.engine._commit(self, _log=_log)
         self.committed = ts
@@ -144,7 +157,7 @@ class Txn:
 
 
 class Engine:
-    def __init__(self, device=None):
+    def __init__(self, device=None, retention_versions: int = 1024):
         self.device = resolve_device(device)
         self.store = ObjectStore(self.device)
         self.wal = WAL()
@@ -152,8 +165,16 @@ class Engine:
         self.ts = 0
         self.tables: Dict[str, Table] = {}
         self.snapshots: Dict[str, Snapshot] = {}
+        self.retention_versions = retention_versions
         # lineage: latest common base snapshot per unordered table pair
         self._base: Dict[Tuple[str, str], Snapshot] = {}
+        # secondary indices: base table -> [IndexSpec]; none are built yet,
+        # but the branch resolver already excludes their auxiliary tables
+        self.indices: Dict[str, list] = {}
+        # workflow porcelain: branch refs + pull requests
+        self.branches: Dict[str, "Branch"] = {}
+        self.prs: Dict[int, "PullRequest"] = {}
+        self._next_pr_id = 1
         # commit log: one CommitRecord per table per applied operation,
         # tagged with the op kind
         self.commit_log: List[CommitRecord] = []
@@ -186,6 +207,13 @@ class Engine:
         if _log:
             self.wal.append("create_table", name=name, schema=schema)
         return t
+
+    def drop_table(self, name: str, *, _log=True) -> None:
+        require(self.tables, name, "table")
+        del self.tables[name]
+        self._base = {k: v for k, v in self._base.items() if name not in k}
+        if _log:
+            self.wal.append("drop_table", name=name)
 
     def begin(self) -> Txn:
         return Txn(self)
@@ -414,11 +442,33 @@ class Engine:
             self.store.delete(o)
 
     # --------------------------------------------------------- snapshots
-    def _snapshotish(self, ref: SnapshotRef) -> Snapshot:
-        """Snapshot-position resolution for clone: an EXACT named snapshot
-        wins before ref parsing; everything else takes the one resolver."""
+    def _snapshotish(self, ref: SnapshotRef,
+                     table: Optional[str] = None) -> Snapshot:
+        """Snapshot-position resolution for clone/restore: an EXACT named
+        snapshot wins before ref parsing (a pre-grammar tag literally named
+        ``step~1`` must restore THAT tag); everything else takes the one
+        resolver, table-relative forms against ``table``."""
         if isinstance(ref, str) and ref in self.snapshots:
             return self.snapshots[ref]
+        return resolve_ref(self, ref, table=table).snapshot
+
+    def resolve_snapshot(self, ref: SnapshotRef) -> Snapshot:
+        """DEPRECATED shim — kept for old callers; use ``refs.resolve``.
+
+        A bare string resolves in the snapshot namespace alone, dict
+        first (a pre-grammar name may look like a qualified ref form); a
+        bare name absent from the dict raises rather than matching a table
+        or branch. Only qualified forms take the one resolver."""
+        if isinstance(ref, str):
+            if ref in self.snapshots:
+                return self.snapshots[ref]
+            try:
+                bare = isinstance(parse_ref(ref), BareRef)
+            except RefSyntaxError:
+                bare = True          # pre-grammar legacy name
+            if bare:
+                return require(self.snapshots, ref, "snapshot",
+                               f"snap:{ref}")
         return resolve_ref(self, ref).snapshot
 
     def create_snapshot(self, name: str, table: str, *, _log=True) -> Snapshot:
@@ -434,6 +484,21 @@ class Engine:
         if _log:
             self.wal.append("snapshot", name=name, table=table)
         return snap
+
+    def drop_snapshot(self, name: str, *, _log=True) -> None:
+        require(self.snapshots, name, "snapshot", f"snap:{name}")
+        del self.snapshots[name]
+        # drop lineage entries pointing at the dropped snapshot (anonymous
+        # bases have name=None and never match a named drop)
+        self._base = {k: v for k, v in self._base.items() if v.name != name}
+        if _log:
+            self.wal.append("drop_snapshot", name=name)
+
+    def list_snapshots(self) -> list:
+        """Named snapshots as (name, table, created_ts), oldest first."""
+        return sorted(((s.name, s.table, s.created_ts)
+                       for s in self.snapshots.values()),
+                      key=lambda r: (r[2], r[0]))
 
     def snapshot_at(self, table: str, ts: int) -> Snapshot:
         """DEPRECATED shim — use the ``table@{ts}`` ref form through
@@ -463,12 +528,130 @@ class Engine:
             self.wal.append("clone", new=new_name, snap=snap)
         return t
 
+    def restore_table(self, table: str, src: SnapshotRef, *,
+                      _log=True) -> None:
+        """RESTORE TABLE table FROM SNAPSHOT src — git reset --hard.
+
+        ``src`` may be any ref form; table-relative refs (ts:N, HEAD, ~n)
+        resolve against ``table``."""
+        t: Table = require(self.tables, table, "table")
+        snap = self._snapshotish(src, table=table)
+        if snap.table != table and not t.schema.compatible_with(snap.schema):
+            raise ValueError("restore: incompatible schema")
+        t.schema = snap.schema  # PITR across schema change (paper §5.5.6)
+        t.set_directory(Directory(snap.directory.data_oids,
+                                  snap.directory.tomb_oids, snap.ts))
+        self.commit_log.append(CommitRecord(self.ts, table, "restore", 0, 0))
+        if snap.table != table:
+            self.set_common_base(table, snap.table, snap)
+        if _log:
+            self.wal.append("restore", table=table, snap=snap)
+
+    # ------------------------------------------------- workflow porcelain
+    # Branch refs, pull requests, atomic publish and Δ-based revert live in
+    # core.workspace; these shims are the engine-level API (local imports
+    # break the engine <-> workspace cycle).
+
+    def create_branch(self, name: str, tables, from_ref: Optional[str] = None,
+                      *, _log=True) -> "Branch":
+        from .workspace import create_branch
+        return create_branch(self, name, tables, from_ref, _log=_log)
+
+    def drop_branch(self, name: str, *, _log=True) -> None:
+        from .workspace import drop_branch
+        drop_branch(self, name, _log=_log)
+
+    def branch(self, name: str) -> "Branch":
+        # lint: legacy-ok Engine.branch IS the engine-level shim —
+        # as_branch lacks resolve_branch's synthesized-trunk semantics
+        from .workspace import resolve_branch
+        return resolve_branch(self, name)  # lint: legacy-ok the shim body
+
+    def list_branches(self) -> list:
+        """Registered branches, sorted by name."""
+        return sorted(self.branches.values(), key=lambda b: b.name)
+
+    def open_pr(self, base: Optional[str], head: str, *,
+                _log=True) -> "PullRequest":
+        from .workspace import open_pr
+        return open_pr(self, base, head, _log=_log)
+
+    def revert(self, table: str, from_ref: SnapshotRef, to_ref: SnapshotRef,
+               *, _log=True) -> Optional[int]:
+        """Apply the INVERSE of Δ(from_ref -> to_ref) to ``table``'s
+        current state as a new commit — history-preserving, Δ-sized (git
+        revert, not the head-rewriting restore_table)."""
+        from .workspace import revert
+        return revert(self, table, from_ref, to_ref, _log=_log)
+
     # ----------------------------------------------------------- lineage
     def set_common_base(self, a: str, b: str, snap: Snapshot) -> None:
         self._base[tuple(sorted((a, b)))] = snap
 
     def find_common_base(self, a: str, b: str) -> Optional[Snapshot]:
         return self._base.get(tuple(sorted((a, b))))
+
+    # ------------------------------------------------------- GC (mark-sweep)
+    def _pinned_snapshots(self) -> List[Snapshot]:
+        """Snapshots that must survive GC beyond the named ones: lineage
+        bases, branch points, and the horizons held by live pull requests
+        (open PRs pin their base-at-open; published-but-not-closed PRs pin
+        their pre/post publish states so revert_publish stays possible)."""
+        pins = list(self._base.values())
+        for br in self.branches.values():
+            pins.extend(br.base.values())
+        for pr in self.prs.values():
+            if pr.status == "open":
+                pins.extend(pr.base_pins.values())
+            elif pr.status == "published":
+                pins.extend(pr.pre_publish.values())
+                pins.extend(pr.post_publish.values())
+        return pins
+
+    def gc(self) -> "GCStats":
+        """Mark-sweep GC: drop objects unreachable from current tables,
+        retained PITR history, named snapshots, and pinned horizons.
+
+        History is trimmed to ``retention_versions`` per table, but every
+        entry still backing a pinned horizon survives the trim — a pin
+        guarantees ``directory_at`` keeps resolving at that horizon."""
+        with telemetry.span(SP_GC):
+            st = self._gc_sweep()
+            m = self.store.metrics
+            m.add("gc.objects_freed", st.objects_freed)
+            m.add("gc.versions_pruned", st.versions_pruned)
+            # a gauge, not a running sum: "pinned at the LAST sweep"
+            m.counters["gc.pinned_horizons"] = st.pinned_horizons
+            return st
+
+    def _gc_sweep(self) -> "GCStats":
+        pins = self._pinned_snapshots()
+        pin_ts: Dict[str, set] = {}
+        for s in list(self.snapshots.values()) + pins:
+            if s.table in self.tables:
+                pin_ts.setdefault(s.table, set()).add(
+                    max(s.created_ts, s.directory.ts))
+        marked = set()
+        pruned = 0
+        for name, t in self.tables.items():
+            pruned += t.trim_history(self.retention_versions,
+                                     pin_ts.get(name, ()))
+            for _, d in t.history:
+                marked.update(d.data_oids)
+                marked.update(d.tomb_oids)
+            marked.update(t.directory.data_oids)
+            marked.update(t.directory.tomb_oids)
+        for s in list(self.snapshots.values()) + pins:
+            marked.update(s.directory.data_oids)
+            marked.update(s.directory.tomb_oids)
+        dead = [o for o in list(self.store.oids()) if o not in marked]
+        for o in dead:
+            # GC is not WAL-logged: dying between deletions only leaves
+            # extra garbage for the next sweep, never a logical change
+            crash_point(CP_TORCH_GC_MID_SWEEP)
+            self.store.delete(o)
+        return GCStats(objects_freed=len(dead), versions_pruned=pruned,
+                       pinned_horizons=sum(len(v) for v in pin_ts.values()))
 
     def lane_nbytes(self, table: str) -> int:
         """Device bytes of the lanes of every object a table's current
@@ -512,11 +695,19 @@ class CommitRecord:
 
 
 @dataclass
+class GCStats:
+    """What one GC pass did (and deliberately did not) collect."""
+    objects_freed: int = 0
+    versions_pruned: int = 0
+    pinned_horizons: int = 0
+
+
+@dataclass
 class CommitStats:
     """Where seal-time work went, cumulative per engine.
 
     The zero-rehash invariant: applying rows gathered from sealed objects
-    (merge, materialized clones) never pays ``rows_rehashed`` or
+    (merge, revert, publish) never pays ``rows_rehashed`` or
     ``lob_rows_hashed``; their signatures ride along in ``SigBatch``
     sidecars and the sort is skipped or a k-way run merge."""
     rows_rehashed: int = 0       # rows that ran the rowhash kernel at seal

@@ -168,10 +168,11 @@ def lane_nbytes(obj) -> int:
 class ObjectStore:
     """The immutable object store (stand-in for S3 in the paper).
 
-    Objects are write-once; deletion happens only through the rollback
-    path that makes aborted work invisible (``Engine._commit`` unwinding
-    a failed transaction), which also rewinds ``_next_oid`` — so an oid CAN
-    be reused after its object was deleted, and oid-keyed caches subscribe
+    Objects are write-once; deletion happens through GC and through the
+    rollback paths that make aborted or ephemeral work invisible
+    (``Engine._commit`` unwinding a failed transaction, a CI preview),
+    which also rewind ``_next_oid`` — so an oid CAN be reused after its
+    object was deleted, and oid-keyed caches subscribe
     to ``delete`` notifications. ``device`` is where every sealed lane
     lives."""
 
@@ -201,6 +202,12 @@ class ObjectStore:
 
     def get(self, oid: int):
         return self._objects[oid]
+
+    def has(self, oid: int) -> bool:
+        return oid in self._objects
+
+    def oids(self):
+        return self._objects.keys()
 
     def delete(self, oid: int) -> None:
         obj = self._objects.pop(oid)

@@ -11,12 +11,11 @@ forms on the left)::
     orders@{12345}       PITR horizon of a named table (no context needed)
     orders~2             2 commits back in the table's PITR history index
     pr:3:base            PR #3's pinned base-at-open horizon
-    dev                  bare name: snapshot or table head — ambiguity is
-                         an error, never a guess
+    dev                  bare name: branch, snapshot, or table head —
+                         ambiguity is an error, never a guess
 
-Branches and pull requests live in ``workspace``, which this slice of the
-port does not hold yet: ``branch:`` and ``pr:`` refs parse, and resolving
-them raises ``UnknownRefError``.
+Branches and pull requests live in ``workspace``; the resolver imports it
+lazily (workspace imports this module).
 """
 from __future__ import annotations
 
@@ -271,6 +270,32 @@ def _table_snapshot(engine, phys: str, ref_text: str) -> Snapshot:
     return engine.current_snapshot(phys)
 
 
+def _branch(engine, name: str, ref_text: str):
+    """Branch lookup with trunk synthesis; UnknownRefError otherwise."""
+    # lint: legacy-ok the resolver IS resolve_branch's sanctioned caller
+    from .workspace import TRUNK, resolve_branch
+    if name == TRUNK or name in engine.branches:
+        return resolve_branch(engine, name)  # lint: legacy-ok as above
+    raise UnknownRefError(
+        ref_text, f"no branch {name!r}",
+        suggest(name, list(engine.branches) + [TRUNK]))
+
+
+def _branch_table(engine, br, table: Optional[str], ref_text: str) -> str:
+    if table is None:
+        raise UnknownRefError(
+            ref_text, "branch ref needs a table context (pass table=...)",
+            [f"{ref_text} with table={t!r}" for t in sorted(br.tables)[:2]])
+    if table in br.tables:
+        return br.tables[table]
+    # accept the branch's own physical names too (dev/t on branch dev)
+    if table in br.tables.values():
+        return table
+    raise UnknownRefError(
+        ref_text, f"branch {br.name!r} has no table {table!r}",
+        suggest(table, br.tables))
+
+
 def _pitr_snapshot(engine, phys: str, ts: int, ref_text: str) -> Snapshot:
     if phys not in engine.tables:
         raise UnknownRefError(ref_text, f"no table {phys!r}",
@@ -284,6 +309,15 @@ def _pitr_snapshot(engine, phys: str, ts: int, ref_text: str) -> Snapshot:
             f"(history starts at ts={t.history[0][0]})") from None
     return Snapshot(name=None, table=phys, schema=t.schema, directory=d,
                     created_ts=ts)
+
+
+def _pr(engine, pr_id: int, ref_text: str):
+    pr = engine.prs.get(pr_id)
+    if pr is None:
+        raise UnknownRefError(
+            ref_text, f"no PR #{pr_id}",
+            [f"pr:{i}" for i in sorted(engine.prs)][:3])
+    return pr
 
 
 def resolve(engine, ref: RefLike, table: Optional[str] = None) -> ResolvedRef:
@@ -308,10 +342,10 @@ def resolve(engine, ref: RefLike, table: Optional[str] = None) -> ResolvedRef:
         snap = _table_snapshot(engine, table, text)
         return ResolvedRef(r, table, snap)
 
-    if isinstance(r, (BranchRef, PrRef)):
-        raise UnknownRefError(
-            text, "branch and pull-request refs need the workspace, which "
-            "repro_torch does not provide yet")
+    if isinstance(r, BranchRef):
+        br = _branch(engine, r.name, text)
+        phys = _branch_table(engine, br, table, text)
+        return ResolvedRef(r, phys, engine.current_snapshot(phys))
 
     if isinstance(r, SnapRef):
         snap = engine.snapshots.get(r.name)
@@ -345,21 +379,53 @@ def resolve(engine, ref: RefLike, table: Optional[str] = None) -> ResolvedRef:
                         directory=d, created_ts=ts)
         return ResolvedRef(r, r.table, snap)
 
+    if isinstance(r, PrRef):
+        pr = _pr(engine, r.pr_id, text)
+        if table is not None:
+            if table not in pr.tables:
+                raise UnknownRefError(
+                    text, f"PR #{r.pr_id} does not cover table {table!r}",
+                    suggest(table, pr.tables))
+            lg = table
+        elif len(pr.tables) == 1:
+            lg = next(iter(pr.tables))
+        else:
+            raise AmbiguousRefError(
+                text, [f"{text} with table={t!r}"
+                       for t in sorted(pr.tables)])
+        if r.role == "base":
+            snap = pr.base_pins[lg]
+            return ResolvedRef(r, snap.table, snap)
+        if r.role == "head":
+            phys = pr.tables[lg]
+            return ResolvedRef(r, phys, _table_snapshot(engine, phys, text))
+        snap = pr.post_publish.get(lg)     # merged
+        if snap is None:
+            raise UnknownRefError(
+                text, f"PR #{r.pr_id} is {pr.status}: no merged state "
+                "(publish it first)")
+        return ResolvedRef(r, snap.table, snap)
+
     if isinstance(r, BareRef):
+        from .workspace import TRUNK
         readings = []
+        if r.name == TRUNK or r.name in engine.branches:
+            readings.append(("branch", BranchRef(r.name)))
         if r.name in engine.snapshots:
             readings.append(("snapshot", SnapRef(r.name)))
         if r.name in engine.tables:
             readings.append(("table", None))
         if len(readings) > 1:
             raise AmbiguousRefError(
-                text, [f"snap:{r.name}" if k == "snapshot"
+                text, [f"branch:{r.name}" if k == "branch"
+                       else f"snap:{r.name}" if k == "snapshot"
                        else f"{r.name}@{{ts}} / HEAD of table {r.name!r}"
                        for k, _ in readings])
         if not readings:
-            pool = list(engine.snapshots) + list(engine.tables)
+            pool = (list(engine.branches) + list(engine.snapshots)
+                    + list(engine.tables) + [TRUNK])
             raise UnknownRefError(
-                text, "no snapshot or table by that name",
+                text, "no branch, snapshot, or table by that name",
                 suggest(r.name, pool))
         kind, sub = readings[0]
         if kind == "table":
@@ -368,3 +434,29 @@ def resolve(engine, ref: RefLike, table: Optional[str] = None) -> ResolvedRef:
         return resolve(engine, sub, table)
 
     raise RefSyntaxError(text, "unhandled ref form")   # pragma: no cover
+
+
+def as_branch(engine, ref: RefLike):
+    """The Branch a ref denotes, or None if it isn't a branch ref.
+
+    ``branch:x`` raises UnknownRefError if x doesn't exist; a bare name
+    returns the branch only when that reading is unambiguous."""
+    from .workspace import TRUNK
+    if isinstance(ref, Snapshot):
+        return None
+    r = parse_ref(ref) if isinstance(ref, str) else ref
+    if isinstance(r, BranchRef):
+        return _branch(engine, r.name, r.format())
+    if isinstance(r, BareRef):
+        is_branch = r.name == TRUNK or r.name in engine.branches
+        if is_branch:
+            others = []
+            if r.name in engine.snapshots:
+                others.append(f"snap:{r.name}")
+            if r.name in engine.tables:
+                others.append(f"table {r.name!r}")
+            if others:
+                raise AmbiguousRefError(
+                    r.format(), [f"branch:{r.name}"] + others)
+            return _branch(engine, r.name, r.format())
+    return None

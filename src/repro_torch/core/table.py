@@ -51,7 +51,8 @@ class Table:
         self.schema = schema
         self._store = store
         self.directory = Directory.empty(ts)
-        # PITR history: every directory version, kept sorted by apply-ts
+        # PITR history: every directory version, trimmed by Engine GC and
+        # kept sorted by apply-ts
         self.history: List[Tuple[int, Directory]] = [(ts, self.directory)]
 
     # ------------------------------------------------------------- state
@@ -71,6 +72,27 @@ class Table:
         cache = self._store.vis_cache
         if cache is not None:
             cache.extend(old, d)
+
+    def trim_history(self, retention: int, pinned_ts=()) -> int:
+        """Trim PITR history to the trailing ``retention`` versions while
+        keeping every entry still needed to serve ``directory_at`` of a
+        pinned horizon (open PR bases, lineage snapshots, branch points).
+
+        For each pin the *latest* entry with apply-ts <= pin survives — the
+        one ``directory_at(pin)`` resolves to. Returns the number of
+        entries pruned. ``retention <= 0`` keeps everything."""
+        n = len(self.history)
+        if retention <= 0 or n <= retention:
+            return 0
+        keep = set(range(n - retention, n))
+        for ts in pinned_ts:
+            i = bisect.bisect_right(self.history, ts, key=lambda e: e[0])
+            if i > 0:
+                keep.add(i - 1)
+        kept = [self.history[i] for i in sorted(keep)]
+        pruned = n - len(kept)
+        self.history = kept
+        return pruned
 
     def directory_at(self, ts: int) -> Directory:
         """PITR: latest directory version with apply-ts <= ts, horizon ts."""
@@ -145,6 +167,17 @@ class Table:
             {c: cat(v) for c, v in lob.items()},
             runs=np.asarray(runs, np.int64))
         return batch, rid, sigs
+
+    def count(self, directory: Optional[Directory] = None) -> int:
+        """Visible rows; one host read per object that has kills."""
+        d = directory or self.directory
+        vi = visibility_index(self._store, d)
+        n = 0
+        for oid in d.data_oids:
+            obj = self._store.get(oid)
+            n += (obj.nrows if vi.fully_visible(obj)
+                  else int(vi.visible_mask(obj).sum()))
+        return n
 
     # ------------------------------------------------------------ probes
     def locate_keys(self, key_lo: torch.Tensor, key_hi: torch.Tensor,

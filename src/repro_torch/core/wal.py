@@ -13,8 +13,14 @@ from typing import Any, Dict, List
 from .faults import crash_point, register
 
 # Every record kind the engine of this slice emits.
-KINDS = frozenset({"create_table", "commit", "snapshot", "clone",
-                   "set_base"})
+KINDS = frozenset({
+    # storage / transaction layer
+    "create_table", "drop_table", "commit", "snapshot", "drop_snapshot",
+    "clone", "restore", "set_base",
+    # workflow porcelain: branches, pull requests, atomic publish, Δ-revert
+    "create_branch", "drop_branch", "open_pr", "close_pr", "publish",
+    "publish_revert", "revert",
+})
 
 CP_TORCH_WAL_APPEND = register(
     "torch.wal.append",

@@ -32,7 +32,7 @@ from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
-from chip_smoke import FLASH_REL_TOL, GOLDEN, GOLDEN_MERGE
+from chip_smoke import FLASH_REL_TOL, GOLDEN, GOLDEN_APPLY
 
 pytestmark = pytest.mark.card
 
@@ -374,9 +374,62 @@ def test_ops_on_lo64_collisions_match_cpu(cuda, seed):
 @pytest.mark.parametrize("pk", [True, False])
 def test_golden_digests_on_the_card(cuda, pk):
     assert digests.run_workload(pk, device=cuda) == GOLDEN[pk]
-    assert digests.run_merge_workload(pk, device=cuda) == GOLDEN_MERGE[pk]
+    assert digests.run_apply_workload(pk, device=cuda) == GOLDEN_APPLY[pk]
     assert all(build.LAUNCHES[k] > 0 for k in build.VCS_SOURCES), \
         build.LAUNCHES
+
+
+def _workflow(dev, pk, n=20_000, change=1_500):
+    """Branch, edit, PR diff, CI preview, publish, revert the publish,
+    Δ-revert a merge, drop the branch, GC: what each step leaves."""
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    from repro_torch.core import ConflictMode, snapshot_diff, three_way_merge
+    engine, base = _mk_engine(n, pk, device=dev)
+    sn1 = engine.create_snapshot("sn1", "lineitem")
+    engine.clone_table("t", sn1)
+    _random_update(engine, "t", base, change, np.random.default_rng(1), pk)
+    sn3 = engine.create_snapshot("sn3", "t")
+    pre = engine.current_snapshot("lineitem")
+    three_way_merge(engine, "lineitem", sn3, base=sn1,
+                    mode=ConflictMode.ACCEPT)
+    post = engine.current_snapshot("lineitem")
+    engine.create_branch("dev", ["lineitem"])
+    _random_update(engine, "dev/lineitem", base, change,
+                   np.random.default_rng(2), pk, tag=7)
+    hashed = engine.commit_stats.rows_rehashed
+    build.reset_launches()
+    pr = engine.open_pr("main", "dev")
+    groups = pr.diff()["lineitem"].n_groups
+    pr.add_check(lambda ctx: ctx.count("lineitem") == n, "rows")
+    oids = set(engine.store.oids())
+    ok = [r.ok for r in pr.run_checks()]
+    assert set(engine.store.oids()) == oids
+    rep = pr.publish()["lineitem"]
+    out = {"groups": groups, "checks": ok,
+           "publish": (rep.inserted, rep.deleted, rep.true_conflicts),
+           "published": digests.scan_digest(engine, "lineitem")}
+    pr.revert_publish()
+    out["publish_reverted"] = digests.scan_digest(engine, "lineitem")
+    engine.revert("lineitem", pre, post)
+    assert snapshot_diff(engine.store, pre,
+                         engine.current_snapshot("lineitem")).is_empty()
+    out["reverted"] = digests.scan_digest(engine, "lineitem")
+    assert engine.commit_stats.rows_rehashed == hashed
+    engine.drop_branch("dev")
+    out["gc"] = vars(engine.gc())
+    out["oids"] = sorted(engine.store.oids())
+    return out, dict(build.LAUNCHES)
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_publish_revert_and_gc_on_the_card(cuda, pk):
+    got, launches = _workflow(cuda, pk)
+    want, _ = _workflow("cpu", pk)
+    assert got == want
+    assert got["groups"] == 3_000 and got["publish"] == (1_500, 1_500, 0)
+    assert got["gc"]["objects_freed"] > 0
+    assert all(launches[k] > 0 for k in ("searchsorted", "probe",
+                                         "segsum_diff")), launches
 
 
 def _qkv(dev, b, sq, sk, h, kv, hd, seed=0):

@@ -1,8 +1,8 @@
 """The port's diff/merge main path against the reference, end to end.
 
 ``repro_torch`` on ``device="cpu"`` must reproduce the reference's golden
-digests (``GOLDEN`` and the merge entries of ``GOLDEN_APPLY`` in
-``tests/test_diff_digest.py``) byte for byte, and agree side by side with
+digests (``GOLDEN`` and ``GOLDEN_APPLY`` in ``tests/test_diff_digest.py``)
+byte for byte, and agree side by side with
 a live ``repro`` run on identical numpy inputs. Also pinned here: the
 slice's boundaries (no JAX and no ``repro`` in the port, no silent CPU
 fallback, ``chip_smoke.py`` refusing to run without a card).
@@ -63,18 +63,16 @@ def test_port_reproduces_golden_diff_digests(pk):
 
 @pytest.mark.parametrize("pk", [True, False])
 def test_port_reproduces_golden_merge_digests(pk):
-    got = digests.run_merge_workload(pk, device="cpu")
-    want = {k: v for k, v in GOLDEN_APPLY[pk].items()
-            if k.startswith("merge_")}
-    assert got == want, got
+    """Every apply-path golden: the merges, revert, publish and its
+    revert."""
+    got = digests.run_apply_workload(pk, device="cpu")
+    assert got == GOLDEN_APPLY[pk], got
 
 
 def test_chip_smoke_carries_the_reference_goldens():
     import chip_smoke
     assert chip_smoke.GOLDEN == GOLDEN
-    assert chip_smoke.GOLDEN_MERGE == {
-        pk: {k: v for k, v in g.items() if k.startswith("merge_")}
-        for pk, g in GOLDEN_APPLY.items()}
+    assert chip_smoke.GOLDEN_APPLY == GOLDEN_APPLY
 
 
 @pytest.mark.parametrize("pk", [True, False])
@@ -175,12 +173,23 @@ def test_engine_device_is_the_card_unless_the_cpu_is_asked_for():
 
 
 def test_refs_resolve_snapshots_and_refuse_branches():
+    """Snapshot, PITR, branch and PR refs resolve; a branch or PR that
+    does not exist is refused."""
     engine, _ = vcs_tables._mk_engine(500, True, device="cpu")
     engine.create_snapshot("night", "lineitem")
     assert resolve(engine, "snap:night").table == "lineitem"
     assert resolve(engine, "lineitem@{1}").snapshot.ts == 1
     assert resolve(engine, "night").snapshot is engine.snapshots["night"]
     for ref in ("branch:dev", "pr:1:base"):
+        with pytest.raises(UnknownRefError):
+            resolve(engine, ref, table="lineitem")
+    engine.create_branch("dev", ["lineitem"])
+    pr = engine.open_pr("main", "dev")
+    assert resolve(engine, "branch:dev", table="lineitem").table == \
+        "dev/lineitem"
+    assert resolve(engine, "pr:1:base", table="lineitem").snapshot is \
+        pr.base_pins["lineitem"]
+    for ref in ("branch:qa", "pr:2:base"):
         with pytest.raises(UnknownRefError):
             resolve(engine, ref, table="lineitem")
     with pytest.raises(ValueError):
