@@ -67,6 +67,19 @@ Phases, one line each:
                 segsum launches by shape, timed at the commonest shapes
                 as the main path's are, and every distinct shape of both
                 rounds held EXACTLY against the plain version
+     doors    — after each workflow phase, on the same engine: (PK) a
+                secondary index on l_partkey backfilled over every row,
+                64 lookups against a device mask of the table and a C4
+                update that maintains it; the workflow through the
+                statement door, one timed statement at a time; compaction
+                (content unchanged, a diff of 0 groups, fewer objects);
+                a materialized clone (0 rows rehashed); ALTER TABLE ADD
+                COLUMN (every row's signature rehashed, no blake2b) and a
+                restore past it; per_key_conflicts (PK 1.5 x C4 keys,
+                NoPK 0); the 16-step script through Repo, statements, the
+                CLI and replay on the card, equal to the CPU's; then
+                doors_split: every rowhash shape of both windows EXACT
+                and timed with its bound, every other shape EXACT
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -77,8 +90,8 @@ Phases, one line each:
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
-the launches of every path's window (main path and workflow, both modes;
-flash from serving). The full record goes to ``build/chip_smoke.json``.
+the launches of every path's window (main path, workflow and doors, both
+modes; flash from serving). The full record goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -324,11 +337,29 @@ def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
             "bytes": nbytes, "int_ops": nops}
 
 
+def rowhash_row(torch, r: int, c: int, g) -> dict:
+    """rowhash on ``r`` rows of ``c`` random lanes: EXACT against the plain
+    version, timed, and bound by each lane read once and the four
+    signature words written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rowhash import signatures
+
+    lanes = torch.randint(-2**31, 2**31 - 1, (r, c), generator=g,
+                          device="cuda", dtype=torch.int32)
+    # per lane: one multiply shared by the chains, then per chain one
+    # add, xor, fmix32 (2 mul, 3 shift, 3 xor) and one multiply-add
+    nops = r * (c * (2 + 4 * 10) + 4 * 9 + 4)
+    return kernel_row(torch, "rowhash", [r, c], signatures(lanes),
+                      ref.signatures(lanes),
+                      cuda_ms(torch, lambda: signatures(lanes), 20),
+                      cuda_ms(torch, lambda: ref.signatures(lanes), 3),
+                      None, r * c * 4 + r * 16, nops)
+
+
 def kernel_phase(torch, seed: int) -> dict:
     """Every kernel at the main path's shapes against its plain version."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.probe import probe
-    from repro_torch.kernels.rowhash import signatures
     from repro_torch.kernels.searchsorted import searchsorted
     from repro_torch.kernels.segsum_diff import segsum
 
@@ -346,19 +377,8 @@ def kernel_phase(torch, seed: int) -> dict:
 
     # rowhash: the 12-column lineitem row (24 lanes) and its 2-column key
     for c in (24, 4):
-        r = SF1_ROWS
-        lanes = torch.randint(-2**31, 2**31 - 1, (r, c), generator=g,
-                              device=dev, dtype=torch.int32)
-        k = signatures(lanes)
-        p = ref.signatures(lanes)
-        # per lane: one multiply shared by the chains, then per chain one
-        # add, xor, fmix32 (2 mul, 3 shift, 3 xor) and one multiply-add
-        nops = r * (c * (2 + 4 * 10) + 4 * 9 + 4)
-        record("rowhash", [r, c], k, p,
-               cuda_ms(torch, lambda: signatures(lanes), 20),
-               cuda_ms(torch, lambda: ref.signatures(lanes), 3),
-               None, r * c * 4 + r * 16, nops)
-        del lanes
+        results.setdefault("rowhash", []).append(
+            rowhash_row(torch, SF1_ROWS, c, g))
 
     # probe: one sealed object at capacity, sorted queries (hits + misses)
     n = q = 1 << 18
@@ -1293,6 +1313,470 @@ def workflow_phase(torch, pk: bool, engine, base, merged, change: int,
     return rec
 
 
+# -------------------------------------------------------------------- doors
+
+#: each statement of the doors phase -> the Python door's step of the same
+#: verb in the workflow phase of the same run (its ``times_s``)
+PYTHON_DOOR = {"branch": "branch_s", "diff": "pr_diff_s",
+               "open_pr": "open_pr_s", "check": "checks_s",
+               "publish": "publish_s", "revert_pr": "revert_publish_s",
+               "gc": "gc_s"}
+
+
+def door_steps(cli):
+    """The 16-step workflow of ``tests/test_statements_cli.py:32-77``
+    (500-row ``orders``, seed 0): each step as (Python call on a Repo,
+    statement or None, CLI argv); the DML steps ride ``cli``'s
+    deterministic seed/mutate helpers on every door."""
+    return [
+        (lambda r: cli.seed_table(r, "orders", 500, 0),
+         None, ["seed", "orders", "--rows", "500", "--seed", "0"]),
+        (lambda r: r.tag("night", "orders"),
+         "CREATE SNAPSHOT night FOR TABLE orders",
+         ["snapshot", "night", "orders"]),
+        (lambda r: r.branch("dev", ["orders"]),
+         "CREATE BRANCH dev FOR (orders)",
+         ["branch", "dev", "-t", "orders"]),
+        (lambda r: cli.mutate_table(r, "dev/orders", 40, 7),
+         None, ["mutate", "dev/orders", "--rows", "40", "--seed", "7"]),
+        (lambda r: r.diff("branch:dev", "HEAD", table="orders"),
+         "DIFF 'branch:dev' AGAINST 'HEAD' FOR TABLE orders",
+         ["diff", "branch:dev", "HEAD", "--table", "orders"]),
+        (lambda r: r.open_pr("dev"),
+         "OPEN PR FROM dev INTO main",
+         ["pr", "open", "dev", "--into", "main"]),
+        (lambda r: r.check(1), "CHECK PR 1", ["pr", "check", "1"]),
+        (lambda r: r.publish(1), "PUBLISH PR 1", ["publish", "1"]),
+        (lambda r: r.log("orders"), "LOG TABLE orders", ["log", "orders"]),
+        (lambda r: r.revert_pr(1), "REVERT PR 1", ["revert-pr", "1"]),
+        (lambda r: cli.mutate_table(r, "dev/orders", 10, 11),
+         None, ["mutate", "dev/orders", "--rows", "10", "--seed", "11"]),
+        (lambda r: r.merge("branch:dev", "branch:main", mode="theirs"),
+         "MERGE BRANCH dev INTO main MODE theirs",
+         ["merge", "dev", "main", "--mode", "theirs"]),
+        (lambda r: r.clone("orders_night", "snap:night"),
+         "CLONE TABLE orders_night FROM 'snap:night'",
+         ["clone", "orders_night", "snap:night"]),
+        (lambda r: r.revert("orders", "orders~1", "HEAD"),
+         "REVERT TABLE orders FROM 'orders~1' TO 'HEAD'",
+         ["revert", "orders", "orders~1", "HEAD"]),
+        (lambda r: r.gc(), "GC", ["gc"]),
+        (lambda r: r.status(), "STATUS", ["status"]),
+    ]
+
+
+def content_digest(engine, table, directory=None) -> str:
+    """Order-independent sha256 over a table's full-row signatures (the
+    reference's ``conftest.content_digest``)."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.interop import to_numpy
+    _, _, lo, hi = engine.table(table).scan(directory, with_sigs=True)
+    lo, hi = to_numpy(lo, u64=True), to_numpy(hi, u64=True)
+    order = np.lexsort((hi, lo))
+    h = hashlib.sha256(lo[order].tobytes())
+    h.update(hi[order].tobytes())
+    return h.hexdigest()
+
+
+def door_fingerprint(repo) -> dict:
+    """What the three doors must agree on: ts, every table's digest, the
+    commit log, branches, snapshots and PRs."""
+    e = repo.engine
+    return {"ts": e.ts,
+            "tables": {n: content_digest(e, n) for n in sorted(e.tables)},
+            "log": [(r.ts, r.table, r.kind, r.inserted, r.deleted)
+                    for r in e.commit_log],
+            "branches": repo.branches(), "snapshots": repo.snapshots(),
+            "prs": [(i, p.base_name, p.head_name, p.status)
+                    for i, p in sorted(e.prs.items())]}
+
+
+def drive_doors(device, store_dir: Path):
+    """The 16-step script through every door on ``device``: ``Repo``,
+    statement strings, the CLI in process (``vcs_cli.main(["--device",
+    ...])`` on a fresh store under ``store_dir``), and the replay of the
+    statement session's serialized WAL. Returns each door's fingerprint
+    and seconds (the CLI's printing swallowed)."""
+    import io
+
+    from repro_torch import vcs_cli
+    from repro_torch.core import WAL, Engine, Repo, execute
+
+    steps = door_steps(vcs_cli)
+    prints, fps, secs = [], {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out, \
+                contextlib.redirect_stderr(io.StringIO()):
+            fps[name] = door_fingerprint(fn())
+        prints.append(out.getvalue())
+        secs[name] = time.perf_counter() - t0
+
+    def python():
+        r = Repo(device=device)
+        for py, _, _ in steps:
+            py(r)
+        return r
+
+    def statements():
+        r = Repo(device=device)
+        for py, stmt, _ in steps:
+            if stmt is None:
+                py(r)
+            else:
+                execute(r, stmt)
+        return r
+
+    def cli():
+        store = store_dir / f"doors-{device}.wal"
+        for f in (store, Path(f"{store}.corrupt")):
+            f.unlink(missing_ok=True)
+        argv0 = ["--device", str(device), "--store", str(store)]
+        check(vcs_cli.main(argv0 + ["init"]) == 0, "datagit init failed")
+        for _, _, argv in steps:
+            check(vcs_cli.main(argv0 + argv) == 0, f"datagit {argv} failed")
+        return vcs_cli.load_repo(str(store), device)
+
+    timed("python", python)
+    session = []
+    timed("statements", lambda: session.append(statements()) or session[0])
+    timed("replay", lambda: Repo(Engine.replay(WAL.deserialize(
+        session[0].engine.wal.serialize()), device=device)))
+    timed("cli", cli)
+    return fps, secs
+
+
+def rowhash_shapes(ops):
+    """rowhash's launches by (rows, lanes): every signatures_from_lanes."""
+    def shape_of(lanes):
+        if lanes.device.type == "cuda" and lanes.shape[0]:
+            return int(lanes.shape[0]), int(lanes.shape[1])
+        return None
+    return kernel_shapes(ops, "_rowhash_kernel", shape_of)
+
+
+def sorted_sigs(torch, engine, table, directory=None):
+    """A table's row signatures in (lo, hi) order, on the card: equal
+    tensors mean equal content (the device twin of ``content_digest``)."""
+    from repro_torch.kernels import ops
+    _, _, lo, hi = engine.table(table).scan(directory, with_sigs=True)
+    o = ops._sort128(lo, hi)
+    return torch.stack([lo[o], hi[o]])
+
+
+def by_pk(torch, batch, names):
+    """A scanned batch's columns ``names`` in (l_orderkey, l_linenumber)
+    order (unique in lineitem, with or without a declared PK)."""
+    import numpy as np
+    key = batch["l_orderkey"] * 8 + batch["l_linenumber"].to(torch.int64)
+    o = torch.sort(key).indices
+    oh = o.cpu().numpy()
+    return {n: (batch[n][oh] if isinstance(batch[n], np.ndarray)
+                else batch[n][o]) for n in names}
+
+
+def doors_phase(torch, pk: bool, engine, base, flow: dict, change: int,
+                seed: int) -> dict:
+    """The port's user surface on the SF1 engine after its workflow phase:
+    (PK only) a secondary index on ``l_partkey`` backfilled over every
+    row, 64 ``lookup_eq`` held against a device mask of the base table,
+    and a C4 update through ``Repo`` that maintains it, then its drop (so
+    both doors' workflows commit to the same table); the workflow through
+    the statement door, one timed statement at a time (snapshot,
+    branch, diff, PR, check, publish, log, revert, drop, GC, STATUS,
+    EXPLAIN); compaction; a materialized clone; ALTER TABLE ADD COLUMN
+    and a restore past it; ``per_key_conflicts``; then the 16-step script
+    through the three doors and replay on the card against the CPU. Each
+    step is host-clocked to a ``torch.cuda.synchronize()`` with its
+    launches by kernel and shape, rows rehashed and peak memory; every
+    check fails the run."""
+    import numpy as np
+
+    from repro_torch.benchmarks.vcs_tables import _random_update
+    from repro_torch.core import (Column, CType, Repo, compact_table,
+                                  create_index, drop_index, execute,
+                                  lookup_eq, snapshot_diff, statements)
+    from repro_torch.core.wal import CRC32C_IMPL
+    from repro_torch.kernels import build, ops
+
+    table, store = "lineitem", engine.store
+    repo = Repo(engine)
+    steps, texts, steps_parse = {}, {}, {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    with path_shapes(ops) as hists, rowhash_shapes(ops) as rshapes:
+        recorders = dict(zip(("searchsorted", "zone_windows", "probe",
+                              "segsum_diff", "rowhash"), hists + (rshapes,)))
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            l0 = dict(build.LAUNCHES)
+            h0 = {k: collections.Counter(h) for k, h in recorders.items()}
+            st = engine.commit_stats
+            r0, b0 = st.rows_rehashed, st.lob_rows_hashed
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            st = engine.commit_stats
+            steps[name] = {
+                "s": time.perf_counter() - t0,
+                "launches": {k: build.LAUNCHES[k] - l0[k]
+                             for k in build.VCS_SOURCES
+                             if build.LAUNCHES[k] - l0[k]},
+                "shapes": {k: [list(s) + [c] for s, c in
+                               sorted((h - h0[k]).items())]
+                           for k, h in recorders.items() if h - h0[k]},
+                "rows_rehashed": st.rows_rehashed - r0,
+                "lob_rows_hashed": st.lob_rows_hashed - b0,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            return out
+
+        def stmt(name, text):
+            texts[name] = text
+            t0 = time.perf_counter()
+            for _ in range(200):
+                statements._P(text)
+            steps_parse[name] = (time.perf_counter() - t0) / 200 * 1e6
+            return step(name, lambda: execute(repo, text)).data
+
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        rng = np.random.default_rng([seed, change] + list(b"DOORS"))
+        n_rows = engine.table(table).count()
+
+        # 1-2. a secondary index, backfilled, looked up, maintained
+        if pk:
+            spec = step("create_index", lambda: create_index(
+                engine, table, "by_part", ["l_partkey"]))
+            aux = engine.table(spec.aux_table)
+            check(aux.count() == n_rows,
+                  f"index: {aux.count()} aux rows for {n_rows}")
+            batch, _ = engine.table(table).scan()
+            pick = torch.randint(0, n_rows, (64,), generator=g,
+                                 device="cuda")
+            vals = batch["l_partkey"][pick].tolist()
+
+            def pairs(ok, ln):
+                return torch.sort(ok * 8 + ln.to(torch.int64)).values
+
+            hits = step("lookup_eq_64", lambda: [lookup_eq(
+                engine, table, "by_part", {"l_partkey": v}) for v in vals])
+            for v, h in zip(vals, hits):
+                m = batch["l_partkey"] == v
+                check(torch.equal(
+                    pairs(h["l_orderkey"], h["l_linenumber"]),
+                    pairs(batch["l_orderkey"][m], batch["l_linenumber"][m])),
+                    f"lookup_eq l_partkey={v} differs from the base mask")
+            del batch
+            idx = rng.choice(base["l_orderkey"].shape[0], size=change,
+                             replace=False)
+            upd = {k: v[idx].copy() for k, v in base.items()}
+            upd["l_partkey"] = upd["l_partkey"] + 200_000   # new values
+            upd["l_comment"] = np.array([b"ix-%d" % i for i in
+                                         range(change)], dtype=object)
+            step("update_indexed", lambda: repo.update_by_keys(table, upd))
+            check(aux.count() == n_rows, "index: aux count moved")
+            for i in idx[:8]:
+                key = int(base["l_orderkey"][i]) * 8 + int(
+                    base["l_linenumber"][i])
+                new = lookup_eq(engine, table, "by_part",
+                                {"l_partkey": int(base["l_partkey"][i])
+                                 + 200_000})
+                old = lookup_eq(engine, table, "by_part",
+                                {"l_partkey": int(base["l_partkey"][i])})
+                check(key in pairs(new["l_orderkey"],
+                                   new["l_linenumber"]).tolist(),
+                      "an updated row is missing under its new value")
+                check(key not in pairs(old["l_orderkey"],
+                                       old["l_linenumber"]).tolist(),
+                      "an updated row is still found under its old value")
+            # the statement workflow below is set beside the Python
+            # door's, which ran with no index: drop it so both doors
+            # commit to the same table without an auxiliary one
+            step("drop_index", lambda: drop_index(engine, table, "by_part"))
+            check(spec.aux_table not in engine.tables
+                  and not engine.indices.get(table),
+                  "drop_index left the index behind")
+
+        # 3. the workflow through the statement door
+        stmt("snapshot", "CREATE SNAPSHOT s17 FOR TABLE lineitem")
+        stmt("branch", "CREATE BRANCH sdev FOR (lineitem)")
+        step("edit", lambda: _random_update(
+            engine, "sdev/lineitem", base, change, rng, pk, tag=17))
+        d_branch = stmt("diff",
+                        "DIFF 'branch:sdev' AGAINST 'HEAD' FOR TABLE "
+                        "lineitem")
+        check(d_branch.n_groups == 2 * change,
+              f"DIFF: {d_branch.n_groups} groups, not {2 * change}")
+        pr = stmt("open_pr", "OPEN PR FROM sdev INTO main")
+        results = stmt("check", f"CHECK PR {pr.id}")
+        check(all(r.ok for r in results), f"CHECK PR: {results}")
+        stmt("snapshot_pre_publish",
+             "CREATE SNAPSHOT pre_pub FOR TABLE lineitem")
+        rep = stmt("publish", f"PUBLISH PR {pr.id}")["lineitem"]
+        got = f"{rep.inserted}/{rep.deleted}/{rep.true_conflicts}"
+        check(got == f"{change}/{change}/0", f"PUBLISH PR: {got}")
+        log = stmt("log", "LOG TABLE lineitem LIMIT 5")
+        check(log[0].kind == "publish", f"LOG: {log[0]}")
+        stmt("revert_pr", f"REVERT PR {pr.id}")
+        d0 = stmt("diff_pre_publish", "DIFF 'snap:pre_pub' AGAINST 'HEAD' "
+                  "FOR TABLE lineitem")
+        check(d0.n_groups == 0, f"after REVERT PR: {d0.n_groups} groups")
+        stmt("drop_branch", "DROP BRANCH sdev")
+        stmt("gc", "GC")
+        stmt("status", "STATUS")
+        explained = stmt("explain", "EXPLAIN DIFF TABLE lineitem AGAINST "
+                         "'snap:s17'")
+        check([s.name for s in explained["spans"]] == ["diff"],
+              "EXPLAIN: no diff span")
+
+        # 4. compaction
+        engine.create_snapshot("pre_compact", table)
+        objs = len(engine.table(table).directory.data_oids)
+        before = sorted_sigs(torch, engine, table)
+        written = step("compact_table", lambda: compact_table(engine,
+                                                              table))
+        after_objs = len(engine.table(table).directory.data_oids)
+        check(written > 0 and after_objs < objs,
+              f"compaction: {objs} -> {after_objs} data objects")
+        check(torch.equal(sorted_sigs(torch, engine, table), before),
+              "compaction changed the table's content")
+        del before
+        dc = stmt("diff_pre_compact", "DIFF 'snap:pre_compact' AGAINST "
+                  "'HEAD' FOR TABLE lineitem")
+        check(dc.n_groups == 0, f"after compaction: {dc.n_groups} groups")
+
+        # 5. a materialized clone
+        stmt("clone_materialize",
+             "CLONE TABLE li_copy FROM 'snap:s17' MATERIALIZE")
+        check(steps["clone_materialize"]["rows_rehashed"] == 0
+              and steps["clone_materialize"]["lob_rows_hashed"] == 0,
+              "materialize rehashed rows")
+        snap_sigs = sorted_sigs(torch, engine, table,
+                                engine.snapshots["s17"].directory)
+        check(torch.equal(sorted_sigs(torch, engine, "li_copy"), snap_sigs),
+              "the materialized clone differs from its snapshot")
+        n_copy = engine.table("li_copy").count()
+
+        # 6. ALTER TABLE ADD COLUMN, then a restore past it
+        engine.create_snapshot("pre_alter", "li_copy")
+        old_cols = engine.table("li_copy").schema.names
+        old, _ = engine.table("li_copy").scan()
+        old = by_pk(torch, old, old_cols)
+        step("alter_add_column", lambda: engine.alter_table_add_column(
+            "li_copy", Column("l_flag17", CType.I64), 0))
+        a = steps["alter_add_column"]
+        check(a["rows_rehashed"] == n_copy and a["lob_rows_hashed"] == 0,
+              f"ALTER rehashed {a['rows_rehashed']} rows of {n_copy}, "
+              f"blake2b on {a['lob_rows_hashed']}")
+        new, _ = engine.table("li_copy").scan()
+        check(bool((new["l_flag17"] == 0).all()), "ALTER: wrong fill")
+        new = by_pk(torch, new, old_cols)
+        for c in old_cols:
+            same = (np.array_equal(old[c], new[c])
+                    if isinstance(old[c], np.ndarray)
+                    else torch.equal(old[c], new[c]))
+            check(same, f"ALTER changed column {c}")
+        del old, new
+        stmt("restore_pre_alter",
+             "RESTORE TABLE li_copy TO 'snap:pre_alter'")
+        check(torch.equal(sorted_sigs(torch, engine, "li_copy"), snap_sigs),
+              "RESTORE past the ALTER did not give the pre-ALTER content")
+        del snap_sigs
+
+        # 7. per-key conflicts
+        if pk:
+            engine.clone_table("pk_a", "s17")
+            engine.clone_table("pk_b", "s17")
+            perm = rng.permutation(base["l_orderkey"].shape[0])
+            half = change // 2
+            for name, rows, tag in (("pk_a", perm[:change], 21),
+                                    ("pk_b", perm[half:half + change], 22)):
+                upd = {k: v[rows].copy() for k, v in base.items()}
+                upd["l_quantity"] = upd["l_quantity"] + tag
+                upd["l_comment"] = np.array([b"pk-%d-%d" % (tag, i)
+                                             for i in range(change)],
+                                            dtype=object)
+                step(f"update_{name}",
+                     lambda: engine.update_by_keys(name, upd))
+            d_ab = step("diff_a_b", lambda: snapshot_diff(
+                store, engine.current_snapshot("pk_a"),
+                engine.current_snapshot("pk_b")))
+            want = change + half
+        else:
+            d_ab, want = d_branch, 0
+        groups = step("per_key_conflicts", d_ab.per_key_conflicts)
+        check(len(groups) == want,
+              f"per_key_conflicts: {len(groups)} groups, not {want}")
+
+        # 8. the three doors and replay, on the card and on the CPU
+        fps, door_s = {}, {}
+        for dev in (torch.device("cuda", torch.cuda.current_device()),
+                    torch.device("cpu")):
+            fp, secs = step(f"doors_{dev.type}", lambda: drive_doors(
+                dev, ROOT / "build"))
+            fps[dev.type], door_s[dev.type] = fp, secs
+        want_fp = fps["cpu"]["python"]
+        for dev, fp in fps.items():
+            for door, got in fp.items():
+                check(got == want_fp, f"{door} door on {dev} differs from "
+                      "the CPU Repo's fingerprint")
+    launches = dict(build.LAUNCHES)
+    shapes = shape_record(launches, *hists)
+    check(sum(rshapes.values()) == launches["rowhash"],
+          "rowhash shapes do not sum to its launches")
+    check(all(launches[k] > 0 for k in build.VCS_SOURCES),
+          f"a VCS kernel was not launched in the doors window: {launches}")
+    py = flow["times_s"]
+    return {"pk": pk, "change": change, "rows": n_rows,
+            "seconds": time.perf_counter() - t_phase,
+            "crc32c": CRC32C_IMPL, "steps": steps, "launches": launches,
+            "statements": {k: {"text": t, "s": steps[k]["s"],
+                               "parse_us": steps_parse[k],
+                               "python_door_s": py.get(PYTHON_DOOR.get(k))}
+                           for k, t in texts.items()},
+            "compaction": {"objects_before": objs,
+                           "objects_after": after_objs,
+                           "written": written},
+            "per_key_conflicts": len(groups),
+            "doors_s": door_s, "doors_equal": True,
+            "rowhash_shapes": [[n, c, k] for (n, c), k in
+                               sorted(rshapes.items())],
+            **shapes}
+
+
+def doors_split(torch, doors: list, kern: dict, seed: int) -> dict:
+    """The doors windows' kernels at their own shapes: every distinct
+    rowhash shape (rows, lanes) EXACTLY equal to the plain version and
+    timed with its bound (``rowhash_row``), and every distinct searchsorted, zone-window, probe
+    and segsum shape held EXACT (``exact_sweep``). The rowhash rows go to
+    the end of ``kern["rowhash"]``."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    hist = shape_hist(doors, "rowhash_shapes")
+    rows = []
+    for (r, c), launches in sorted(hist.items(), reverse=True):
+        row = rowhash_row(torch, r, c, g)
+        row["launches"] = launches
+        rows.append(row)
+    kern["rowhash"] += rows
+    swept = exact_sweep(torch, {
+        "searchsorted": shape_hist(doors, "searchsorted_shapes"),
+        "zone_windows": shape_hist(doors, "zone_window_shapes"),
+        "probe": shape_hist(doors, "probe_shapes"),
+        "segsum_diff": shape_hist(doors, "segsum_shapes")}, seed)
+    return phase("doors_split", rowhash=[
+        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "launches")} for e in rows],
+        exact=swept, seconds=time.perf_counter() - t0)
+
+
 # -------------------------------------------------------------------- serve
 
 def host_cost(torch, model, prompt) -> dict:
@@ -1491,7 +1975,7 @@ def main(argv=None) -> int:
             gold["pk" if pk else "nopk"] = "match"
         record["golden"] = phase("golden", **gold)
 
-        runs, flows = [], []
+        runs, flows, doors = [], [], []
         for pk in (True, False):
             rec, (engine, base, pre, post) = mainpath_phase(
                 torch, pk, args.rows, args.change)
@@ -1504,9 +1988,17 @@ def main(argv=None) -> int:
             phase("workflow", **{k: v for k, v in flow.items()
                                  if k != "second_round"
                                  and not k.endswith("_shapes")})
+            door = doors_phase(torch, pk, engine, base, flow, args.change,
+                               args.seed)
+            doors.append(door)
+            phase("doors", **{k: v for k, v in door.items()
+                              if k != "steps" and not k.endswith("_shapes")},
+                  steps={k: {f: v for f, v in e.items() if f != "shapes"}
+                         for k, e in door["steps"].items()})
             del engine, base, pre, post
         record["mainpath"] = runs
         record["workflow"] = flows
+        record["doors"] = doors
 
         main_hist = functools.partial(shape_hist, runs)
         groups, search_rows = searchsorted_split(
@@ -1543,6 +2035,7 @@ def main(argv=None) -> int:
         kern["segsum_diff"] = segsum_rows + kern["segsum_diff"]
         record["workflow_split"] = workflow_split(torch, flows, kern,
                                                   args.seed, args.change)
+        record["doors_split"] = doors_split(torch, doors, kern, args.seed)
         record["launch_cost"] = phase("launch_cost",
                                       **launch_cost(torch, args.seed))
 
@@ -1560,8 +2053,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    # every path's window: the main path's and the workflow's, both modes
-    launches = {k: sum(r["launches"][k] for r in runs + flows)
+    # every path's window: the main path's, the workflow's and the doors',
+    # both modes
+    launches = {k: sum(r["launches"][k] for r in runs + flows + doors)
                 for k in build.VCS_SOURCES}
     launches["flash_attention"] = serve["flash_launches"]
     replaces = {

@@ -60,6 +60,34 @@ class DiffResult:
         """Gather the representative row values for each surviving group."""
         return gather_payload(store, self.schema, self.rowid)
 
+    def per_key_conflicts(self):
+        """Group surviving value-groups by key signature: keys with entries
+        from BOTH snapshots are the paper's 'potential conflicts'.
+
+        One segsum scan groups the keys (``ops.diff_aggregate``); per-run
+        sign presence is a segment sum on the device, and only the
+        conflicting runs are materialized, as index tensors into the
+        result (views of one gathered tensor)."""
+        if self.n_groups == 0:
+            return []
+        # NoPK results are value-sorted and key == value, so the key
+        # grouping is free; PK results need the (small) key sort
+        order, agg = ops.diff_aggregate(self.key_lo, self.key_hi,
+                                        torch.ones_like(self.diff_cnt),
+                                        presorted=not self.schema.has_pk)
+        sg = torch.sign(self.diff_cnt[order])
+        k = agg.run_starts.shape[0]
+        ids = agg.run_ids
+        any_pos = _i64(k, sg.device).index_add_(
+            0, ids, (sg > 0).to(torch.int64)) > 0
+        any_neg = _i64(k, sg.device).index_add_(
+            0, ids, (sg < 0).to(torch.int64)) > 0
+        both = any_pos & any_neg
+        # the conflicting runs' members, still contiguous and in run
+        # order, cut by one split (a slice per run costs a host call each)
+        return list(torch.split(order[both[ids]],
+                                agg.run_lens[both].tolist()))
+
 
 def gather_payload(store: ObjectStore, schema: Schema,
                    rowids: torch.Tensor, *, with_sigs: bool = False,

@@ -6,11 +6,12 @@ serialized through ``_commit`` (the TN role), every logical change is
 WAL'd (the LogService role), and all bulk row work runs on tensors on the
 engine's device through the kernel ops (the CN role).
 
-This port covers tables, Txn, commit and seal, snapshots, clone,
-restore, drop, GC, and the workflow porcelain's engine-level shims
-(branches, pull requests, Δ-revert; the verbs live in ``workspace``).
-Materialized clones, compaction, secondary indices, ALTER and WAL replay
-are not ported yet.
+This port covers tables, Txn, commit and seal, snapshots, clone (with
+indices, or materialized), restore, drop, ALTER TABLE ADD COLUMN, GC,
+WAL replay, and the workflow porcelain's engine-level shims (branches,
+pull requests, Δ-revert; the verbs live in ``workspace``). Not ported
+yet: the replay of a refs snapshot from the remote tier (replay on top
+of an engine restored by other means) and everything of ``core/fsck.py``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from . import telemetry
 from .faults import crash_point, register
 from .table import Table
 from .visibility import visibility_index
-from .wal import WAL
+from .wal import WAL, TornTransaction
 
 SP_COMMIT = telemetry.register_span(
     "commit", "one atomic (possibly multi-table) transaction commit")
@@ -48,6 +49,8 @@ SP_COMMIT_SWING = telemetry.register_span(
     "group is already logged)")
 SP_GC = telemetry.register_span(
     "gc", "mark-sweep garbage collection over the object store")
+SP_REPLAY = telemetry.register_span(
+    "replay", "rebuild an engine from a WAL (recovery)")
 
 CP_TORCH_COMMIT_PRE_SEAL = register(
     "torch.engine.commit.pre_seal",
@@ -151,6 +154,17 @@ class Txn:
                 or any(d.shape[0] for ds in self._del.values() for d in ds))
 
     def commit(self, *, _log: bool = True) -> int:
+        # expand with secondary-index maintenance (same-commit atomic)
+        if self.engine.indices:
+            from .indices import maintain_on_commit
+            for name in list(self._ins.keys() | self._del.keys()):
+                if name in self.engine.indices:
+                    dels = (torch.unique(torch.cat(self._del[name]))
+                            if self._del.get(name)
+                            else torch.zeros((0,), dtype=torch.int64,
+                                             device=self.engine.device))
+                    maintain_on_commit(self.engine, self, name,
+                                       self._ins.get(name, []), dels)
         ts = self.engine._commit(self, _log=_log)
         self.committed = ts
         return ts
@@ -168,8 +182,7 @@ class Engine:
         self.retention_versions = retention_versions
         # lineage: latest common base snapshot per unordered table pair
         self._base: Dict[Tuple[str, str], Snapshot] = {}
-        # secondary indices: base table -> [IndexSpec]; none are built yet,
-        # but the branch resolver already excludes their auxiliary tables
+        # secondary indices (paper §5.5.4): base table -> [IndexSpec]
         self.indices: Dict[str, list] = {}
         # workflow porcelain: branch refs + pull requests
         self.branches: Dict[str, "Branch"] = {}
@@ -189,6 +202,22 @@ class Engine:
             yield
         finally:
             self._op_kind = prev
+
+    def reset_metrics(self) -> None:
+        """Zero every registered telemetry counter on this engine
+        (``telemetry.metrics_snapshot`` reads all zeros afterwards).
+        ``replay`` calls this last: traces are derived state, never
+        durable state — a recovered engine must start clean."""
+        self.commit_stats = CommitStats()
+        store = self.store
+        if store.vis_cache is not None:
+            vc = store.vis_cache
+            vc.builds = vc.extends = vc.derives = vc.hits = 0
+        if store.delta_cache is not None:
+            store.delta_cache.hits = 0
+        store.metrics.reset()
+        w = self.wal
+        w.frames = w.bytes_written = w.fsyncs = 0
 
     # ------------------------------------------------------------ basics
     def next_ts(self) -> int:
@@ -210,6 +239,11 @@ class Engine:
 
     def drop_table(self, name: str, *, _log=True) -> None:
         require(self.tables, name, "table")
+        # drop secondary-index specs and their auxiliary tables with the
+        # base table — no dangling ``engine.indices`` entry or aux table
+        for spec in self.indices.pop(name, []):
+            if spec.aux_table in self.tables:
+                self.drop_table(spec.aux_table, _log=False)
         del self.tables[name]
         self._base = {k: v for k, v in self._base.items() if name not in k}
         if _log:
@@ -512,20 +546,74 @@ class Engine:
 
     # ------------------------------------------------------------- clone
     def clone_table(self, new_name: str, src: SnapshotRef, *,
+                    with_indices: bool = False, materialize: bool = False,
                     _log=True) -> Table:
         """CREATE TABLE new FROM SNAPSHOT src — metadata-only copy (a
-        snapshot is a frozen directory, so clone copies the directory)."""
+        snapshot is a frozen directory, so clone copies the directory).
+
+        ``with_indices``: also clone the auxiliary index tables, at the
+        snapshot-consistent aux version (PITR at the snapshot's creation
+        horizon); an index younger than the snapshot (or whose history
+        was trimmed past the horizon) is rebuilt from the cloned data.
+
+        ``materialize=True``: physically rewrite the snapshot's visible
+        rows into fresh objects. Rides the zero-rehash apply path: the
+        scan carries every signature lane plus per-object sorted runs, so
+        the rewrite never hashes a row."""
         snap = self._snapshotish(src)
         if new_name in self.tables:
             raise ValueError(f"table {new_name} exists")
+        if materialize:
+            if with_indices:
+                raise ValueError("clone_table: materialize=True does not "
+                                 "support with_indices")
+            t = self.create_table(new_name, snap.schema, _log=False)
+            reader = Table(snap.table, snap.schema, self.store, snap.ts)
+            batch, _, sigs = reader.scan_carry(snap.directory)
+            if sigs.row_lo.shape[0]:
+                tx = self.begin()
+                # lint: runs-ok scan_carry's runs: one per object, each an
+                # ascending slice of a key-sorted sealed object
+                tx.insert(new_name, batch, sigs=sigs)
+                with self.op_kind("clone"):
+                    tx.commit(_log=False)
+            self.set_common_base(new_name, snap.table, snap)
+            if _log:
+                self.wal.append("clone", new=new_name, snap=snap,
+                                with_indices=False, materialize=True)
+            return t
         t = Table(new_name, snap.schema, self.store, snap.ts)
         t.directory = snap.directory
         t.history = [(snap.ts, snap.directory)]
         self.tables[new_name] = t
         self.commit_log.append(CommitRecord(self.ts, new_name, "clone", 0, 0))
         self.set_common_base(new_name, snap.table, snap)
+        if with_indices:
+            from .indices import IndexSpec, backfill_index
+            horizon = max(snap.created_ts, snap.directory.ts)
+            batch = None  # one rebuild scan shared by every rebuilt index
+            for spec in self.indices.get(snap.table, []):
+                new_spec = IndexSpec(spec.name, new_name, spec.columns)
+                aux_t = self.tables.get(spec.aux_table)
+                aux_dir = None
+                if aux_t is not None:
+                    try:
+                        aux_dir = aux_t.directory_at(horizon)
+                    except KeyError:
+                        pass  # index younger than the snapshot
+                if aux_dir is not None:
+                    self.clone_table(
+                        new_spec.aux_table,
+                        Snapshot(name=None, table=spec.aux_table,
+                                 schema=aux_t.schema, directory=aux_dir,
+                                 created_ts=horizon),
+                        _log=False)
+                else:
+                    batch = backfill_index(self, new_spec, batch)
+                self.indices.setdefault(new_name, []).append(new_spec)
         if _log:
-            self.wal.append("clone", new=new_name, snap=snap)
+            self.wal.append("clone", new=new_name, snap=snap,
+                            with_indices=with_indices)
         return t
 
     def restore_table(self, table: str, src: SnapshotRef, *,
@@ -546,6 +634,68 @@ class Engine:
             self.set_common_base(table, snap.table, snap)
         if _log:
             self.wal.append("restore", table=table, snap=snap)
+
+    # ------------------------------------------------------ schema change
+    def alter_table_add_column(self, table: str, column, default, *,
+                               _log=True) -> None:
+        """ALTER TABLE ADD COLUMN (paper §5.5.6): rewrites the table under
+        the new schema (row signatures cover the full row). Old snapshots
+        keep the old schema.
+
+        Partial signature carry: row signatures change and are recomputed
+        (the rowhash kernel over the new lanes), but PK key signatures,
+        old-column LOB content signatures and the per-object key-sorted
+        runs ride through — the rewrite never re-runs blake2b and (for PK
+        tables) never re-sorts what the objects already keep sorted."""
+        t = self.table(table)
+        batch, _, carried = t.scan_carry()
+        n = batch[t.schema.names[0]].shape[0] if t.schema.names else 0
+        new_schema = Schema(t.schema.columns + (column,),
+                            primary_key=t.schema.primary_key)
+        if column.ctype.value == "lob":
+            # the sig-carrying insert below skips normalize_batch, so the
+            # fill value is normalized here (str -> bytes)
+            if isinstance(default, str):
+                default = default.encode()
+            if not isinstance(default, (bytes, bytearray)):
+                raise TypeError(f"LOB column {column.name}: default must "
+                                "be bytes/str")
+            fill = np.empty((n,), object)
+            fill[:] = bytes(default)
+        else:
+            # numpy fills as the reference does; the column then moves to
+            # the device
+            fill = torch.from_numpy(np.full(
+                (n,), default, dtype=new_schema.np_dtype(column.name))
+            ).to(self.device)
+        batch[column.name] = fill
+        if t.schema.has_pk:
+            # lint: runs-ok the carried PK key lanes keep their per-object
+            # sorted runs: an added column changes no key
+            sigs = SigBatch(None, None, carried.key_lo, carried.key_hi,
+                            carried.lob_sigs, carried.runs)
+        else:
+            # NoPK keys ARE row signatures — both change with the new
+            # column, and so does their sort order
+            # lint: runs-ok runs=None claims no order at all
+            sigs = SigBatch(None, None, None, None, carried.lob_sigs, None)
+        t.schema = new_schema
+        t.directory = t.directory.replace(
+            drop_data=t.directory.data_oids,
+            drop_tombs=t.directory.tomb_oids, ts=t.directory.ts)
+        t._history_append(t.directory)
+        if n:
+            tx = self.begin()
+            # lint: runs-ok the partial carry above: key runs for PK only
+            tx.insert(table, batch, sigs=sigs)
+            # the rewrite is a sub-operation of the ONE alter_add_column
+            # record: logging it as a plain commit too would replay it
+            # twice
+            with self.op_kind("alter"):
+                tx.commit(_log=False)
+        if _log:
+            self.wal.append("alter_add_column", table=table, column=column,
+                            default=default)
 
     # ------------------------------------------------- workflow porcelain
     # Branch refs, pull requests, atomic publish and Δ-based revert live in
@@ -590,6 +740,137 @@ class Engine:
 
     def find_common_base(self, a: str, b: str) -> Optional[Snapshot]:
         return self._base.get(tuple(sorted((a, b))))
+
+    # ------------------------------------------------------------ replay
+    @staticmethod
+    def replay(wal: WAL, *, device=None) -> "Engine":
+        """Deterministically rebuild an engine from its WAL (crash
+        recovery), on ``device`` (the card unless the caller asks).
+
+        Records may hold tensors (a live WAL) or numpy (a deserialized
+        one); their batches are moved onto the replaying engine's device."""
+        from .compaction import compact_objects  # local import: cycle
+        _sp = telemetry.span(SP_REPLAY)
+        _sp.__enter__()
+        try:
+            e = Engine._replay_loop(wal, compact_objects, device)
+        finally:
+            _sp.__exit__(None, None, None)
+        # traces are derived state, never durable state: replay re-ran the
+        # commits with live counters, so wipe them
+        e.reset_metrics()
+        return e
+
+    @staticmethod
+    def _replay_loop(wal: WAL, compact_objects, device=None) -> "Engine":
+        e = Engine(device=device)
+        records = list(wal)
+        i = 0
+        while i < len(records):
+            rec = records[i]
+            k, p = rec.kind, rec.payload
+            i += 1
+            if k == "create_table":
+                e.create_table(p["name"], p["schema"], _log=False)
+            elif k == "drop_table":
+                e.drop_table(p["name"], _log=False)
+            elif k == "commit":
+                # a multi-table transaction emits one commit record per
+                # table at ONE shared ts — regroup the run into one
+                # transaction so replay consumes one timestamp and
+                # allocates oids in the live order
+                group_start = i - 1
+                group = [p]
+                while (i < len(records) and records[i].kind == "commit"
+                        and records[i].payload["ts"] == p["ts"]):
+                    group.append(records[i].payload)
+                    i += 1
+                # _commit logs the whole group BEFORE swinging; fewer than
+                # ntab records at the tail is a torn transaction — drop it
+                # whole (also from the log). Mid-log it is damage: refuse.
+                want = group[0].get("ntab")
+                if want is not None and len(group) < want:
+                    if i >= len(records):
+                        del records[group_start:]
+                        wal.records = records
+                        break
+                    raise TornTransaction(p["ts"], len(group), want)
+                tx = e.begin()
+                op = group[0].get("op", "commit")
+                for g in group:
+                    schema = e.table(g["table"]).schema
+                    for b in g["inserts"]:
+                        tx._ins.setdefault(g["table"], []).append(
+                            schema.normalize_batch(b, e.device))
+                    if g["deletes"].shape[0]:
+                        tx.delete_rowids(g["table"], g["deletes"])
+                with e.op_kind(op):
+                    e._commit(tx, _log=False)
+            elif k == "snapshot":
+                e.create_snapshot(p["name"], p["table"], _log=False)
+            elif k == "drop_snapshot":
+                e.drop_snapshot(p["name"], _log=False)
+            elif k == "clone":
+                snap = p["snap"]
+                snap = e.snapshots.get(snap.name, snap) if snap.name else snap
+                e.clone_table(p["new"], snap,
+                              with_indices=p.get("with_indices", False),
+                              materialize=p.get("materialize", False),
+                              _log=False)
+            elif k == "restore":
+                snap = p["snap"]
+                snap = e.snapshots.get(snap.name, snap) if snap.name else snap
+                e.restore_table(p["table"], snap, _log=False)
+            elif k == "set_base":
+                e.set_common_base(p["a"], p["b"], p["snap"])
+            elif k == "create_index":
+                from .indices import create_index
+                create_index(e, p["table"], p["name"], p["columns"],
+                             _log=False)
+            elif k == "drop_index":
+                from .indices import drop_index
+                drop_index(e, p["table"], p["name"], _log=False)
+            elif k == "alter_add_column":
+                e.alter_table_add_column(p["table"], p["column"],
+                                         p["default"], _log=False)
+            elif k == "compact":
+                compact_objects(e, p["table"], p["src_oids"], _log=False)
+            # workflow porcelain: one record per logical operation; the
+            # sub-operations re-derive deterministically from the replayed
+            # state
+            elif k == "create_branch":
+                e.create_branch(p["name"], p["tables"], p.get("from_ref"),
+                                _log=False)
+            elif k == "drop_branch":
+                e.drop_branch(p["name"], _log=False)
+            elif k == "open_pr":
+                pr = e.open_pr(p["base"], p["head"], _log=False)
+                if pr.id != p["pr"]:
+                    raise ValueError(
+                        f"replay diverged: PR id {pr.id} != {p['pr']}")
+            elif k == "close_pr":
+                e.prs[p["pr"]].close(_log=False)
+            elif k == "publish":
+                from .merge import ConflictMode
+                e.prs[p["pr"]].publish(mode=ConflictMode(p["mode"]),
+                                       _log=False, _skip_checks=True)
+            elif k == "publish_revert":
+                e.prs[p["pr"]].revert_publish(_log=False)
+            elif k == "revert":
+                sf, st = p["snap_from"], p["snap_to"]
+                sf = e.snapshots.get(sf.name, sf) if sf.name else sf
+                st = e.snapshots.get(st.name, st) if st.name else st
+                e.revert(p["table"], sf, st, _log=False)
+            else:
+                raise ValueError(f"unknown WAL record {k}")
+        # replay must land on the same timestamp (`or 0`: no-op publish /
+        # revert records carry ts=None); scan `records`, not `wal`, so a
+        # dropped torn-tail group does not leak its timestamp
+        e.ts = max(e.ts, max((r.payload.get("ts") or 0 for r in records),
+                             default=0))
+        # the recovered engine owns its history: adopt the source WAL
+        e.wal = wal
+        return e
 
     # ------------------------------------------------------- GC (mark-sweep)
     def _pinned_snapshots(self) -> List[Snapshot]:
@@ -707,7 +988,7 @@ class CommitStats:
     """Where seal-time work went, cumulative per engine.
 
     The zero-rehash invariant: applying rows gathered from sealed objects
-    (merge, revert, publish) never pays ``rows_rehashed`` or
+    (merge, revert, publish, materialized clones) never pays ``rows_rehashed`` or
     ``lob_rows_hashed``; their signatures ride along in ``SigBatch``
     sidecars and the sort is skipped or a k-way run merge."""
     rows_rehashed: int = 0       # rows that ran the rowhash kernel at seal

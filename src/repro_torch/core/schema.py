@@ -85,6 +85,10 @@ class Schema:
                 return c
         raise KeyError(name)
 
+    def np_dtype(self, name: str):
+        ct = self.column(name).ctype
+        return np.object_ if ct is CType.LOB else _NP_DTYPES[ct]
+
     def compatible_with(self, other: "Schema") -> bool:
         """Diff/merge compatibility (paper §3)."""
         return (self.names == other.names

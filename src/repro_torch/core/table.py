@@ -112,6 +112,17 @@ class Table:
         batch, rid, _ = self._scan_walk(directory, carry=False)
         return batch, rid
 
+    def scan_carry(self, directory: Optional[Directory] = None):
+        """Materialize all visible rows WITH their signature sidecar.
+
+        Returns (batch, rowids, SigBatch): row/key signature lanes and LOB
+        content signatures gathered straight from the sealed objects (zero
+        hashing), plus ``runs`` offsets — every object's visible subset is
+        an ascending slice of a key-sorted object, i.e. one presorted run.
+        Feeding the result into ``Txn.insert(..., sigs=...)`` re-seals the
+        rows without rehashing (clone materialization, ALTER rewrites)."""
+        return self._scan_walk(directory, carry=True)
+
     def _scan_walk(self, directory: Optional[Directory], carry: bool):
         """The one visibility walk behind every scan variant."""
         d = directory or self.directory
@@ -172,12 +183,7 @@ class Table:
         """Visible rows; one host read per object that has kills."""
         d = directory or self.directory
         vi = visibility_index(self._store, d)
-        n = 0
-        for oid in d.data_oids:
-            obj = self._store.get(oid)
-            n += (obj.nrows if vi.fully_visible(obj)
-                  else int(vi.visible_mask(obj).sum()))
-        return n
+        return sum(vi.visible_count(self._store.get(o)) for o in d.data_oids)
 
     # ------------------------------------------------------------ probes
     def locate_keys(self, key_lo: torch.Tensor, key_hi: torch.Tensor,

@@ -17,6 +17,7 @@ singleton no-op context manager. Spans mark operations, never rows.
 """
 from __future__ import annotations
 
+import json
 from contextlib import contextmanager
 from time import perf_counter
 from typing import Any, Dict, Iterator, List, Optional
@@ -24,7 +25,8 @@ from typing import Any, Dict, Iterator, List, Optional
 __all__ = [
     "register_span", "register_metric", "registered_spans",
     "registered_metrics", "Metrics", "metrics_snapshot", "stats_json",
-    "Span", "Tracer", "span", "trace", "STATS_SCHEMA",
+    "Span", "Tracer", "span", "trace", "current", "render_spans",
+    "chrome_trace_events", "write_chrome_trace", "STATS_SCHEMA",
 ]
 
 #: version of the ``stats_json`` document: the reference's, with the same
@@ -287,3 +289,78 @@ def trace(engine=None) -> Iterator[Tracer]:
         yield t
     finally:
         _ACTIVE = None
+
+
+def current() -> Optional[Tracer]:
+    """The armed tracer, or None."""
+    return _ACTIVE
+
+
+# --------------------------------------------------------------------------
+# rendering / export
+# --------------------------------------------------------------------------
+
+def _display_counters(counters: Dict[str, int]) -> Dict[str, int]:
+    """Counter deltas for display: every nonzero delta, PLUS every
+    registered metric of any dotted group with at least one changed
+    counter — zeros included. This is what makes invariants *observable*:
+    a commit that carried rows shows ``commit.rows_rehashed=0`` instead
+    of silently omitting it."""
+    groups = {k.split(".", 1)[0] for k in counters}
+    shown = dict(counters)
+    for name in _METRICS:
+        if name not in shown and name.split(".", 1)[0] in groups:
+            shown[name] = 0
+    return dict(sorted(shown.items()))
+
+
+def render_spans(spans: List[Span], indent: int = 0) -> List[str]:
+    """Text span tree (the ``EXPLAIN`` body): one line per span with its
+    wall time, then its counter deltas, then children indented."""
+    lines: List[str] = []
+    pad = "  " * indent
+    for s in spans:
+        lines.append(f"{pad}{s.name}  [{s.dur_s * 1e3:.3f} ms]")
+        shown = _display_counters(s.counters)
+        if shown:
+            pairs = " ".join(f"{k}={v}" for k, v in shown.items())
+            lines.append(f"{pad}  {pairs}")
+        lines.extend(render_spans(s.children, indent + 1))
+    return lines
+
+
+def chrome_trace_events(tracer: Tracer) -> List[Dict[str, Any]]:
+    """Flatten a tracer's span forest into Chrome-tracing complete
+    events (``ph: "X"``), timestamps in microseconds relative to arm."""
+    events: List[Dict[str, Any]] = []
+
+    def walk(s: Span) -> None:
+        events.append({
+            "name": s.name,
+            "cat": "datagit",
+            "ph": "X",
+            "ts": round(s.t0_rel * 1e6, 3),
+            "dur": round(s.dur_s * 1e6, 3),
+            "pid": 1,
+            "tid": 1,
+            "args": dict(sorted(s.counters.items())),
+        })
+        for c in s.children:
+            walk(c)
+
+    for r in tracer.roots:
+        walk(r)
+    return events
+
+
+def write_chrome_trace(path: str, tracer: Tracer) -> None:
+    """Write the span forest as Chrome-tracing JSON, one event per line
+    (loads in Perfetto / ``chrome://tracing``; the array format is also
+    line-splittable for streaming consumers)."""
+    events = chrome_trace_events(tracer)
+    with open(path, "w") as f:
+        f.write("[\n")
+        for i, ev in enumerate(events):
+            tail = ",\n" if i + 1 < len(events) else "\n"
+            f.write(json.dumps(ev, sort_keys=True) + tail)
+        f.write("]\n")

@@ -394,3 +394,10 @@ class VisibilityIndex:
         return (obj.commit_ts <= self.d.ts) & ~self.killed_mask(obj)
 
 
+
+    def visible_count(self, obj: DataObject) -> int:
+        """Visible-row count without materializing a mask when pruned."""
+        if self.fully_visible(obj):
+            return obj.nrows
+        return int(self.visible_mask(obj).sum())
+

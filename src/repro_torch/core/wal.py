@@ -1,22 +1,46 @@
-"""Write-ahead log (the LogService/TN roles of paper §4), in memory.
+"""Write-ahead log (the LogService/TN roles of paper §4, single-node form).
 
-Every logical state change appends a record. This slice of the port keeps
-the log in memory: records hold the committed batches as the engine
-staged them (tensors included). Replay and the framed durable store come
-with a later slice; anything serialized then goes out as numpy.
+Every logical state change appends a record; ``Engine.replay`` re-executes
+the log against a fresh engine and must reproduce identical logical table
+contents. Object ids are allocated deterministically, so replay also
+reproduces physical layout.
+
+Live records hold the committed batches as the engine staged them
+(tensors included). Serialized WALs and the CLI's append-only store share
+one framed byte format, and every record goes out as numpy
+(``interop.host_tree``), never as a tensor; replay moves the batches onto
+the replaying engine's device::
+
+    header   := MAGIC "DGWS" | version u8 | reserved u8*3      (8 bytes)
+    frame    := length u32le | crc32c(payload) u32le | payload
+    payload  := pickle of a list[WalRecord]
+
+A flipped bit raises :class:`CorruptFrame` naming the frame, a crash-torn
+tail raises :class:`TornFrame` carrying the last clean offset
+(recoverable — the bytes were never acknowledged), and a store written by
+a different format version raises :class:`StoreVersionError` with an
+upgrade hint. Headerless legacy stores (a raw pickle stream) still load
+via a one-shot legacy path keyed off the pickle protocol-2 opcode.
 """
 from __future__ import annotations
 
+import pickle
+import struct
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
+from ..interop import host_tree
 from .faults import crash_point, register
 
-# Every record kind the engine of this slice emits.
+# Every record kind the engine may emit and ``Engine.replay`` understands.
+# The workflow porcelain logs ONE record per logical operation — its
+# sub-operations (clones, merges, the publish commit) are unlogged and
+# re-derived deterministically at replay time.
 KINDS = frozenset({
     # storage / transaction layer
     "create_table", "drop_table", "commit", "snapshot", "drop_snapshot",
-    "clone", "restore", "set_base",
+    "clone", "restore", "set_base", "create_index", "drop_index",
+    "alter_add_column", "compact",
     # workflow porcelain: branches, pull requests, atomic publish, Δ-revert
     "create_branch", "drop_branch", "open_pr", "close_pr", "publish",
     "publish_revert", "revert",
@@ -34,11 +58,194 @@ class WalRecord:
     payload: Dict[str, Any] = field(default_factory=dict)
 
 
+# --------------------------------------------------------------------------
+# durable frame format
+# --------------------------------------------------------------------------
+
+MAGIC = b"DGWS"
+STORE_VERSION = 1
+STORE_HEADER = MAGIC + bytes([STORE_VERSION]) + b"\x00\x00\x00"
+_FRAME_HEAD = struct.Struct("<II")        # payload length, crc32c(payload)
+FRAME_OVERHEAD = _FRAME_HEAD.size
+
+
+class StoreFormatError(Exception):
+    """Base of the typed durable-format errors."""
+
+
+class TornFrame(StoreFormatError):
+    """A frame extends past end-of-file: the torn tail of a crashed append.
+
+    Recoverable by construction — appends are fsynced frame-at-a-time, so
+    bytes past ``clean_end`` were never acknowledged to any caller.
+    ``tail`` holds them so recovery can preserve, never silently drop."""
+
+    def __init__(self, clean_end: int, tail: bytes):
+        super().__init__(
+            f"torn frame: {len(tail)} trailing byte(s) past the last clean "
+            f"frame at offset {clean_end} (unacknowledged crashed write)")
+        self.clean_end = clean_end
+        self.tail = tail
+
+
+class CorruptFrame(StoreFormatError):
+    """A fully-present frame failed its CRC: mid-file storage corruption.
+
+    NOT auto-recoverable (the frame was acknowledged once): a plain load
+    refuses."""
+
+    def __init__(self, frame_index: int, offset: int, why: str):
+        super().__init__(
+            f"corrupt frame #{frame_index} at offset {offset}: {why}")
+        self.frame_index = frame_index
+        self.offset = offset
+
+
+class TornTransaction(StoreFormatError):
+    """A multi-table commit group is incomplete in the MIDDLE of the log.
+
+    A trailing incomplete group is normal crash recovery (replay drops it
+    whole). Records *after* an incomplete group mean the log itself is
+    damaged — replay refuses to guess."""
+
+    def __init__(self, ts: int, have: int, want: int):
+        super().__init__(
+            f"commit group at ts={ts} has {have} of {want} table records "
+            "with later records following — WAL is damaged mid-log")
+        self.ts = ts
+
+
+class StoreVersionError(StoreFormatError):
+    """The store's magic/version does not match this build's format."""
+
+    def __init__(self, why: str):
+        super().__init__(
+            f"{why} — this build reads DGWS v{STORE_VERSION} stores and "
+            "legacy headerless pickle stores; re-create the store with "
+            "this build (or load it with the build that wrote it)")
+
+
+#: cumulative bytes hashed by the pure-python fallback, and the threshold
+#: past which a one-shot warning fires (the table loop is ~100x slower
+#: than google-crc32c). Module globals so tests can shrink the threshold.
+_py_crc32c_bytes = 0
+_PY_CRC32C_WARN_BYTES = 64 << 20
+_py_crc32c_warned = False
+
+
+def _note_py_crc32c(nbytes: int) -> None:
+    """Account fallback-hashed bytes; warn once past the threshold."""
+    global _py_crc32c_bytes, _py_crc32c_warned
+    _py_crc32c_bytes += nbytes
+    if (not _py_crc32c_warned
+            and _py_crc32c_bytes > _PY_CRC32C_WARN_BYTES):
+        _py_crc32c_warned = True
+        import sys
+        print(f"datagit: warning: hashed "
+              f"{_py_crc32c_bytes / (1 << 20):.0f}MB with the "
+              "pure-python crc32c fallback; install google-crc32c "
+              "for ~100x faster integrity checks", file=sys.stderr)
+
+
+_CRC32C_TABLE: List[int] = []
+
+
+def _crc32c_build_table() -> None:
+    poly = 0x82F63B78                      # Castagnoli, reflected
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ poly if c & 1 else c >> 1
+        _CRC32C_TABLE.append(c)
+
+
+def _py_crc32c(data: bytes) -> int:
+    """CRC32C by the byte table: the fallback without google-crc32c."""
+    if not _CRC32C_TABLE:
+        _crc32c_build_table()
+    _note_py_crc32c(len(data))
+    tab = _CRC32C_TABLE
+    c = 0xFFFFFFFF
+    for b in data:
+        c = tab[(c ^ b) & 0xFF] ^ (c >> 8)
+    return c ^ 0xFFFFFFFF
+
+
+try:                                       # C implementation when present
+    from google_crc32c import value as _crc32c_impl
+
+    CRC32C_IMPL = "google-crc32c"
+
+    def crc32c(data: bytes) -> int:
+        return _crc32c_impl(data)
+except ImportError:                        # pure-python fallback
+    CRC32C_IMPL = "pure-python"
+    crc32c = _py_crc32c
+
+
+def encode_frame(payload: bytes) -> bytes:
+    """One durable frame: length + crc32c + payload."""
+    return _FRAME_HEAD.pack(len(payload), crc32c(payload)) + payload
+
+
+def check_store_header(blob: bytes) -> int:
+    """Validate the store header; returns the offset where frames begin.
+
+    Returns ``-1`` for a recognized LEGACY headerless pickle store (pickle
+    protocol 2+ opcode ``\\x80``); raises :class:`StoreVersionError` for
+    anything else."""
+    if blob.startswith(MAGIC):
+        version = blob[4]
+        if version != STORE_VERSION:
+            raise StoreVersionError(
+                f"store format version {version} is not supported")
+        if len(blob) < len(STORE_HEADER):
+            raise StoreVersionError("store header truncated")
+        return len(STORE_HEADER)
+    if blob[:1] == b"\x80":
+        return -1
+    raise StoreVersionError(
+        f"bad magic {blob[:4]!r}: not a datagit WAL store")
+
+
+def iter_frames(blob: bytes, offset: int) -> Iterator[Tuple[bytes, int]]:
+    """Yield ``(payload, end_offset)`` per frame, verifying each CRC.
+
+    Raises :class:`TornFrame` when the trailing frame extends past EOF
+    (including a torn length/crc prefix) and :class:`CorruptFrame` on a
+    CRC mismatch; there is no silent resync."""
+    size = len(blob)
+    idx = 0
+    while offset < size:
+        if size - offset < FRAME_OVERHEAD:
+            raise TornFrame(offset, bytes(blob[offset:]))
+        length, crc = _FRAME_HEAD.unpack_from(blob, offset)
+        end = offset + FRAME_OVERHEAD + length
+        if end > size:
+            raise TornFrame(offset, bytes(blob[offset:]))
+        payload = blob[offset + FRAME_OVERHEAD:end]
+        if crc32c(payload) != crc:
+            raise CorruptFrame(
+                idx, offset,
+                f"crc mismatch over {length} payload byte(s)")
+        yield payload, end
+        offset = end
+        idx += 1
+
+
+def dump_records(records: Sequence[WalRecord]) -> bytes:
+    """Pickle records for a frame, every tensor in them as numpy."""
+    return pickle.dumps([WalRecord(r.kind, host_tree(r.payload))
+                         for r in records],
+                        protocol=pickle.HIGHEST_PROTOCOL)
+
+
 class WAL:
     def __init__(self):
         self.records: List[WalRecord] = []
-        # telemetry counters (wal.frames / wal.bytes / wal.fsyncs); the
-        # in-memory log writes no bytes and syncs nothing
+        # telemetry counters (wal.frames / wal.bytes / wal.fsyncs) — live
+        # process state only, never pickled: ``serialize`` ships just the
+        # records, so a replayed engine always starts these at zero
         self.frames = 0
         self.bytes_written = 0
         self.fsyncs = 0
@@ -57,3 +264,17 @@ class WAL:
 
     def __len__(self):
         return len(self.records)
+
+    def serialize(self) -> bytes:
+        return STORE_HEADER + encode_frame(dump_records(self.records))
+
+    @staticmethod
+    def deserialize(blob: bytes) -> "WAL":
+        w = WAL()
+        start = check_store_header(blob)
+        if start < 0:                       # legacy headerless pickle blob
+            w.records = pickle.loads(blob)
+            return w
+        for payload, _ in iter_frames(blob, start):
+            w.records.extend(pickle.loads(payload))
+        return w

@@ -367,22 +367,24 @@ class PullRequest:
 
     # ------------------------------------------------------------ publish
     def publish(self, mode: ConflictMode = ConflictMode.FAIL, *,
-                _log=True) -> Dict[str, MergeReport]:
+                _log=True, _skip_checks=False) -> Dict[str, MergeReport]:
         """Merge every table of the PR into the base branch atomically.
 
         Order of gates: CI checks (ephemeral preview) -> per-table merge
         planning (conflicts raise with nothing staged) -> ONE multi-table
         commit at ONE timestamp (two-phase, unwinds on seal-time failure).
-        The WAL carries a single ``publish`` record."""
+        The WAL carries a single replayable ``publish`` record; replay
+        re-applies it with ``_skip_checks=True`` (checks are in-process
+        callables and were already run live)."""
         with telemetry.span(SP_PUBLISH):
-            return self._publish(mode, _log)
+            return self._publish(mode, _log, _skip_checks)
 
-    def _publish(self, mode: ConflictMode,
-                 _log: bool) -> Dict[str, MergeReport]:
+    def _publish(self, mode: ConflictMode, _log: bool,
+                 _skip_checks: bool) -> Dict[str, MergeReport]:
         if self.status != "open":
             raise ValueError(f"PR #{self.id} is {self.status}, not open")
         engine = self.engine
-        if self.checks:
+        if self.checks and not _skip_checks:
             results = self.run_checks(mode)
             # a conflicting preview (the synthetic result) falls through to
             # planning below, which raises the genuine MergeConflictError

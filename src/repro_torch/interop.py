@@ -42,3 +42,16 @@ def from_numpy_batch(schema, batch: Dict[str, np.ndarray],
     tensors of the schema's dtype on ``device``, LOB columns as host
     object arrays of bytes."""
     return schema.normalize_batch(batch, device)
+
+
+def host_tree(x):
+    """A copy of ``x`` with every tensor inside it (nested in dicts,
+    lists and tuples) as a numpy array: what a WAL record carries to a
+    serialized store. Other values pass through as they are."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_tree(v) for v in x)
+    return x

@@ -432,6 +432,164 @@ def test_publish_revert_and_gc_on_the_card(cuda, pk):
                                          "segsum_diff")), launches
 
 
+def _state(engine, *tables):
+    """ts, commit log and each table's scan digest and object ids."""
+    return (engine.ts,
+            [(r.ts, r.table, r.kind, r.inserted, r.deleted)
+             for r in engine.commit_log],
+            {t: (digests.scan_digest(engine, t),
+                 engine.table(t).directory.data_oids) for t in tables})
+
+
+def _indices(dev, n=6_000, change=500):
+    """Index backfill, lookups, maintenance through updates and deletes,
+    a clone with its index, all on ``dev``."""
+    from repro_torch.benchmarks.vcs_tables import _mk_engine
+    from repro_torch.core import create_index, lookup_eq
+    engine, base = _mk_engine(n, True, device=dev)
+    spec = create_index(engine, "lineitem", "by_part", ["l_partkey"])
+    rng = np.random.default_rng(3)
+    idx = rng.choice(n, size=change, replace=False)
+    upd = {k: v[idx].copy() for k, v in base.items()}
+    upd["l_partkey"] = upd["l_partkey"] + 200_000
+    engine.update_by_keys("lineitem", upd)
+    engine.delete_by_keys("lineitem", {
+        "l_orderkey": base["l_orderkey"][idx[:50]],
+        "l_linenumber": base["l_linenumber"][idx[:50]]})
+    engine.create_snapshot("s", "lineitem")
+    engine.clone_table("c", "s", with_indices=True)
+    hits = [sorted(lookup_eq(engine, t, "by_part", {"l_partkey": int(v)})
+                   ["l_orderkey"].tolist())
+            for t in ("lineitem", "c")
+            for v in np.concatenate([base["l_partkey"][idx[:20]],
+                                     upd["l_partkey"][:20]])]
+    return _state(engine, "lineitem", spec.aux_table, "c"), hits
+
+
+def test_indices_on_the_card(cuda):
+    got, want = _indices(cuda), _indices("cpu")
+    assert got == want
+    assert any(got[1]) and build.LAUNCHES["rowhash"] > 0
+    assert build.LAUNCHES["probe"] > 0
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_compaction_on_the_card(cuda, pk):
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    from repro_torch.core import compact_table, snapshot_diff
+
+    def run(dev):
+        engine, base = _mk_engine(20_000, pk, device=dev)
+        for tag in range(3):
+            _random_update(engine, "lineitem", base, 700,
+                           np.random.default_rng(tag), pk, tag=tag)
+        snap = engine.create_snapshot("pre", "lineitem")
+        objs = len(engine.table("lineitem").directory.data_oids)
+        written = compact_table(engine, "lineitem")
+        assert len(engine.table("lineitem").directory.data_oids) < objs
+        assert snapshot_diff(engine.store, snap, engine.current_snapshot(
+            "lineitem")).is_empty()
+        objs = [engine.store.get(o) for o in
+                engine.table("lineitem").directory.data_oids]
+        lanes = [[o.row_lo.cpu(), o.key_lo.cpu(), o.commit_ts.cpu()]
+                 for o in objs]
+        return written, _state(engine, "lineitem"), lanes
+    got, want = run(cuda), run("cpu")
+    assert got[:2] == want[:2]
+    for a, b in zip(got[2], want[2]):
+        for x, y in zip(a, b):
+            _equal(x, y)
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_materialize_and_alter_on_the_card(cuda, pk):
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    from repro_torch.core import Column, CommitStats, CType
+
+    def run(dev):
+        engine, base = _mk_engine(20_000, pk, device=dev)
+        _random_update(engine, "lineitem", base, 900,
+                       np.random.default_rng(5), pk)
+        engine.create_snapshot("s", "lineitem")
+        engine.commit_stats = CommitStats()
+        engine.clone_table("m", "s", materialize=True)
+        mat = vars(engine.commit_stats)
+        engine.commit_stats = CommitStats()
+        engine.alter_table_add_column("m", Column("flag", CType.I64), 3)
+        alt = vars(engine.commit_stats)
+        return mat, alt, _state(engine, "lineitem", "m")
+    got, want = run(cuda), run("cpu")
+    assert got == want
+    assert got[0]["rows_rehashed"] == 0 and got[0]["rows_carried"] == 20_000
+    assert got[1]["rows_rehashed"] == 20_000
+    assert got[1]["lob_rows_hashed"] == 0
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_per_key_conflicts_on_the_card(cuda, pk):
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    from repro_torch.core import snapshot_diff
+
+    def run(dev):
+        engine, base = _mk_engine(20_000, pk, device=dev)
+        s = engine.create_snapshot("s", "lineitem")
+        for name, seed in (("a", 1), ("b", 2)):
+            engine.clone_table(name, s)
+            _random_update(engine, name, base, 1_000,
+                           np.random.default_rng(seed), pk, tag=seed)
+        d = snapshot_diff(engine.store, engine.current_snapshot("a"),
+                          engine.current_snapshot("b"))
+        return d.n_groups, [g.tolist() for g in d.per_key_conflicts()]
+    got, want = run(cuda), run("cpu")
+    assert got == want
+    assert (len(got[1]) > 0) == pk
+
+
+def test_replay_on_the_card(cuda):
+    """A history with every record kind, serialized and replayed onto the
+    card: equal to the live card engine and to the CPU's replay."""
+    from repro_torch.core import WAL, Engine, compact_objects
+    from repro_torch.core.indices import create_index, drop_index
+    from repro_torch.core.schema import Column, CType, Schema
+
+    def run(dev):
+        sch = Schema((Column("k", CType.I64), Column("v", CType.F64),
+                      Column("doc", CType.LOB)), primary_key=("k",))
+        e = Engine(device=dev)
+        e.create_table("t", sch)
+        e.insert("t", {"k": np.arange(300), "v": np.arange(300) * 0.5,
+                       "doc": [b"d%d" % i for i in range(300)]})
+        create_index(e, "t", "by_v", ["v"])
+        e.update_by_keys("t", {"k": [3, 4], "v": [9.0, 9.5],
+                               "doc": [b"x", b"y"]})
+        e.create_snapshot("s", "t")
+        e.clone_table("m", "s", materialize=True)
+        e.alter_table_add_column("m", Column("f", CType.I32), 1)
+        drop_index(e, "t", "by_v")
+        compact_objects(e, "t", list(e.table("t").directory.data_oids))
+        e.create_branch("dev", ["t"])
+        e.update_by_keys("dev/t", {"k": [5], "v": [1.0], "doc": [b"z"]})
+        pr = e.open_pr("main", "dev")
+        pr.publish()
+        pr.revert_publish()
+        e2 = Engine.replay(WAL.deserialize(e.wal.serialize()), device=dev)
+        assert _state(e2, "t", "m") == _state(e, "t", "m")
+        return _state(e2, "t", "m")
+    assert run(cuda) == run("cpu")
+
+
+def test_three_doors_on_the_card(cuda, tmp_path):
+    """The 16-step script through Repo, statements, the CLI and replay on
+    the card: every fingerprint equal to the CPU Repo's."""
+    from chip_smoke import drive_doors
+    got, _ = drive_doors(cuda, tmp_path)
+    want, _ = drive_doors(torch.device("cpu"), tmp_path)
+    for door, fp in got.items():
+        assert fp == want["python"], door
+    assert want["statements"] == want["cli"] == want["python"]
+    assert all(build.LAUNCHES[k] > 0 for k in build.VCS_SOURCES)
+
+
 def _qkv(dev, b, sq, sk, h, kv, hd, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev).bfloat16()
