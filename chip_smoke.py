@@ -24,7 +24,8 @@ Phases, one line each:
                 (64 and 128 query rows) also forced (flash_serve)
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
-                recorded digests (GOLDEN and GOLDEN_APPLY)
+                recorded digests (GOLDEN and GOLDEN_APPLY), and
+                GOLDEN_APPLY again from an evicted store
   5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
                 snapshot, clone, a 100,000-row update (change set C4),
                 cold and warm SNAPSHOT DIFF, SQL diff and a three-way
@@ -80,6 +81,21 @@ Phases, one line each:
                 CLI and replay on the card, equal to the CPU's; then
                 doors_split: every rowhash shape of both windows EXACT
                 and timed with its bound, every other shape EXACT
+     tiers    — after each doors phase, on the same engine with the
+                doors' extra tables dropped (NoPK: on an engine of its
+                own of min(--rows, 300,000) rows, started as the main
+                path starts its own): every object spilled to DGPK
+                packs under build/ and evicted from the card (device
+                memory before and after), a cold SNAPSHOT DIFF and the SQL
+                diff from the evicted store equal to the resident ones,
+                fsck with every layer (rowhash on the card, the replay),
+                a push, a shallow clone on the card whose first diff
+                faults in only what it reads, a C4 change pushed back and
+                pulled (0 rows rehashed, equal digests), two planted
+                faults found and repaired; with the CRC32C's own seconds
+                and rate on this host and the pack path's split; then
+                tiers_split: the windows' most launched rowhash shapes
+                EXACT and timed with their bounds, every other shape EXACT
   6. serve    — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
                 151,936; random weights from the seed): 8 requests of
                 512-2048 prompt tokens and 32 new tokens each through the
@@ -90,8 +106,8 @@ Phases, one line each:
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
-the launches of every path's window (main path, workflow and doors, both
-modes; flash from serving). The full record goes to ``build/chip_smoke.json``.
+the launches of every path's window (main path, workflow, doors and
+tiers, both modes; flash from serving). The full record goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -102,6 +118,7 @@ import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +127,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SF1_ROWS = 6_001_215       # TPC-H SF1 lineitem
 C4_ROWS = 100_000          # change set C4 of benchmarks/vcs_tables.py
+#: the NoPK half of the tiers phase runs on an engine of at most this many
+#: rows (with a change of at most TIERS_NOPK_CHANGE): on ``tiers_engine``
+#: at SF1 the halves took 136.5 s (NoPK) + 127.1 s (PK) on an H100 80GB
+#: HBM3 at 700 W, where the phase has 180 s (PERF.md §4)
+TIERS_NOPK_ROWS = 300_000
+TIERS_NOPK_CHANGE = 10_000
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
 # and the 32-bit integer operation rate every kernel here computes in. An
@@ -1118,13 +1141,34 @@ def sql_diff_steps(torch, store, a, b, repeats: int) -> dict:
     return {"plain_ms": plain, "steps_ms": split}
 
 
+def start_engine(pk: bool, rows: int, change: int, device, timed=None,
+                 tracer=None):
+    """The main path's start: lineitem loaded (snapshot ``sn1``), cloned
+    to ``t``, and ``t`` changed by ``change`` rows of change set C4's draw
+    (snapshot ``sn3``). ``timed(name, fn)`` clocks the load and the
+    update; ``tracer`` is bound to the engine once it is loaded. Returns
+    the engine, the loaded batch, ``sn1`` and ``sn3``."""
+    import numpy as np
+
+    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
+    timed = timed or (lambda name, fn: fn())
+    engine, base = timed("load_s",
+                         lambda: _mk_engine(rows, pk, device=device))
+    if tracer is not None:
+        tracer.bind(engine)
+    sn1 = engine.create_snapshot("sn1", "lineitem")
+    engine.clone_table("t", sn1)
+    rng = np.random.default_rng([change] + list(b"C4"))
+    timed("update_s", lambda: _random_update(engine, "t", base, change,
+                                             rng, pk))
+    sn3 = engine.create_snapshot("sn3", "t")
+    return engine, base, sn1, sn3
+
+
 def mainpath_phase(torch, pk: bool, rows: int, change: int):
     """The main path at SF1; returns its record and what the workflow
     phase continues from: the engine, the loaded batch, and the table's
     snapshots before and after the ACCEPT merge."""
-    import numpy as np
-
-    from repro_torch.benchmarks.vcs_tables import _mk_engine, _random_update
     from repro_torch.core import (ConflictMode, snapshot_diff, sql_diff,
                                   telemetry, three_way_merge)
     from repro_torch.kernels import build, ops
@@ -1145,15 +1189,8 @@ def mainpath_phase(torch, pk: bool, rows: int, change: int):
 
     build.reset_launches()
     with path_shapes(ops) as hists, telemetry.trace() as tracer:
-        engine, base = timed("load_s",
-                             lambda: _mk_engine(rows, pk, device=dev))
-        tracer.bind(engine)
-        sn1 = engine.create_snapshot("sn1", "lineitem")
-        engine.clone_table("t", sn1)
-        rng = np.random.default_rng([change] + list(b"C4"))
-        timed("update_s", lambda: _random_update(engine, "t", base, change,
-                                                 rng, pk))
-        sn3 = engine.create_snapshot("sn3", "t")
+        engine, base, sn1, sn3 = start_engine(pk, rows, change, dev,
+                                              timed, tracer)
         cur = engine.current_snapshot("lineitem")
         d_cold = timed("diff_cold_s",
                        lambda: snapshot_diff(engine.store, cur, sn3))
@@ -1777,6 +1814,316 @@ def doors_split(torch, doors: list, kern: dict, seed: int) -> dict:
         exact=swept, seconds=time.perf_counter() - t0)
 
 
+# -------------------------------------------------------------------- tiers
+
+#: pack-path functions whose own seconds the tiers phase splits out, by
+#: (module, attribute): patched for the phase, every caller goes through
+#: the module attribute
+TIER_TIMERS = (("wal", "crc32c"), ("packs", "crc32c"),
+               ("packs", "encode_object"), ("remote", "encode_object"),
+               ("packs", "decode_object"), ("packs", "_decode_num_lane"),
+               ("packs", "_decode_lob_lane"), ("packs", "_read"),
+               ("remote", "_read"), ("packs", "_atomic_write"),
+               ("remote", "_atomic_write"), ("packs", "blob_digest"),
+               ("remote", "blob_digest"))
+
+
+@contextlib.contextmanager
+def tier_timers():
+    """Host seconds and bytes of the pack path's parts while the block
+    runs: ``crc32c`` (with its bytes), encode, decode, the upload of the
+    numeric lanes, the LOB lanes' decode, file reads and atomic writes,
+    sha256. Nested calls count in each (encode holds its CRC)."""
+    from repro_torch.core import wal
+    from repro_torch.store import packs, remote
+    mods = {"wal": wal, "packs": packs, "remote": remote}
+    acc = collections.defaultdict(float)
+    saved = []
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[name] += time.perf_counter() - t0
+                if name == "crc32c":
+                    acc["crc32c_bytes"] += len(a[0])
+        return timed
+    for m, attr in TIER_TIMERS:
+        fn = getattr(mods[m], attr)
+        saved.append((mods[m], attr, fn))
+        setattr(mods[m], attr, wrap(attr.strip("_"), fn))
+    try:
+        yield acc
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def tiers_engine(pk: bool, rows: int, change: int, device="cuda"):
+    """A smaller engine for the tiers phase, started as the main path
+    starts its own (``start_engine``), then one more change on lineitem:
+    history that the main path's diffs never read. Returns the engine, the
+    loaded batch and lineitem's snapshot before that change."""
+    import numpy as np
+
+    from repro_torch.benchmarks.vcs_tables import _random_update
+    engine, base, _, _ = start_engine(pk, rows, change, device)
+    pre = engine.current_snapshot("lineitem")
+    rng = np.random.default_rng([change] + list(b"C9"))
+    _random_update(engine, "lineitem", base, change, rng, pk, tag=9)
+    return engine, base, pre
+
+
+def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
+                seed: int, device="cuda", root=None) -> dict:
+    """The durability-and-tiers slice on the SF1 engine after its doors
+    phase: the doors' extra tables dropped and GC run, so the tier holds
+    lineitem's and the main path's clone ``t``'s live objects and their
+    history. Spill every object to DGPK packs under ``build/``, evict
+    every one from the card (device memory before and after), read the
+    main path's two snapshots back through a cold SNAPSHOT DIFF and the
+    SQL diff (faults, launches, groups and digests equal to the resident
+    reading), ``fsck(sample=1.0, check_replay=True)`` by layer, a push to
+    a remote directory, a shallow clone on the card whose first diff
+    faults in only what it reads, a C4 change pushed from the clone and
+    pulled back (0 rows rehashed, equal digests), then two planted faults
+    (a flipped bit in one object's lane, one in another's pack file) that
+    ``fsck(repair=True)`` must report and quarantine. Every check fails
+    the run. Packs, the remote and the clone go under ``root``
+    (``build/tiers/<mode>``). ``device="cpu"`` drives the same steps
+    without the card (the tests do, at a small size)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.benchmarks.digests import diff_digest
+    from repro_torch.benchmarks.vcs_tables import _random_update
+    from repro_torch.core import fsck, snapshot_diff, sql_diff
+    from repro_torch.core.faults import corrupt_object_bit, flip_bit
+    from repro_torch.core.objects import lane_nbytes
+    from repro_torch.core.wal import CRC32C_IMPL
+    from repro_torch.kernels import build, ops
+    from repro_torch.store import attach_packs, clone, pull, push
+    from repro_torch.vcs_cli import load_repo
+
+    t_phase = time.perf_counter()
+    on_gpu = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    allocated = torch.cuda.memory_allocated if on_gpu else (lambda: 0)
+    root = Path(root or ROOT / "build" / "tiers" / ("pk" if pk else "nopk"))
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    steps = {}
+
+    def step(name, fn, eng=None):
+        st = (eng or engine).store
+        sync()
+        l0, m0 = dict(build.LAUNCHES), dict(st.metrics.counters)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        m1 = st.metrics.counters
+        steps[name] = {
+            "s": time.perf_counter() - t0,
+            "launches": {k: build.LAUNCHES[k] - l0[k]
+                         for k in build.VCS_SOURCES
+                         if build.LAUNCHES[k] - l0[k]},
+            **{k.split(".")[1]: m1.get(k, 0) - m0.get(k, 0)
+               for k in ("store.faults", "store.objects_pulled")
+               if m1.get(k, 0) - m0.get(k, 0)}}
+        return out
+
+    # the doors' extra tables go, and GC frees what only they held
+    keep = ("lineitem", "t")
+    for name in [n for n in engine.tables if n not in keep]:
+        engine.drop_table(name)
+    for name in [n for n, sn in engine.snapshots.items()
+                 if sn.table not in keep]:
+        engine.drop_snapshot(name)
+    gc_stats = engine.gc()
+    sn3 = engine.snapshots["sn3"]
+    store = engine.store
+    engine.store.delta_cache = None
+    d_res = snapshot_diff(store, pre, sn3)
+    s_res = sql_diff(store, pre, sn3)
+    resident = {"diff": (d_res.n_groups, diff_digest(d_res)),
+                "sql_diff": (s_res.n_groups, diff_digest(s_res))}
+    del d_res, s_res
+    check(resident["diff"][0] == resident["sql_diff"][0] == 2 * change,
+          f"resident diffs: {resident}")
+
+    build.reset_launches()
+    with tier_timers() as parts, path_shapes(ops) as hists, \
+            rowhash_shapes(ops) as rshapes:
+        # 1. spill and evict
+        attach_packs(store, str(root / "packs"))
+        n_obj = len(store._objects)
+        lanes = sum(lane_nbytes(store.get(o)) for o in list(store._objects))
+        logical = store.live_bytes()
+        spilled = step("spill_all", store.spill_all)
+        check(spilled == n_obj, f"spilled {spilled} of {n_obj} objects")
+        gc.collect()
+        sync()
+        mem_before = allocated()
+        evicted = step("evict_all", store.evict_all)
+        gc.collect()
+        sync()
+        mem_after = allocated()
+        check(evicted == n_obj and not store._objects,
+              f"evicted {evicted} of {n_obj}")
+        check(not on_gpu or mem_before - mem_after >= 0.9 * lanes,
+              f"eviction freed {mem_before - mem_after} bytes of "
+              f"{lanes} lane bytes")
+
+        # 2. reads from the evicted store
+        reads = {}
+        for name, fn in (("diff", snapshot_diff), ("sql_diff", sql_diff)):
+            d = step(f"{name}_evicted",
+                     lambda fn=fn: fn(store, pre, sn3))
+            reads[name] = (d.n_groups, diff_digest(d))
+            check(reads[name] == resident[name],
+                  f"{name} from the evicted store: {reads[name]} != "
+                  f"{resident[name]}")
+            del d
+
+        # 3. fsck, every layer
+        rep = step("fsck", lambda: fsck(engine, sample=1.0,
+                                        check_replay=True))
+        check(rep.ok, f"fsck: {[str(i) for i in rep.issues][:4]}")
+        check(not on_gpu or steps["fsck"]["launches"].get("rowhash", 0),
+              "fsck launched no rowhash")
+        fsck_rec = {"ok": rep.ok, "objects": rep.objects_checked,
+                    "rows_verified": rep.rows_verified,
+                    "packs": rep.packs_checked,
+                    "replay_checked": rep.replay_checked,
+                    "seconds": rep.seconds}
+
+        # 4. remotes: push, shallow clone on the card, a C4 change pushed
+        # from the clone and pulled back
+        remote = str(root / "remote")
+        pushed = step("push", lambda: push(engine, remote))
+        check(pushed["objects_pushed"] == len(store._packed),
+              f"push moved {pushed['objects_pushed']} objects")
+        dest = str(root / "b.wal")
+        cl = step("clone_shallow", lambda: clone(remote, dest,
+                                                 shallow=True))
+        repo_b = step("clone_load", lambda: load_repo(dest, device))
+        eng_b = repo_b.engine
+        check(not eng_b.store._objects and cl["objects_fetched"] == 0,
+              "the shallow clone holds objects before its first read")
+        d_b = step("clone_first_diff", lambda: snapshot_diff(
+            eng_b.store, pre, eng_b.snapshots["sn3"]), eng_b)
+        first = (d_b.n_groups, diff_digest(d_b))
+        del d_b
+        faulted = len(eng_b.store._objects)
+        check(first == resident["diff"], f"clone's diff {first}")
+        check(0 < faulted < len(eng_b.store._packed),
+              f"the clone's first diff faulted {faulted} of "
+              f"{len(eng_b.store._packed)} objects")
+        rng = np.random.default_rng([seed, change] + list(b"TIERS"))
+        step("clone_edit", lambda: _random_update(
+            eng_b, "lineitem", base, change, rng, pk, tag=18), eng_b)
+        back = step("clone_push", lambda: push(eng_b, remote), eng_b)
+        engine2, pulled = step("pull", lambda: pull(engine, remote))
+        m2 = engine2.store.metrics.counters
+        check(engine2.commit_stats.rows_rehashed == 0,
+              "the pull rehashed rows")
+        dig_a = content_digest(engine2, "lineitem")
+        dig_b = content_digest(eng_b, "lineitem")
+        check(dig_a == dig_b, "pulled lineitem differs from the clone's")
+        remotes = {"objects_pushed": pushed["objects_pushed"],
+                   "bytes_pushed": pushed["bytes_pushed"],
+                   "records_pushed": pushed["records_pushed"],
+                   "clone_faulted": faulted,
+                   "clone_objects": len(eng_b.store._packed),
+                   "clone_pushed": back["objects_pushed"],
+                   "objects_pulled": pulled["objects_pulled"],
+                   "records_pulled": pulled["records_pulled"],
+                   "rows_rehashed": engine2.commit_stats.rows_rehashed,
+                   "store_objects_pulled": m2.get("store.objects_pulled", 0),
+                   "digests_equal": dig_a == dig_b}
+        del repo_b, eng_b
+
+        # 5. planted faults on the pulled engine: a bit in one object's
+        # lane, a bit in another's pack file (both resident)
+        st2 = engine2.store
+        data = list(engine2.table("lineitem").directory.data_oids)
+        x, y = data[0], data[-1]
+        corrupt_object_bit(st2.get(x), row=0, bit=5)
+        st2.get(y)
+        flip_bit(st2.packs.path(st2.digest_of(y)), 200)
+        bad = step("fsck_repair", lambda: fsck(engine2, repair=True,
+                                                check_replay=False),
+                   engine2)
+        got = sorted((i.kind, i.oid) for i in bad.issues)
+        check(got == sorted([("signature_mismatch", x),
+                             ("pack_corrupt", y)]),
+              f"planted faults reported as {got}")
+        check(bad.quarantined == [x] and not st2.has(x),
+              f"repair quarantined {bad.quarantined}")
+        planted = {"issues": [list(g) for g in got],
+                   "quarantined": bad.quarantined,
+                   "refs_unreachable": len(bad.refs_unreachable),
+                   "seconds": bad.seconds}
+        del engine2
+    launches = dict(build.LAUNCHES)
+    shapes = shape_record(launches, *hists)
+    check(sum(rshapes.values()) == launches["rowhash"],
+          "rowhash shapes do not sum to its launches")
+    crc_s, crc_b = parts.get("crc32c", 0.0), parts.get("crc32c_bytes", 0)
+    return {"pk": pk, "change": change, "gc_freed": gc_stats.objects_freed,
+            "objects": n_obj, "lane_bytes": lanes, "logical_bytes": logical,
+            "bytes_packed": store.metrics.counters.get("store.bytes_packed",
+                                                       0),
+            "memory_allocated": {"before_evict": mem_before,
+                                 "after_evict": mem_after,
+                                 "freed": mem_before - mem_after},
+            "resident": resident, "evicted": reads, "fsck": fsck_rec,
+            "remotes": remotes, "planted": planted, "steps": steps,
+            "crc32c": {"impl": CRC32C_IMPL, "s": crc_s, "bytes": crc_b,
+                       "mb_per_s": crc_b / crc_s / 1e6 if crc_s else None},
+            "parts_s": {k: v for k, v in parts.items()
+                        if k != "crc32c_bytes"},
+            "launches": launches,
+            "rowhash_shapes": [[n, c, k] for (n, c), k in
+                               sorted(rshapes.items())],
+            **shapes,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def tiers_split(torch, tiers: list, kern: dict, seed: int) -> dict:
+    """The tiers windows' kernels at their own shapes: the rowhash shapes
+    that fsck's signature recompute and the clone's edit launched (the
+    most launched first, up to four) EXACT and timed with their bounds,
+    and every distinct searchsorted, zone-window, probe and segsum shape
+    held EXACT (``exact_sweep``). The rowhash rows go to the end of
+    ``kern["rowhash"]``."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    hist = shape_hist(tiers, "rowhash_shapes")
+    rows = []
+    for (r, c), launches in sorted(hist.items(),
+                                   key=lambda kv: (-kv[1], kv[0]))[:4]:
+        row = rowhash_row(torch, r, c, g)
+        row["launches"] = launches
+        rows.append(row)
+    kern["rowhash"] += rows
+    swept = exact_sweep(torch, {
+        "searchsorted": shape_hist(tiers, "searchsorted_shapes"),
+        "zone_windows": shape_hist(tiers, "zone_window_shapes"),
+        "probe": shape_hist(tiers, "probe_shapes"),
+        "segsum_diff": shape_hist(tiers, "segsum_shapes")}, seed)
+    return phase("tiers_split", rowhash=[
+        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "launches")}
+        for e in rows], rowhash_shapes=len(hist), exact=swept,
+        seconds=time.perf_counter() - t0)
+
+
 # -------------------------------------------------------------------- serve
 
 def host_cost(torch, model, prompt) -> dict:
@@ -1973,9 +2320,20 @@ def main(argv=None) -> int:
             bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
             check(not bad, f"golden digests differ (pk={pk}): {bad}")
             gold["pk" if pk else "nopk"] = "match"
+            # the apply path again over an evicted store: every engine
+            # spilled to packs and evicted from the card around each apply
+            packs = ROOT / "build" / "golden_packs" / str(pk)
+            shutil.rmtree(packs, ignore_errors=True)
+            got = digests.run_apply_workload(pk, device="cuda",
+                                             pack_root=packs)
+            bad = {k: (got[k], v) for k, v in GOLDEN_APPLY[pk].items()
+                   if got[k] != v}
+            check(not bad, f"evicted-store golden digests differ "
+                  f"(pk={pk}): {bad}")
+            gold[("pk" if pk else "nopk") + "_evicted"] = "match"
         record["golden"] = phase("golden", **gold)
 
-        runs, flows, doors = [], [], []
+        runs, flows, doors, tiers = [], [], [], []
         for pk in (True, False):
             rec, (engine, base, pre, post) = mainpath_phase(
                 torch, pk, args.rows, args.change)
@@ -1995,10 +2353,31 @@ def main(argv=None) -> int:
                               if k != "steps" and not k.endswith("_shapes")},
                   steps={k: {f: v for f, v in e.items() if f != "shapes"}
                          for k, e in door["steps"].items()})
+            rows, change = args.rows, args.change
+            if not pk:
+                # the NoPK half runs on a smaller engine of its own
+                del engine, base, pre, post
+                gc.collect()
+                rows = min(rows, TIERS_NOPK_ROWS)
+                change = min(change, TIERS_NOPK_CHANGE)
+                engine, base, pre = tiers_engine(False, rows, change)
+                post = None
+            tier = tiers_phase(torch, pk, engine, base, pre, change,
+                               args.seed)
+            tier["rows"] = rows
+            tiers.append(tier)
+            phase("tiers", **{k: v for k, v in tier.items()
+                              if not k.endswith("_shapes")})
             del engine, base, pre, post
         record["mainpath"] = runs
         record["workflow"] = flows
         record["doors"] = doors
+        record["tiers"] = tiers
+        launched = {k: sum(t["launches"][k] for t in tiers)
+                    for k in build.VCS_SOURCES}
+        check(all(launched.values()),
+              f"a VCS kernel was not launched in the tiers windows: "
+              f"{launched}")
 
         main_hist = functools.partial(shape_hist, runs)
         groups, search_rows = searchsorted_split(
@@ -2036,6 +2415,7 @@ def main(argv=None) -> int:
         record["workflow_split"] = workflow_split(torch, flows, kern,
                                                   args.seed, args.change)
         record["doors_split"] = doors_split(torch, doors, kern, args.seed)
+        record["tiers_split"] = tiers_split(torch, tiers, kern, args.seed)
         record["launch_cost"] = phase("launch_cost",
                                       **launch_cost(torch, args.seed))
 
@@ -2053,9 +2433,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    # every path's window: the main path's, the workflow's and the doors',
-    # both modes
-    launches = {k: sum(r["launches"][k] for r in runs + flows + doors)
+    # every path's window: the main path's, the workflow's, the doors' and
+    # the tiers', both modes
+    launches = {k: sum(r["launches"][k] for r in runs + flows + doors
+                       + tiers)
                 for k in build.VCS_SOURCES}
     launches["flash_attention"] = serve["flash_launches"]
     replaces = {

@@ -7,11 +7,15 @@ scan and a PITR diff; and the apply path — merges in every conflict mode,
 a Δ-revert, a publish through a pull request and its revert — each hashed with sha256 over the bytes of its
 lanes (uint64 words hash as the same 8 bytes as int64). Equal digests
 mean the port produced byte-identical results to the reference, on
-whichever device it ran.
+whichever device it ran. With ``pack_root`` the apply path runs over an
+evicted store: every engine spills to a pack tier and evicts its device
+lanes before and after each apply, so the same digests also pin that
+spill, evict and fault-in are byte-invisible.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 
@@ -134,9 +138,28 @@ def _apply_setup(pk, overlap, n_rows=30_000, csize=1_500, cell_cols=False,
     return engine, sn1, sn3
 
 
-def run_merge_workload(pk: bool, device=None) -> dict:
+def _evictor(pack_root):
+    """``tier(engine)``: attach a fresh pack directory under ``pack_root``
+    once per engine, then evict every object (a no-op without a root)."""
+    seq = [0]
+
+    def tier(engine):
+        if pack_root is None:
+            return
+        from ..store import attach_packs
+        if engine.store.packs is None:
+            seq[0] += 1
+            attach_packs(engine.store,
+                         os.path.join(str(pack_root), f"p{seq[0]}"))
+        engine.store.evict_all()
+    return tier
+
+
+def run_merge_workload(pk: bool, device=None, tier=None) -> dict:
     """Apply-path digests: merge in every conflict mode, with a base and
-    without (the report counters plus the post-merge table bytes)."""
+    without (the report counters plus the post-merge table bytes).
+    ``tier(engine)`` runs before and after each merge (``_evictor``)."""
+    tier = tier or _evictor(None)
     out = {}
     modes = [("fail", ConflictMode.FAIL, 0.0, False),
              ("skip", ConflictMode.SKIP, 0.5, False),
@@ -146,33 +169,41 @@ def run_merge_workload(pk: bool, device=None) -> dict:
     for name, mode, overlap, cell_cols in modes:
         engine, sn1, sn3 = _apply_setup(pk, overlap, cell_cols=cell_cols,
                                         device=device)
+        tier(engine)
         rep = three_way_merge(engine, "lineitem", sn3, base=sn1, mode=mode)
+        tier(engine)
         out[f"merge_{name}"] = (
             f"{rep.inserted}/{rep.deleted}/{rep.true_conflicts}/"
             f"{rep.false_conflicts}/{rep.cell_merged}/"
             + scan_digest(engine, "lineitem"))
     engine, sn1, sn3 = _apply_setup(pk, 0.5, device=device)
     engine._base.clear()
+    tier(engine)
     rep = three_way_merge(engine, "lineitem", sn3, base=None,
                           mode=ConflictMode.ACCEPT)
+    tier(engine)
     out["merge_nobase"] = (f"{rep.inserted}/{rep.deleted}/"
                            f"{rep.true_conflicts}/"
                            + scan_digest(engine, "lineitem"))
     return out
 
 
-def run_apply_workload(pk: bool, device=None) -> dict:
+def run_apply_workload(pk: bool, device=None, pack_root=None) -> dict:
     """Every apply-path digest of ``GOLDEN_APPLY``: the merges of
     ``run_merge_workload``, a revert of an ACCEPT merge by its inverse Δ,
     and a publish of a branch edit through a pull request and its
-    revert (the post-apply table bytes each)."""
-    out = run_merge_workload(pk, device=device)
+    revert (the post-apply table bytes each). ``pack_root``: every engine
+    is fully evicted to a pack tier before and after each apply."""
+    tier = _evictor(pack_root)
+    out = run_merge_workload(pk, device=device, tier=tier)
     engine, sn1, sn3 = _apply_setup(pk, 0.0, device=device)
     pre = engine.create_snapshot("pre", "lineitem")
+    tier(engine)
     three_way_merge(engine, "lineitem", sn3, base=sn1,
                     mode=ConflictMode.ACCEPT)
     post = engine.create_snapshot("post", "lineitem")
     engine.revert("lineitem", pre, post)
+    tier(engine)
     out["revert"] = scan_digest(engine, "lineitem")
     engine, base = _mk_engine(30_000, pk, device=device)
     engine.create_branch("dev", ["lineitem"])
@@ -180,8 +211,10 @@ def run_apply_workload(pk: bool, device=None) -> dict:
     idx = np.sort(rng.choice(30_000, size=1_500, replace=False))
     _edit(engine, "dev/lineitem", base, idx, pk, tag=3)
     pr = engine.open_pr("main", "dev")
+    tier(engine)
     pr.publish()
     out["publish"] = scan_digest(engine, "lineitem")
     pr.revert_publish()
+    tier(engine)
     out["publish_revert"] = scan_digest(engine, "lineitem")
     return out

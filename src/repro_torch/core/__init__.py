@@ -12,6 +12,7 @@ Public API of the port so far:
     three_way_merge, two_way_merge, ConflictMode, MergeReport
     compact_table, compact_objects
     create_index, lookup_eq — secondary indices as auxiliary tables
+    fsck, FsckReport     — integrity verification and salvage
     FaultPlan, inject, InjectedCrash — deterministic crash injection
     TornFrame, CorruptFrame, StoreVersionError — typed durable-format errors
 """
@@ -31,6 +32,7 @@ from .wal import (WAL, CorruptFrame, StoreFormatError,         # noqa: F401
                   StoreVersionError, TornFrame, TornTransaction)
 from .faults import (FaultPlan, InjectedCrash, crash_point,    # noqa: F401
                      inject, register, registered)
+from .fsck import FsckIssue, FsckReport, fsck                  # noqa: F401
 from .refs import (AmbiguousRefError, Ref, RefSyntaxError,     # noqa: F401
                    ResolvedRef, UnknownRefError, as_branch,
                    format_ref, parse_ref, resolve)

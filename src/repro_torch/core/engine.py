@@ -743,17 +743,24 @@ class Engine:
 
     # ------------------------------------------------------------ replay
     @staticmethod
-    def replay(wal: WAL, *, device=None) -> "Engine":
+    def replay(wal: WAL, *, device=None, into: Optional["Engine"] = None,
+               start: int = 0) -> "Engine":
         """Deterministically rebuild an engine from its WAL (crash
         recovery), on ``device`` (the card unless the caller asks).
 
         Records may hold tensors (a live WAL) or numpy (a deserialized
-        one); their batches are moved onto the replaying engine's device."""
+        one); their batches are moved onto the replaying engine's device.
+        ``into``/``start`` continue replay on top of an engine restored by
+        other means (a refs snapshot, see ``repro_torch.store.remote``):
+        records before ``start`` are assumed already absorbed into
+        ``into``'s state — its oid counter included — so only the tail
+        re-runs, on ``into``'s device."""
         from .compaction import compact_objects  # local import: cycle
         _sp = telemetry.span(SP_REPLAY)
         _sp.__enter__()
         try:
-            e = Engine._replay_loop(wal, compact_objects, device)
+            e = Engine._replay_loop(wal, compact_objects, device,
+                                    engine=into, start=start)
         finally:
             _sp.__exit__(None, None, None)
         # traces are derived state, never durable state: replay re-ran the
@@ -762,10 +769,12 @@ class Engine:
         return e
 
     @staticmethod
-    def _replay_loop(wal: WAL, compact_objects, device=None) -> "Engine":
-        e = Engine(device=device)
+    def _replay_loop(wal: WAL, compact_objects, device=None,
+                     engine: Optional["Engine"] = None,
+                     start: int = 0) -> "Engine":
+        e = engine if engine is not None else Engine(device=device)
         records = list(wal)
-        i = 0
+        i = start
         while i < len(records):
             rec = records[i]
             k, p = rec.kind, rec.payload

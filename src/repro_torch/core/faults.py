@@ -12,17 +12,25 @@ The port registers its seams under a ``torch.`` prefix: crash-point names
 are keyed project-wide by the reference's lint, and shared names would
 alias the reference's seams and hide gaps in its coverage.
 
+:func:`flip_bit` / :func:`truncate_file` inject storage corruption into
+store and pack files, and :func:`corrupt_object_bit` flips a bit inside a
+sealed object on its device — the integrity layer (CRC frames,
+``core.fsck``) must report each as a typed error, never a silent wrong
+answer.
+
 Cost when disarmed: ``crash_point`` is one global load + ``is None`` test.
 Seams are per *operation*, never per row.
 """
 from __future__ import annotations
 
+import os
 from collections import Counter
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional
 
 __all__ = ["InjectedCrash", "FaultPlan", "register", "registered",
-           "crash_point", "inject"]
+           "crash_point", "inject", "flip_bit", "truncate_file",
+           "corrupt_object_bit"]
 
 
 class InjectedCrash(BaseException):
@@ -106,3 +114,56 @@ def inject(plan: FaultPlan) -> Iterator[FaultPlan]:
         yield plan
     finally:
         _ACTIVE = None
+
+
+# --------------------------------------------------------------------------
+# corruption injectors — storage-level bit rot, deterministically placed
+# --------------------------------------------------------------------------
+
+def flip_bit(path: str, byte_offset: int, bit: int = 0) -> None:
+    """Flip one bit of a file in place (single-bit storage corruption)."""
+    size = os.path.getsize(path)
+    if not 0 <= byte_offset < size:
+        raise ValueError(f"offset {byte_offset} outside file of {size} bytes")
+    with open(path, "r+b") as f:
+        f.seek(byte_offset)
+        b = f.read(1)[0]
+        f.seek(byte_offset)
+        f.write(bytes([b ^ (1 << (bit & 7))]))
+
+
+def truncate_file(path: str, size: int) -> None:
+    """Cut a file at ``size`` bytes (a torn write / lost tail)."""
+    with open(path, "r+b") as f:
+        f.truncate(size)
+
+
+def corrupt_object_bit(obj, column: Optional[str] = None, row: int = 0,
+                       bit: int = 0) -> None:
+    """Flip one bit inside a sealed object's payload (in-memory bit rot).
+
+    ``column=None`` corrupts the first fixed-width column; a LOB column
+    corrupts one byte of the row's value. The object's carried signatures
+    are left untouched — ``core.fsck`` must flag the mismatch.
+
+    The lane is REPLACED by a rotted copy, never written in place: a
+    sanitized lane is an inference-mode tensor that refuses in-place
+    writes, and the injector must plant bit rot without tripping the
+    sanitizer it is there to exercise."""
+    import numpy as np
+    import torch
+    if column is None:
+        column = next(c for c, a in obj.cols.items() if torch.is_tensor(a))
+    lane = obj.cols[column]
+    if torch.is_tensor(lane):
+        arr = lane.clone()
+        flat = arr.view(torch.uint8).reshape(-1)
+        flat[row * lane.element_size()] ^= 1 << (bit & 7)
+    else:                                       # LOB: mutate one byte
+        arr = np.array(lane, dtype=object)
+        v = bytearray(arr[row])
+        v[0] ^= 1 << (bit & 7)
+        arr[row] = bytes(v)
+    # lint: seal-ok deliberate corruption injector — swaps in a rotted
+    # copy so fsck/CRC layers can be tested against in-memory bit flips
+    obj.cols[column] = arr

@@ -10,21 +10,81 @@ bits like every other word lane. Oids stay below 2**31, so a rowid's
 signed order is its unsigned order.
 
 Every fixed-width lane of a sealed object is a tensor on the store's
-device; LOB payloads stay host object arrays. The heap ``ObjectStore`` is
-the only tier of this slice (the pack tier comes later).
+device; LOB payloads stay host object arrays. The heap of ``ObjectStore``
+is device memory: with a pack directory attached (``attach_packs``),
+objects spill to content-addressed pack files, evict from the device, and
+fault back in (an upload) on ``get``.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..kernels import ops
+from .faults import crash_point, register
 from .schema import Schema, batch_nbytes, take_batch
 from .telemetry import Metrics
 
+CP_TORCH_STORE_SPILL = register(
+    "torch.store.spill",
+    "mid spill: the pack file for an object may exist on disk but the "
+    "heap entry has not moved to the packed map — the heap copy is still "
+    "authoritative, so recovery sees identical content (an orphan pack "
+    "file is invisible content-addressed garbage)")
+
 OBJECT_CAPACITY = 1 << 18  # max rows per sealed object (256Ki)
+
+#: the sealed-lane write sanitizer: when armed, every tensor lane of a
+#: sealed object is replaced at seal, at store time and at fault-in by an
+#: inference-mode copy, which refuses any in-place op (on its views too)
+#: with ``RuntimeError`` AT the write — where the reference's frozen numpy
+#: lanes raise ``ValueError``. LOB object arrays are marked read-only as
+#: in the reference, and ``interop`` hands sanitized lanes out as
+#: read-only numpy. Off by default; REPRO_SANITIZE=1 arms it.
+SANITIZE = os.environ.get("REPRO_SANITIZE", "0") not in ("", "0")
+
+
+def set_sanitize(on: bool) -> bool:
+    """Arm/disarm the write sanitizer; returns the previous state (tests
+    restore it). Only objects sealed while armed are frozen."""
+    global SANITIZE
+    prev = SANITIZE
+    SANITIZE = bool(on)
+    return prev
+
+
+def _frozen(t):
+    if not torch.is_tensor(t):                  # LOB: a host object array
+        t.setflags(write=False)
+        return t
+    if t.is_inference():
+        return t
+    with torch.inference_mode():
+        return t.clone()
+
+
+def _freeze_lanes(obj) -> None:
+    """Swap every lane of a sealed object for a write-refusing copy
+    (idempotent; a NoPK object's key lanes stay its row lanes)."""
+    if isinstance(obj, DataObject):
+        alias = obj.key_lo is obj.row_lo
+        obj.commit_ts = _frozen(obj.commit_ts)
+        obj.row_lo, obj.row_hi = _frozen(obj.row_lo), _frozen(obj.row_hi)
+        if alias:
+            obj.key_lo, obj.key_hi = obj.row_lo, obj.row_hi
+        else:
+            obj.key_lo = _frozen(obj.key_lo)
+            obj.key_hi = _frozen(obj.key_hi)
+        # lint: seal-ok the sanitizer swaps in frozen copies of the lanes
+        obj.cols = {k: _frozen(v) for k, v in obj.cols.items()}
+        obj.lob_sigs = {k: _frozen(v) for k, v in obj.lob_sigs.items()}
+    else:
+        obj.commit_ts = _frozen(obj.commit_ts)
+        obj.target = _frozen(obj.target)
+        obj.key_lo, obj.key_hi = _frozen(obj.key_lo), _frozen(obj.key_hi)
 
 _OFF_MASK = 0xFFFFFFFF
 
@@ -137,7 +197,7 @@ def seal_data_object(oid: int, schema: Schema, batch: Dict[str, object],
         key_hi = row_hi_s if key_hi is row_hi else key_hi[order]
         row_lo, row_hi = row_lo_s, row_hi_s
         lob_sigs = {k: v[order] for k, v in lob_sigs.items()}
-    return DataObject(
+    obj = DataObject(
         oid=oid,
         nrows=int(row_lo.shape[0]),
         cols=batch,
@@ -147,6 +207,9 @@ def seal_data_object(oid: int, schema: Schema, batch: Dict[str, object],
         lob_sigs=lob_sigs,
         nbytes=batch_nbytes(schema, batch),
     )
+    if SANITIZE:
+        _freeze_lanes(obj)
+    return obj
 
 
 def lane_nbytes(obj) -> int:
@@ -172,9 +235,12 @@ class ObjectStore:
     rollback paths that make aborted or ephemeral work invisible
     (``Engine._commit`` unwinding a failed transaction, a CI preview),
     which also rewind ``_next_oid`` — so an oid CAN be reused after its
-    object was deleted, and oid-keyed caches subscribe
-    to ``delete`` notifications. ``device`` is where every sealed lane
-    lives."""
+    object was deleted, and oid-keyed caches subscribe to ``delete``
+    notifications. That same reuse is why the pack tier keys by content
+    digest, never oid. ``device`` is where every sealed lane lives: the
+    heap tier is device memory, and with a ``store.packs.PackDir``
+    attached (``attach_packs``) objects spill to pack files, evict from
+    the device and fault back in lazily on ``get``."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -187,6 +253,18 @@ class ObjectStore:
         self.delta_cache = None
         # cumulative telemetry counters (delta.* / probe.* totals)
         self.metrics = Metrics()
+        # the pack tier (tier 2), attached via attach_packs(); when None
+        # every path below reduces to the plain heap-dict store
+        self.packs = None
+        # oid -> (digest, is_tomb, nbytes) for every oid with a pack copy;
+        # an oid in BOTH maps is spilled-but-resident, in _packed only it
+        # is evicted and faults in on get()
+        self._packed: Dict[int, Tuple[str, bool, int]] = {}
+        # digest -> live-oid refcount: pack files are deleted only when no
+        # live oid references their content (oids can share bytes)
+        self._digest_refs: Dict[str, int] = {}
+        self._atime: Dict[int, int] = {}   # oid -> LRU tick (heap tier)
+        self._tick = 0
 
     def new_oid(self) -> int:
         oid = self._next_oid
@@ -194,24 +272,149 @@ class ObjectStore:
         return oid
 
     def put(self, obj) -> int:
-        if obj.oid in self._objects:
+        if obj.oid in self._objects or obj.oid in self._packed:
             raise ValueError("objects are immutable/write-once")
+        if SANITIZE:
+            _freeze_lanes(obj)
         self._objects[obj.oid] = obj
         self.bytes_written += int(obj.nbytes)
         return obj.oid
 
     def get(self, oid: int):
-        return self._objects[oid]
+        obj = self._objects.get(oid)
+        if obj is not None:
+            if self.packs is not None:
+                self.metrics.add("store.hits")
+                self._tick += 1
+                self._atime[oid] = self._tick
+            return obj
+        ent = self._packed.get(oid)
+        if ent is None:
+            raise KeyError(oid)
+        return self._fault_in(oid, ent)
 
     def has(self, oid: int) -> bool:
-        return oid in self._objects
+        return oid in self._objects or oid in self._packed
 
     def oids(self):
-        return self._objects.keys()
+        if not self._packed:
+            return self._objects.keys()
+        return self._objects.keys() | self._packed.keys()
 
     def delete(self, oid: int) -> None:
-        obj = self._objects.pop(oid)
-        if self.vis_cache is not None and isinstance(obj, TombstoneObject):
+        obj = self._objects.pop(oid, None)
+        ent = self._packed.pop(oid, None)
+        if obj is None and ent is None:
+            raise KeyError(oid)
+        self._atime.pop(oid, None)
+        is_tomb = (isinstance(obj, TombstoneObject) if obj is not None
+                   else ent[1])
+        self._unpin(oid, is_tomb)
+        if ent is not None:
+            digest = ent[0]
+            n = self._digest_refs.get(digest, 1) - 1
+            if n <= 0:
+                self._digest_refs.pop(digest, None)
+                self.packs.release(digest)
+            else:
+                self._digest_refs[digest] = n
+
+    def _unpin(self, oid: int, is_tomb: bool) -> None:
+        """Drop cache entries built from ``oid``: on delete they name a
+        dead object; on evict they would hold its lanes on the device."""
+        if self.vis_cache is not None and is_tomb:
             self.vis_cache.on_delete(oid)
         if self.delta_cache is not None:
             self.delta_cache.on_delete(oid)
+
+    def live_bytes(self) -> int:
+        heap = sum(int(o.nbytes) for o in self._objects.values())
+        packed_only = sum(ent[2] for oid, ent in self._packed.items()
+                          if oid not in self._objects)
+        return heap + packed_only
+
+    # -- pack tier ----------------------------------------------------------
+
+    def attach_packs(self, backend) -> None:
+        """Attach a pack directory (``store.packs.PackDir``) as tier 2.
+        In-place: ``Table._store`` and the caches keep their references to
+        this store."""
+        self.packs = backend
+        backend.metrics = self.metrics
+
+    def digest_of(self, oid: int) -> Optional[str]:
+        ent = self._packed.get(oid)
+        return ent[0] if ent is not None else None
+
+    def spill(self, oid: int) -> str:
+        """Write oid's content to the pack tier (keeps the heap copy);
+        returns the content digest. Idempotent per oid."""
+        ent = self._packed.get(oid)
+        if ent is not None:
+            return ent[0]
+        obj = self._objects[oid]
+        digest, blob = self.packs.encode(obj)
+        crash_point(CP_TORCH_STORE_SPILL)
+        fresh = self.packs.store(digest, blob)
+        self._packed[oid] = (digest, isinstance(obj, TombstoneObject),
+                             int(obj.nbytes))
+        self._digest_refs[digest] = self._digest_refs.get(digest, 0) + 1
+        self.metrics.add("store.spills")
+        if fresh:
+            self.metrics.add("store.bytes_packed", len(blob))
+        return digest
+
+    def evict(self, oid: int) -> str:
+        """Spill oid then drop its heap copy, freeing its device lanes.
+        The object stays live: fault-in rebuilds identical content at the
+        same oid. Cache entries holding its lanes are dropped with it (they
+        rebuild from the faulted-in object), so nothing pins them on the
+        device."""
+        digest = self.spill(oid)
+        obj = self._objects.pop(oid, None)
+        self._atime.pop(oid, None)
+        if obj is not None:
+            self._unpin(oid, isinstance(obj, TombstoneObject))
+        self.metrics.add("store.evictions")
+        return digest
+
+    def _fault_in(self, oid: int, ent):
+        obj = self.packs.load(ent[0], oid, self.device)
+        if SANITIZE:
+            _freeze_lanes(obj)
+        self._objects[oid] = obj
+        self._tick += 1
+        self._atime[oid] = self._tick
+        self.metrics.add("store.faults")
+        return obj
+
+    def spill_all(self) -> int:
+        n = 0
+        for oid in list(self._objects):
+            if oid not in self._packed:
+                self.spill(oid)
+                n += 1
+        return n
+
+    def evict_all(self) -> int:
+        n = 0
+        for oid in list(self._objects):
+            self.evict(oid)
+            n += 1
+        return n
+
+    def shrink_heap(self, target_bytes: int) -> int:
+        """Evict least-recently-used resident objects until the heap tier
+        holds at most ``target_bytes``; returns the eviction count."""
+        resident = sum(int(o.nbytes) for o in self._objects.values())
+        if resident <= target_bytes:
+            return 0
+        order = sorted(self._objects, key=lambda o: self._atime.get(o, 0))
+        n = 0
+        for oid in order:
+            if resident <= target_bytes:
+                break
+            resident -= int(self._objects[oid].nbytes)
+            self.evict(oid)
+            n += 1
+        return n

@@ -32,9 +32,9 @@ every verb maps 1:1 onto a statement and a CLI subcommand:
     (clone repo)    —                             clone new-store dir
     ==============  ============================  =====================
 
-    ``fsck`` (``core/fsck.py``) and ``push``/``pull``/``fetch`` (the pack
-    tier and remotes) are not ported yet: they raise
-    :class:`NotPortedError` naming the ROADMAP item that brings them.
+    ``lint`` (the analysis suite) is the one verb of the doors that is not
+    ported yet: it raises :class:`NotPortedError` naming the ROADMAP item
+    that brings it.
 
 The facade is thin by design: verbs delegate to the engine/workspace layer
 (which owns WAL logging and replay), so a statement-driven session and a
@@ -74,10 +74,6 @@ class NotPortedError(NotImplementedError):
 
 #: what each not-yet-ported verb waits for: (module, ROADMAP Queue 1 item)
 NOT_PORTED = {
-    "fsck": ("core/fsck.py", "item 4"),
-    "push": ("the pack tier and remotes (store/)", "item 5"),
-    "pull": ("the pack tier and remotes (store/)", "item 5"),
-    "fetch": ("the pack tier and remotes (store/)", "item 5"),
     "lint": ("the analysis suite (analysis/)", "item 6"),
 }
 
@@ -326,8 +322,8 @@ class Repo:
         """One deterministic summary of the repo: tables (head ts, retained
         versions), branches, snapshots, PRs, and the full telemetry
         registry snapshot (every registered counter, zeros included — the
-        zero-rehash invariant is inspectable without a debugger). The
-        port's store is the heap tier alone: nothing is packed."""
+        zero-rehash invariant is inspectable without a debugger), the
+        crc32c implementation and the store's tier occupancy."""
         from .wal import CRC32C_IMPL
         e = self.engine
         st = e.store
@@ -345,8 +341,8 @@ class Repo:
             "crc32c": CRC32C_IMPL,
             "store": {
                 "resident": len(st._objects),
-                "packed": 0,
-                "packs": None,
+                "packed": len(st._packed),
+                "packs": st.packs.root if st.packs is not None else None,
             },
             "metrics": dict(sorted(self.stats().items())),
         }
@@ -365,16 +361,25 @@ class Repo:
 
     # ------------------------------------------------------------ remotes
     def push(self, remote: str) -> dict:
-        """PUSH TO 'dir' — not ported yet (the pack tier and remotes)."""
-        raise not_ported("push")
+        """PUSH TO 'dir' — ship missing pack objects + the WAL to a remote
+        directory and swing its refs (fast-forward only)."""
+        from ..store.remote import push as _push
+        return _push(self.engine, remote)
 
     def fetch(self, remote: str, pack_dir: Optional[str] = None) -> dict:
-        """FETCH FROM 'dir' — not ported yet (the pack tier and remotes)."""
-        raise not_ported("fetch")
+        """FETCH FROM 'dir' — copy missing pack objects locally without
+        changing any repo state (warm-up for shallow clones and pulls)."""
+        from ..store.remote import fetch as _fetch
+        return _fetch(self.engine, remote, pack_dir)
 
     def pull(self, remote: str, pack_dir: Optional[str] = None) -> dict:
-        """PULL FROM 'dir' — not ported yet (the pack tier and remotes)."""
-        raise not_ported("pull")
+        """PULL FROM 'dir' — fast-forward this repo to the remote's state,
+        fetching only missing objects; swaps ``self.engine`` (same
+        device). Carried signatures are imported verbatim
+        (``rows_rehashed`` stays 0)."""
+        from ..store.remote import pull as _pull
+        self.engine, stats = _pull(self.engine, remote, pack_dir)
+        return stats
 
     # ----------------------------------------------------------------- gc
     def gc(self) -> GCStats:
@@ -382,8 +387,13 @@ class Repo:
 
     def fsck(self, *, sample: float = 1.0, check_replay: bool = True,
              repair: bool = False):
-        """FSCK [REPAIR] — not ported yet (``core/fsck.py``)."""
-        raise not_ported("fsck")
+        """FSCK [REPAIR] — verify carried signatures, reachability, refs,
+        packs and WAL-replay equivalence; ``repair`` quarantines and
+        rebuilds (see :func:`core.fsck.fsck`). Returns an
+        :class:`FsckReport`."""
+        from .fsck import fsck as _fsck
+        return _fsck(self.engine, sample=sample, check_replay=check_replay,
+                     repair=repair)
 
     # ------------------------------------------------------------ helpers
     def _table_name(self, ref: RefLike) -> str:

@@ -41,9 +41,8 @@ Supported statements (keywords case-insensitive; refs quoted or bare)::
 ``execute(repo, text)`` runs one statement; ``execute_script`` splits on
 ``;``. Unknown verbs raise :class:`StatementError` with did-you-mean
 suggestions, resolution failures surface the typed ref errors unchanged.
-``FSCK``, ``LINT``, ``PUSH``, ``PULL`` and ``FETCH`` parse as in the
-reference and raise :class:`StatementError` saying that the module behind
-them is not ported yet.
+``LINT`` parses as in the reference and raises :class:`StatementError`
+saying that the analysis suite behind it is not ported yet.
 """
 from __future__ import annotations
 
@@ -471,9 +470,11 @@ def _not_ported(verb: str, p: _P) -> StatementError:
 
 
 def _fsck(repo, p: _P) -> StatementResult:
-    p.opt_kw("REPAIR")
+    repair = p.opt_kw("REPAIR") is not None
     p.end()
-    raise _not_ported("FSCK", p)
+    report = repo.fsck(repair=repair)
+    lines = [report.summary()] + [str(i) for i in report.issues]
+    return StatementResult("fsck", report, "\n".join(lines))
 
 
 def _lint(repo, p: _P) -> StatementResult:
@@ -484,23 +485,38 @@ def _lint(repo, p: _P) -> StatementResult:
 
 def _push(repo, p: _P) -> StatementResult:
     p.kw("TO")
-    p.ref()
+    remote = p.ref()
     p.end()
-    raise _not_ported("PUSH", p)
+    st = repo.push(remote)
+    return StatementResult(
+        "push", st,
+        f"push {remote}: {st['objects_pushed']} object(s) "
+        f"({st['bytes_pushed']} bytes), {st['records_pushed']} record(s)")
 
 
 def _pull(repo, p: _P) -> StatementResult:
     p.kw("FROM")
-    p.ref()
+    remote = p.ref()
     p.end()
-    raise _not_ported("PULL", p)
+    st = repo.pull(remote)
+    if st.get("up_to_date"):
+        return StatementResult("pull", st,
+                               f"pull {remote}: already up to date")
+    return StatementResult(
+        "pull", st,
+        f"pull {remote}: {st['objects_pulled']} object(s), "
+        f"{st['records_pulled']} record(s)")
 
 
 def _fetch(repo, p: _P) -> StatementResult:
     p.kw("FROM")
-    p.ref()
+    remote = p.ref()
     p.end()
-    raise _not_ported("FETCH", p)
+    st = repo.fetch(remote)
+    return StatementResult(
+        "fetch", st,
+        f"fetch {remote}: {st['objects_pulled']} object(s) "
+        f"({st['bytes_pulled']} bytes)")
 
 
 def _stats(repo, p: _P) -> StatementResult:

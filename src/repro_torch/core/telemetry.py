@@ -30,7 +30,7 @@ __all__ = [
 ]
 
 #: version of the ``stats_json`` document: the reference's, with the same
-#: key set (the store.* group reads zero until the pack tier is ported)
+#: key set
 STATS_SCHEMA = 3
 
 #: span name -> human description. Populated at import time by the modules

@@ -25,6 +25,17 @@ def from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy. A sanitized sealed lane (an inference tensor,
+    ``core.objects.SANITIZE``) comes out read-only: on the CPU the array
+    shares its memory, and numpy would otherwise write straight into it."""
+    a = x.detach().cpu().numpy()
+    if x.is_inference():
+        a = a.view()
+        a.setflags(write=False)
+    return a
+
+
 def to_numpy(x, *, u64: bool = False):
     """tensor (or dict of tensors / LOB arrays) -> numpy. ``u64=True``
     views int64 words as the uint64 values they hold."""
@@ -32,7 +43,7 @@ def to_numpy(x, *, u64: bool = False):
         return {k: to_numpy(v, u64=u64) for k, v in x.items()}
     if isinstance(x, np.ndarray):
         return x
-    a = x.detach().cpu().numpy()
+    a = host_array(x)
     return a.view(np.uint64) if u64 and a.dtype == np.int64 else a
 
 
@@ -49,7 +60,7 @@ def host_tree(x):
     lists and tuples) as a numpy array: what a WAL record carries to a
     serialized store. Other values pass through as they are."""
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        return host_array(x)
     if isinstance(x, dict):
         return {k: host_tree(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):

@@ -24,9 +24,12 @@ recovery and the CLI share one durability story.
 
 ``seed`` / ``mutate`` generate deterministic demo data, the same rows as
 the reference CLI's (they are the only subcommands that do not map onto a
-statement). ``fsck``, ``lint``, ``push``, ``pull``, ``fetch``, a repo-level
-``clone`` and refs-mode stores (``<store>.refs``) need modules the port
-does not have yet: they exit 2 with a typed error naming the ROADMAP item.
+statement). ``push`` / ``pull`` / ``fetch`` exchange with a remote
+directory, ``clone <remote> [--shallow]`` makes a new refs-mode store
+(``<store>.refs`` + ``<store>.packs``) whose objects fault in from the
+origin, and ``fsck [--repair]`` verifies the store's frames and then the
+engine. ``lint`` needs the analysis suite, which the port does not have
+yet: it exits 2 with a typed error naming the ROADMAP item.
 
 Caveat on ``pr check``: user CI checks are in-process Python callables
 (``repo.pr(n).add_check(fn)``) and cannot survive the WAL round-trip, so
@@ -54,8 +57,8 @@ from .core.engine import Engine
 from .core.faults import crash_point, register
 from .core.repo import NOT_PORTED, NotPortedError, not_ported
 from .core.statements import StatementError, execute, execute_script
-from .core.wal import (STORE_HEADER, check_store_header, dump_records,
-                       encode_frame, iter_frames)
+from .core.wal import (STORE_HEADER, StoreVersionError, check_store_header,
+                       dump_records, encode_frame, iter_frames)
 from .device import resolve_device
 from .interop import to_numpy
 
@@ -165,13 +168,24 @@ def load_repo(store: str, device=None) -> Repo:
             # CorruptFrame / StoreVersionError propagate: mid-file damage
             # is not self-healing — main() surfaces the typed error
     n_loaded = len(wal.records)
-    if os.path.exists(store + ".refs") and not rewrite:
-        # a refs-mode store rebuilds from a refs snapshot and the pack
-        # tier, which the port does not have yet
-        raise NotPortedError("a refs-mode store (<store>.refs)",
-                             "the pack tier and remotes (store/)", "item 5")
-    # adopts `wal`, so new records append
-    engine = Engine.replay(wal, device=device)
+    refs_path = store + ".refs"
+    refs_origin = None
+    if os.path.exists(refs_path) and not rewrite:
+        # refs-mode store: rebuild from the refs snapshot and fault objects
+        # from the pack tier lazily — only WAL records past the snapshot
+        # (a crash tail) replay. The WAL stays authoritative locally; the
+        # refs file is a derived cache refreshed at save.
+        from .store.packs import PackDir
+        from .store.remote import decode_refs, import_refs
+        with open(refs_path, "rb") as f:
+            payload = decode_refs(f.read())
+        refs_origin = payload.get("origin")
+        packs = PackDir(store + ".packs", origin=refs_origin)
+        engine = import_refs(payload, wal, packs, resolve_device(device))
+    else:
+        # adopts `wal`, so new records append
+        engine = Engine.replay(wal, device=device)
+        refs_path = None
     repo = Repo(engine)
     if len(wal.records) != n_loaded:
         # replay dropped a torn trailing commit group: the on-disk frames
@@ -181,6 +195,8 @@ def load_repo(store: str, device=None) -> Repo:
     repo._persisted_records = len(wal.records)
     repo._persisted_offset = clean_end
     repo._rewrite_store = rewrite
+    repo._refs_path = refs_path
+    repo._refs_origin = refs_origin
     return repo
 
 
@@ -211,6 +227,7 @@ def save_repo(store: str, repo: Repo) -> None:
         repo._persisted_offset = os.path.getsize(store)
         repo._persisted_records = len(repo.engine.wal.records)
         repo._rewrite_store = False
+        _save_refs(store, repo)
         return
     offset = getattr(repo, "_persisted_offset", 0)
     with open(store, "r+b" if exists else "wb") as f:
@@ -241,6 +258,26 @@ def save_repo(store: str, repo: Repo) -> None:
         repo.engine.wal.fsyncs += 1
         repo._persisted_offset = f.tell()
     repo._persisted_records = done + len(new)
+    _save_refs(store, repo)
+
+
+def _save_refs(store: str, repo: Repo) -> None:
+    """Refresh the refs snapshot of a refs-mode store.
+
+    Runs AFTER the WAL bytes are durable: locally the WAL is the commit
+    point and the refs file only caches the replayed state, so a crash
+    between the two just means the next load replays a short tail."""
+    refs_path = getattr(repo, "_refs_path", None)
+    if refs_path is None:
+        return
+    from .store.packs import _atomic_write, attach_packs
+    from .store.remote import encode_refs, export_refs
+    e = repo.engine
+    origin = getattr(repo, "_refs_origin", None)
+    attach_packs(e.store, store + ".packs", origin=origin)
+    e.store.spill_all()             # every live object gets a pack copy
+    _atomic_write(refs_path, encode_refs(export_refs(
+        e, dict(e.store._packed), origin=e.store.packs.origin)))
 
 
 # --------------------------------------------------------------------------
@@ -331,6 +368,8 @@ def _compile(args, repo: Repo) -> Optional[str]:
         return (f"CLONE TABLE {_ident(args.new, 'table name')} "
                 f"FROM {_q(args.ref)}"
                 + (" MATERIALIZE" if args.materialize else ""))
+    if c == "push":
+        return f"PUSH TO {_q(args.remote)}"
     if c == "diff":
         stmt = f"DIFF {_q(args.a)} AGAINST {_q(args.b)}"
         if args.table:
@@ -411,9 +450,10 @@ def _compile(args, repo: Repo) -> Optional[str]:
 #: subcommands that only read — skipped on store write-back. ``sql`` is
 #: NOT here: raw statements may mutate, so their WAL must persist. ``gc``
 #: IS here: it is deliberately un-WAL-logged, so the write-back would be
-#: byte-identical wasted I/O.
+#: byte-identical wasted I/O. ``push``/``fetch`` write to the REMOTE (or
+#: the pack sidecar), never to the store file itself.
 _READ_ONLY = {"diff", "log", "branches", "snapshots", "prs", "tables",
-              "status", "stats", "gc"}
+              "status", "stats", "gc", "push", "fetch"}
 
 #: error types with a deliberate user-facing shape (ref/statement/VCS
 #: semantics, durable-format damage); anything else caught below gets its
@@ -422,6 +462,75 @@ _TYPED_ERRORS = (UnknownRefError, AmbiguousRefError, RefSyntaxError,
                  StatementError, MergeConflictError, PublishBlocked,
                  RevertConflict, PKViolation, TxnConflict,
                  StoreFormatError, NotPortedError)
+
+
+def _store_fsck(store: str, repair: bool) -> int:
+    """Byte-level pass of `dg fsck`: header + frame CRC verification.
+
+    Returns the count of UNREPAIRED store-level problems. With ``repair``,
+    a corrupt frame is handled git-style: everything from the bad frame
+    onward moves to ``<store>.corrupt`` and the store truncates to the
+    last clean prefix (acknowledged data is lost but preserved — the
+    report says exactly how many bytes)."""
+    with open(store, "rb") as f:
+        blob = f.read()
+    if not blob:
+        return 0
+    try:
+        clean = check_store_header(blob)
+        if clean < 0:
+            print("store: legacy headerless format (no checksums) — "
+                  "loads once; any write upgrades it to the framed format")
+            return 0
+        for _, end in iter_frames(blob, clean):
+            clean = end
+    except TornFrame as err:
+        preserved = _preserve_tail(store, err.tail)
+        print(f"store: torn tail — {len(err.tail)} unacknowledged byte(s) "
+              f"past offset {err.clean_end}"
+              + (f" (preserved to {store}.corrupt)" if preserved
+                 else " (already preserved)"))
+        return 0                    # recoverable: load handles this
+    except (CorruptFrame, StoreVersionError) as err:
+        print(f"store: {err}")
+        if repair and isinstance(err, CorruptFrame):
+            _preserve_tail(store, blob[err.offset:])
+            with open(store, "r+b") as f:
+                f.truncate(err.offset)
+                f.flush()
+                # lint: crash-ok repair truncation is idempotent — a
+                # crash here re-runs fsck --repair to the same offset
+                os.fsync(f.fileno())
+            print(f"store: truncated to last clean frame at offset "
+                  f"{err.offset}; {len(blob) - err.offset} byte(s) "
+                  f"preserved to {store}.corrupt")
+            return 0
+        if isinstance(err, CorruptFrame):
+            print("hint: `fsck --repair` truncates to the last clean "
+                  "frame (damaged bytes preserved to the .corrupt "
+                  "sidecar), or restore the store from a backup")
+        return 1
+    return 0
+
+
+def _cmd_fsck(args, device) -> int:
+    bad = _store_fsck(args.store, args.repair)
+    if bad:
+        return 1
+    repo = load_repo(args.store, device)
+    report = repo.fsck(sample=args.sample,
+                       check_replay=not args.no_replay,
+                       repair=args.repair)
+    print(report.summary())
+    for issue in report.issues:
+        print(str(issue))
+    if report.repaired:
+        # engine state derives from the WAL at every load; quarantine
+        # results live only in this process — the durable fix for a
+        # WAL-backed store is the byte-level truncation above
+        print("note: object-level repairs apply to this process; the "
+              "store re-derives state from its WAL on every load")
+    return 0 if report.ok else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -560,8 +669,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also list suppressed findings")
 
     p = sub.add_parser("fsck", help="verify store frames, object "
-                                    "signatures, refs, replay equivalence "
-                                    "(not ported yet: exits 2)")
+                                    "signatures, refs, replay equivalence")
     p.add_argument("--repair", action="store_true",
                    help="truncate past store corruption (bytes preserved "
                         "to .corrupt) and quarantine bad objects")
@@ -601,10 +709,6 @@ def _cmd(args, tracer: Optional[telemetry.Tracer]) -> int:
     try:
         if args.cmd in NOT_PORTED:
             raise not_ported(args.cmd)
-        if args.cmd == "clone" and args.ref is None:
-            raise NotPortedError("clone (of a whole repo)",
-                                 "the pack tier and remotes (store/)",
-                                 "item 5")
         try:
             device = resolve_device(args.device)
         except RuntimeError as exc:
@@ -619,12 +723,29 @@ def _cmd(args, tracer: Optional[telemetry.Tracer]) -> int:
             save_repo(args.store, Repo(device=device))
             print(f"initialized empty store at {args.store}")
             return 0
+        if args.cmd == "clone" and args.ref is None:
+            # repo-level clone: `new` is the remote directory and --store
+            # names the NEW store — which must not exist yet
+            from .store.remote import clone as _repo_clone
+            if args.materialize:
+                raise ValueError("clone: --materialize is a table-clone "
+                                 "flag (repo clones fetch packs instead; "
+                                 "use --shallow to skip even that)")
+            st = _repo_clone(args.new, args.store, shallow=args.shallow)
+            print(f"cloned {args.new} into {args.store}: "
+                  f"{st['records']} record(s), "
+                  + ("shallow (objects fault in from the origin)"
+                     if st["shallow"]
+                     else f"{st['objects_fetched']} object(s) fetched"))
+            return 0
         if not os.path.exists(args.store):
             # a typo'd --store must not silently create a store elsewhere
             print(f"error: no store at {args.store} — run `init` first "
                   "(or point --store/$VCS_STORE at the right file)",
                   file=sys.stderr)
             return 2
+        if args.cmd == "fsck":
+            return _cmd_fsck(args, device)
         repo = load_repo(args.store, device)
         if tracer is not None:
             tracer.bind(repo.engine)
@@ -633,6 +754,22 @@ def _cmd(args, tracer: Optional[telemetry.Tracer]) -> int:
                              args.nopk))
         elif args.cmd == "mutate":
             print(mutate_table(repo, args.table, args.rows, args.seed))
+        elif args.cmd == "pull":
+            # native (not a compiled statement): the CLI supplies the
+            # store's pack sidecar and flips the store to refs-mode so
+            # subsequent loads import refs instead of replaying data
+            st = repo.pull(args.remote, pack_dir=args.store + ".packs")
+            if st.get("up_to_date"):
+                print(f"pull {args.remote}: already up to date")
+            else:
+                repo._refs_path = args.store + ".refs"
+                repo._refs_origin = repo.engine.store.packs.origin
+                print(f"pull {args.remote}: {st['objects_pulled']} "
+                      f"object(s), {st['records_pulled']} record(s)")
+        elif args.cmd == "fetch":
+            st = repo.fetch(args.remote, pack_dir=args.store + ".packs")
+            print(f"fetch {args.remote}: {st['objects_pulled']} object(s) "
+                  f"({st['bytes_pulled']} bytes)")
         elif args.cmd == "sql":
             checks_failed = False
             for res in execute_script(repo, args.statements):
@@ -680,9 +817,10 @@ def _cmd(args, tracer: Optional[telemetry.Tracer]) -> int:
             if os.environ.get("VCS_DEBUG"):
                 raise
         if isinstance(exc, CorruptFrame):
-            print("hint: the store has mid-file damage — restore it from "
-                  "a backup (fsck --repair is not ported yet)",
-                  file=sys.stderr)
+            print("hint: the store has mid-file damage — run "
+                  "`datagit fsck --repair` to truncate to the last clean "
+                  "frame (damaged bytes preserved to the .corrupt "
+                  "sidecar), or restore from a backup", file=sys.stderr)
         suggestions = getattr(exc, "suggestions", ())
         if suggestions:
             print("hint: " + " | ".join(map(str, suggestions)),

@@ -590,6 +590,87 @@ def test_three_doors_on_the_card(cuda, tmp_path):
     assert all(build.LAUNCHES[k] > 0 for k in build.VCS_SOURCES)
 
 
+def _tier_engine(dev, pk, rows=3000):
+    from repro_torch.benchmarks.vcs_tables import _mk_engine
+    engine, base = _mk_engine(rows, pk, device=dev)
+    engine.update_by_keys("lineitem", {k: v[:50].copy()
+                                       for k, v in base.items()}) \
+        if pk else engine.insert("lineitem", {k: v[:50].copy()
+                                             for k, v in base.items()})
+    return engine
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_pack_round_trip_of_a_device_object(cuda, pk):
+    """A device object packs to the CPU's bytes and decodes back onto the
+    card with one host-to-device copy per numeric lane, its NoPK key
+    lanes still its row lanes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.store import decode_object, encode_object
+    engine = _tier_engine(cuda, pk)
+    oid = engine.table("lineitem").directory.data_oids[0]
+    obj = engine.store.get(oid)
+    blob = encode_object(obj)
+    cpu = _tier_engine("cpu", pk)
+    assert blob == encode_object(cpu.store.get(oid))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        back = decode_object(blob, oid, cuda)
+        torch.cuda.synchronize()
+    lanes = 3 + (0 if pk is False else 2) + len(back.lob_sigs) + sum(
+        torch.is_tensor(c) for c in back.cols.values())
+    copies = sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+    assert copies == lanes
+    assert (back.key_lo is back.row_lo) == (not pk)
+    assert back.row_lo.device.type == "cuda"
+    assert encode_object(back) == blob
+
+
+@pytest.mark.parametrize("pk", [True, False])
+def test_golden_apply_from_an_evicted_store_on_the_card(cuda, pk, tmp_path):
+    got = digests.run_apply_workload(pk, device="cuda", pack_root=tmp_path)
+    assert got == GOLDEN_APPLY[pk]
+    assert build.LAUNCHES["probe"] > 0 and build.LAUNCHES["segsum_diff"] > 0
+
+
+def test_fsck_on_the_card(cuda, tmp_path):
+    """fsck recomputes signatures with the rowhash kernel on the card and
+    reports as the CPU does, clean and with a planted fault."""
+    from repro_torch.core import fsck
+    from repro_torch.core.faults import corrupt_object_bit
+    from repro_torch.store import attach_packs
+
+    def run(dev):
+        engine = _tier_engine(dev, True)
+        attach_packs(engine.store, str(tmp_path / str(dev)))
+        engine.store.evict_all()
+        clean = fsck(engine)
+        oid = engine.table("lineitem").directory.data_oids[0]
+        corrupt_object_bit(engine.store.get(oid), row=3, bit=1)
+        bad = fsck(engine, check_replay=False)
+        return (clean.ok, clean.rows_verified, clean.packs_checked,
+                [(i.kind, i.oid) for i in bad.issues])
+    got = run(cuda)
+    assert build.LAUNCHES["rowhash"] > 0
+    assert got == run("cpu") and got[0] and len(got[3]) == 1
+
+
+def test_a_sanitized_lane_refuses_an_in_place_cuda_op(cuda):
+    from repro_torch.core import objects
+    prev = objects.set_sanitize(True)
+    try:
+        engine = _tier_engine(cuda, False, rows=500)
+        obj = engine.store.get(engine.table("lineitem").directory.data_oids[0])
+        assert obj.row_lo.is_cuda and obj.key_lo is obj.row_lo
+        with pytest.raises(RuntimeError):
+            obj.row_lo.add_(1)
+        with pytest.raises(RuntimeError):
+            obj.cols["l_quantity"][:4].mul_(2)
+    finally:
+        objects.set_sanitize(prev)
+
+
 def _qkv(dev, b, sq, sk, h, kv, hd, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev).bfloat16()

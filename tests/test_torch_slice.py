@@ -244,6 +244,9 @@ def test_port_never_imports_jax_or_the_reference():
            if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
     assert not bad, bad
     code = ("import sys, repro_torch.core, repro_torch.benchmarks.digests, "
+            "repro_torch.core.fsck, repro_torch.store, "
+            "repro_torch.store.packs, repro_torch.store.remote, "
+            "repro_torch.vcs_cli, "
             "repro_torch.interop, repro_torch.kernels.build, "
             "repro_torch.configs, repro_torch.models.lm, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
