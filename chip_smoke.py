@@ -21,7 +21,14 @@ Phases, one line each:
                 with its profiler device time, TFLOP/s, CTA tile,
                 registers and shared memory and SDPA's device time; and at
                 every prompt length of the serve phase, with each CTA tile
-                (64 and 128 query rows) also forced (flash_serve)
+                (64 and 128 query rows) also forced (flash_serve); the
+                flash backward at the training shape and at shapes (b)
+                and (c) against its plain version (atol = rtol = 2e-2 and
+                a relative L2 error of 6e-3 for dq, dk and dv, each row's
+                LSE within 1e-4, a planted mask fault shown to exceed
+                the L2 bound, two launches bitwise equal), with its
+                event and device time, TFLOP/s, bound and SDPA's
+                backward through autograd (flash_bwd)
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
@@ -102,12 +109,27 @@ Phases, one line each:
                 continuous-batching server (batch 4), prefill attention on
                 the flash kernel (24 x 8 launches); then prefill-vs-decode
                 consistency of the last logits on one 2048-token prompt
+  7. train    — qwen1.5-0.5b at full width (random weights from seed 0):
+                a corpus of 4,096 samples x 2,049 tokens in a token table
+                on the card engine, pinned; train_loop at 2,048 tokens x
+                batch 4 for 12 steps, a checkpoint every 4 steps and a
+                fault injected at step 6 that must roll back to step 4
+                exactly once; a checkpoint restored bit for bit, the
+                changed shards between consecutive tags; the example's
+                curation (a review diff of exactly the added samples, the
+                old pin unchanged) and 3 more steps on the new pin; one
+                full-width step on the card against the same step on the
+                CPU's plain path (loss and gradient norm); step ms,
+                tokens/s, model-FLOP share, the busy share of a profiled
+                step, peak memory, checkpoint seconds, and the launches
+                of both attention kernels in the phase's window
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
-tiers, both modes; flash from serving). The full record goes to ``build/chip_smoke.json``.
+tiers, both modes; flash from serving and training, its backward from
+training). The full record goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -172,6 +194,32 @@ FLASH_SERVE_SHAPES = tuple((1, n, n, 16, 16, 64, True)
 # four weight and prompt seeds, and a decode one position ahead or behind
 # 1.31-1.40 (repro_torch.benchmarks.serve_consistency and this check).
 SERVE_REL_TOL = 0.3
+# Flash backward shapes: the training step's (qwen1.5-0.5b at B 4 x 2048)
+# and the forward table's (b) and (c).
+BWD_SHAPES = ((4, 2048, 2048, 16, 16, 64, True),) + FLASH_SHAPES[1:]
+BWD_TILE = 64               # rows per query and key tile of the kernel
+# dq, dk, dv against the plain version (float32 on the same bf16 inputs):
+# atol = rtol = FLASH_TOL and ||kernel - plain|| / ||plain|| at most this.
+# The kernel rounds P and dS to bf16 before their products and its outputs
+# to bf16: 2.3-2.4e-3 at every shape of its first run on the H100 (the
+# forward's own error is 2-3.5e-3); a lost mask must read above it.
+BWD_REL_TOL = 6e-3
+# the kernel's LSE against the plain version's, absolute (float32 values
+# of 5-12 here; 1-2e-6 measured)
+LSE_TOL = 1e-4
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_SAMPLES, TRAIN_SEQ, TRAIN_BATCH = 4096, 2048, 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 12, 4, 6
+TRAIN_MORE_STEPS = 3        # on the new pin, after the curation
+TRAIN_CHECK = (1, 256)      # batch, tokens of the card-vs-CPU step
+# |card - CPU| / CPU for that step's loss and global gradient norm: bf16
+# weights and activations, summed in other orders by cuBLAS and the flash
+# kernels on the card and by the plain path on the CPU. Each bf16 path
+# read 1.3e-2 (card) and 1.7e-2 (CPU) from the same step in float32 for
+# the gradient norm, 3.0e-2 apart, and 1.8-2.5e-4 for the loss, 7e-5
+# apart, on the H100 (PERF.md, PR 19); the check reports that floor.
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GNORM_TOL = 5e-2
 # searchsorted launches of the main path, grouped by query count: the
 # 1-query zone windows of core/table.py, small, Δ-sized and table-sized
 SEARCH_GROUPS = (("1 query", 1, 1), ("2-1023 queries", 2, 1023),
@@ -446,6 +494,7 @@ def kernel_phase(torch, seed: int) -> dict:
         del args
     torch.cuda.synchronize()
     results["flash_attention"] = flash_phase(torch, seed)
+    results["flash_attention_bwd"] = bwd_phase(torch, seed)
     return results
 
 
@@ -554,6 +603,121 @@ def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
     check(not bad, f"flash_attention differs from its plain version "
                    f"beyond {FLASH_TOL} abs or {FLASH_REL_TOL} rel-L2 "
                    f"(shape, max abs, rel-L2): {bad}")
+    return rows
+
+
+def bwd_bytes(b, sq, sk, h, kv, hd) -> int:
+    """Bytes the backward must move: q, o, dO and k, v read once (bf16),
+    the LSE read once (float32), dq, dk, dv written once (bf16)."""
+    return 2 * (4 * b * sq * h * hd + 4 * b * sk * kv * hd) + 4 * b * h * sq
+
+
+def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
+    """The flash backward against its plain version at ``shapes``: dq, dk
+    and dv within FLASH_TOL and BWD_REL_TOL, the forward's LSE within
+    LSE_TOL, two launches bitwise equal, a planted mask fault shown to
+    exceed BWD_REL_TOL, the kernel's event and device time, TFLOP/s, its
+    bound (2.5 x the forward's tensor FLOPs), the plain version's time and
+    SDPA's backward through autograd on the same inputs."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (config,
+                                                         flash_attention_bwd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    rows, bad = [], []
+
+    def per_launch_ms(fn, focus):
+        prof = device_profile(torch, lambda: [fn() for _ in range(10)],
+                              focus=focus)
+        return prof["focus_ms"] / 10 if prof["focus_count"] else None
+
+    def rel(got, want):
+        return float((got.float() - want).norm() / want.norm())
+
+    for b, sq, sk, h, kv, hd, causal in shapes:
+        q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        do = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        lse_err = float((lse - ref.attention_lse(
+            q, k, v, causal=causal, block=256)[1]).abs().max())
+
+        def run():
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        before = build.LAUNCHES["flash_attention_bwd"]
+        got, again = run(), run()
+        launched = build.LAUNCHES["flash_attention_bwd"] - before
+        want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs = {n: {"max_abs_err": float((x.float() - w).abs().max()),
+                    "rel_l2_err": rel(x, w),
+                    "close": bool(torch.allclose(x.float(), w,
+                                                 atol=FLASH_TOL,
+                                                 rtol=FLASH_TOL))}
+                for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+        # the planted fault: a lost causal mask, or (all pairs) the
+        # zero-filled key tail of the kernel's last tile left unmasked
+        if causal:
+            faulty = ref.attention_bwd(q, k, v, o, lse, do, causal=False)
+            fault = "causal mask lost"
+        else:
+            pad = (0, 0, 0, 0, 0, -sk % BWD_TILE)
+            kp, vp = (torch.nn.functional.pad(x, pad) for x in (k, v))
+            op, lp = ref.attention_lse(q, kp, vp, causal=False, block=256)
+            faulty = ref.attention_bwd(q, kp, vp, op, lp, do, causal=False)
+            fault = f"key mask lost ({-sk % BWD_TILE} zero keys)"
+        fault_rel = rel(faulty[0], want[0])
+        del faulty
+        check(fault_rel > BWD_REL_TOL, f"a planted mask fault ({fault}: "
+              f"{fault_rel}) would pass BWD_REL_TOL")
+        ok = (same_bits and lse_err <= LSE_TOL and launched == 2
+              and all(e["close"] and e["rel_l2_err"] <= BWD_REL_TOL
+                      for e in errs.values())
+              and all(bool(torch.isfinite(x).all()) for x in got))
+        flops = 10.0 * b * h * hd * attention_pairs(sq, sk, causal)
+        nbytes = bwd_bytes(b, sq, sk, h, kv, hd)
+        b_ms, b_by = bound(nbytes, 0, flops)
+        ms = cuda_ms(torch, run, 20)
+        dev_ms = per_launch_ms(run, "attn_bwd")
+        # SDPA's backward through autograd on the same inputs
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        lib_err = max(float((x.transpose(1, 2).float() - w).abs().max())
+                      for x, w in zip(lib(), want))
+        rows.append({
+            "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
+            "ok": ok, "tol": FLASH_TOL, "rel_tol": BWD_REL_TOL,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "grads": errs, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+            "bitwise_deterministic": same_bits,
+            "planted_fault": fault, "planted_fault_rel_l2": fault_rel,
+            "library_max_abs_err": lib_err,
+            "ms": ms, "tflops": flops / ms / 1e9, "device_ms": dev_ms,
+            "device_tflops": flops / dev_ms / 1e9 if dev_ms else None,
+            "plain_ms": cuda_ms(torch, lambda: ref.attention_bwd(
+                q, k, v, o, lse, do, causal=causal), 3),
+            "library_ms": cuda_ms(torch, lib, 20),
+            "library_device_ms": per_launch_ms(lib, ""),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops, "config": config(hd, dev)})
+        if not ok:
+            bad.append((rows[-1]["shape"], errs, lse_err, same_bits))
+        del q, k, v, do, o, lse, got, again, want, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    check(not bad, f"flash_attention_bwd differs from its plain version "
+                   f"beyond {FLASH_TOL} abs or {BWD_REL_TOL} rel-L2, or its "
+                   f"LSE beyond {LSE_TOL}, or two launches differ: {bad}")
     return rows
 
 
@@ -2248,6 +2412,256 @@ def serve_phase(torch, seed: int) -> dict:
     return rec
 
 
+# -------------------------------------------------------------------- train
+
+def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 N T for the dense work, plus
+    attention's, 3.5 x its forward (the backward is 2.5 x)."""
+    fwd = 4.0 * batch * cfg.n_heads * cfg.hd * attention_pairs(seq, seq, True)
+    return 6.0 * n_params * batch * seq + 3.5 * fwd * cfg.n_layers
+
+
+def card_vs_cpu_step(torch, cfg, seed: int) -> dict:
+    """One full-width loss and gradient on the card and on the CPU's plain
+    path, from the same bf16 weights and a TRAIN_CHECK-sized batch:
+    the loss and the global gradient norm, each within its tolerance.
+    The same step on the CPU in float32 (the same weights, upcast) gives
+    the bf16 noise floor the tolerance is read against."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.lm import LM, loss_fn
+    from repro_torch.optim import global_norm
+
+    b, n = TRAIN_CHECK
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(2, cfg.vocab, size=(b, n + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]),
+             "targets": torch.as_tensor(toks[:, 1:])}
+    cpu = LM(cfg, device="cpu",
+             generator=torch.Generator().manual_seed(seed + 7))
+    card = LM(cfg, device="cuda",
+              generator=torch.Generator().manual_seed(seed + 7))
+    # weights drawn in float32 and rounded to bf16, then held in float32
+    cpu32 = LM(dataclasses.replace(cfg, dtype="float32"), device="cpu",
+               generator=torch.Generator().manual_seed(seed + 7))
+    check(all(torch.equal(a.cpu(), b_) and torch.equal(b_.float(), c)
+              for a, b_, c in zip(card.parameters(), cpu.parameters(),
+                                  cpu32.parameters())),
+          "the card and CPU models do not hold the same weights")
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu), ("cpu_f32", cpu32)):
+        model.requires_grad_()
+        t0 = time.perf_counter()
+        loss = loss_fn(model, {k: v.to(model.device)
+                               for k, v in batch.items()})
+        loss.backward()
+        gnorm = global_norm(p.grad for p in model.parameters())
+        out[name] = {"loss": loss.item(), "grad_norm": gnorm.item(),
+                     "seconds": time.perf_counter() - t0}
+        del model
+    del card, cpu, cpu32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel(x, y, key):
+        return abs(x[key] - y[key]) / abs(y[key])
+    a, c, f = out["card"], out["cpu"], out["cpu_f32"]
+    out["loss_rel_diff"] = rel(a, c, "loss")
+    out["grad_norm_rel_diff"] = rel(a, c, "grad_norm")
+    out["bf16_floor"] = {k: {"card_vs_f32": rel(a, f, k),
+                             "cpu_bf16_vs_f32": rel(c, f, k)}
+                         for k in ("loss", "grad_norm")}
+    out.update(batch=b, tokens=n, loss_tol=TRAIN_LOSS_TOL,
+               grad_norm_tol=TRAIN_GNORM_TOL)
+    check(all(math.isfinite(x[k]) for x in (a, c)
+              for k in ("loss", "grad_norm")), f"non-finite check: {out}")
+    check(out["loss_rel_diff"] <= TRAIN_LOSS_TOL
+          and out["grad_norm_rel_diff"] <= TRAIN_GNORM_TOL,
+          f"the card's step differs from the CPU's: {out}")
+    return out
+
+
+def train_phase(torch, seed: int) -> dict:
+    """The training path at full width: versioned corpus, pinned snapshot,
+    train_loop with one injected fault and its rollback, versioned
+    checkpoints (restore bit for bit, changed shards), the example's
+    curation and more steps on the new pin, and the card-vs-CPU step."""
+    import contextlib
+    import io
+
+    from repro_torch.checkpoint import VcsCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import Engine, snapshot_diff
+    from repro_torch.data import (BatchPipeline, PinnedDataset, PipelineCfg,
+                                  create_token_table, synth_corpus)
+    from repro_torch.examples.train_versioned import curate
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWCfg
+
+    gc.collect()                  # earlier phases' engines hold the card
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (24, 1024, 151936),
+          f"not the full-width config: {cfg}")
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "samples": TRAIN_SAMPLES, "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+           "ckpt_every": TRAIN_CKPT_EVERY, "fault_at": TRAIN_FAULT_AT}
+    t0 = time.perf_counter()
+    engine = Engine(device="cuda")
+    create_token_table(engine, "corpus")
+    synth_corpus(engine, "corpus", n_samples=TRAIN_SAMPLES,
+                 sample_len=TRAIN_SEQ + 1, vocab=cfg.vocab, seed=seed)
+    rec["ingest_s"] = time.perf_counter() - t0
+    rec["corpus_lob_bytes"] = TRAIN_SAMPLES * (TRAIN_SEQ + 1) * 4
+
+    def run(**kw):
+        """train_loop with its log kept (and echoed), its timings, and a
+        repeated fault turned into a failed check."""
+        times, buf = {}, io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                state, losses, _ = train.train_loop(
+                    cfg, reduced=False, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, engine=engine, device="cuda",
+                    attn_block=TRAIN_SEQ, timings=times, **kw)
+        except RuntimeError as err:
+            raise SmokeFailure(f"train_loop: {err}") from err
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+        return state, losses, times, buf.getvalue().splitlines()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    state, losses, times, log = run(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        inject_fault_at=TRAIN_FAULT_AT, log_every=TRAIN_CKPT_EVERY)
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    rolled = [ln for ln in log if "rolled back" in ln]
+    tags = sorted((t for t in engine.snapshots if "-step-" in t),
+                  key=lambda t: int(t.rsplit("-", 1)[1]))
+    # steps 1 .. fault - 1, then from the tag's step + 1 to the end
+    n_steps = TRAIN_STEPS + TRAIN_FAULT_AT - 1 - TRAIN_CKPT_EVERY
+    step_ms = [x * 1e3 for x in times["step_s"]]
+    steady = sorted(step_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    n_params = sum(p.numel() for p in state["params"].values())
+    flops = train_flops(n_params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    rec.update({
+        "losses": losses, "rolled_back": rolled, "tags": tags,
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "n_params": n_params, "model_flops": flops,
+        "model_flop_share": flops / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+        "save_s": times["save_s"], "restore_s": times["restore_s"],
+        "launches": launches})
+    check(len(rolled) == 1 and rolled[0].endswith(
+        f"-step-{TRAIN_CKPT_EVERY}"), f"not one rollback to step "
+        f"{TRAIN_CKPT_EVERY}: {rolled}")
+    check(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+          f"{len(losses)} losses (want {n_steps}), or one is not finite")
+    want = cfg.n_layers * (n_steps + 1)       # the faulted step ran too
+    check(launches["flash_attention"] == want
+          and launches["flash_attention_bwd"] == want,
+          f"attention kernels launched {launches}, not {want} each "
+          f"(layers x steps run)")
+
+    # the last tag holds the final state: restored bit for bit
+    ck = VcsCheckpointer(engine, "ckpt")
+    saved = train.ckpt_state(cfg, state["params"], state["opt"])
+    t0 = time.perf_counter()
+    back = ck.restore(tags[-1], saved)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    from repro_torch.checkpoint.vcs_ckpt import _flatten_state
+    pairs = list(zip(_flatten_state(saved), _flatten_state(back)))
+    check(all(torch.equal(a, b) for (_, a), (_, b) in pairs),
+          f"{tags[-1]} does not restore bit for bit")
+    ckpt_bytes = sum(a.numel() * a.element_size() for (_, a), _ in pairs)
+    shards = engine.table("ckpt").count()
+    del back, saved, pairs
+    t0 = time.perf_counter()
+    changed = {f"{a} -> {b}": ck.changed_shards(a, b)
+               for a, b in zip(tags, tags[1:])}
+    rec["checkpoint"] = {
+        "bytes": ckpt_bytes, "shards": shards, "tags_kept": tags,
+        "save_s": times["save_s"], "restore_in_loop_s": times["restore_s"],
+        "restore_s": restore_s, "changed_shards": changed,
+        "changed_shards_s": time.perf_counter() - t0,
+        "restored_bit_for_bit": True}
+
+    # one profiled step, then the state is dropped
+    model, opt = state["model"], state["opt"]
+    decay = train.decay_names(state["params"])
+    pin = engine.snapshots[sorted(t for t in engine.snapshots
+                                  if t.startswith("train-pin"))[0]]
+    pipe = BatchPipeline(PinnedDataset(engine, pin),
+                         PipelineCfg(seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH))
+    batch = pipe.tensors_at(TRAIN_STEPS + 1, "cuda")
+    opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=TRAIN_STEPS)
+    rec["profile_step"] = device_profile(
+        torch, lambda: train.train_step(model, batch, opt, opt_cfg, decay,
+                                        TRAIN_SEQ), focus="attn_bwd")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del state, model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the example's phase 2, then more steps on the new pin
+    old_pin = pin
+    t0 = time.perf_counter()
+    n_diff, rep_m = curate(engine, n_new=64, sample_len=TRAIN_SEQ + 1,
+                           vocab=cfg.vocab, seed=seed + 1,
+                           first_id=TRAIN_SAMPLES)
+    rec["curate"] = {
+        "review_diff_groups": n_diff, "merged": rep_m.inserted,
+        "seconds": time.perf_counter() - t0,
+        "old_pin_self_diff_groups": snapshot_diff(
+            engine.store, old_pin, old_pin).n_groups,
+        "old_pin_samples": PinnedDataset(engine, old_pin).n}
+    check(n_diff == 64 and rep_m.inserted == 64,
+          f"the curated review diff is not the 64 added samples: "
+          f"{rec['curate']}")
+    check(rec["curate"]["old_pin_self_diff_groups"] == 0
+          and rec["curate"]["old_pin_samples"] == TRAIN_SAMPLES,
+          f"the old pin moved: {rec['curate']}")
+    build.reset_launches()
+    state, losses2, times2, _ = run(steps=TRAIN_MORE_STEPS,
+                                    ckpt_every=TRAIN_MORE_STEPS + 1,
+                                    log_every=1)
+    launches2 = dict(build.LAUNCHES)
+    new_pin = sorted((t for t in engine.snapshots
+                      if t.startswith("train-pin")),
+                     key=lambda t: int(t.rsplit("-", 1)[1]))[-1]
+    rec["more_steps"] = {
+        "pin": new_pin, "losses": losses2,
+        "pin_samples": PinnedDataset(engine,
+                                     engine.snapshots[new_pin]).n,
+        "step_ms": [x * 1e3 for x in times2["step_s"]],
+        "save_s": times2["save_s"], "launches": launches2}
+    check(len(losses2) == TRAIN_MORE_STEPS
+          and all(math.isfinite(x) for x in losses2)
+          and rec["more_steps"]["pin_samples"] == TRAIN_SAMPLES + 64,
+          f"more steps on the new pin: {rec['more_steps']}")
+    rec["launches"] = {k: launches[k] + launches2[k] for k in launches}
+    del state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = card_vs_cpu_step(torch, cfg, seed)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -2429,6 +2843,11 @@ def main(argv=None) -> int:
                           if not k.startswith("profile")})
         phase("serve_profile", **{k: v for k, v in serve.items()
                                   if k.startswith("profile")})
+        trained = train_phase(torch, args.seed)
+        record["train"] = trained
+        phase("train", **{k: v for k, v in trained.items()
+                          if k != "profile_step"})
+        phase("train_profile", profile_step=trained["profile_step"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2438,13 +2857,19 @@ def main(argv=None) -> int:
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
                        + tiers)
                 for k in build.VCS_SOURCES}
-    launches["flash_attention"] = serve["flash_launches"]
+    # attention: the serve window's and the train window's
+    launches["flash_attention"] = serve["flash_launches"] \
+        + trained["launches"]["flash_attention"]
+    launches["flash_attention_bwd"] = trained["launches"][
+        "flash_attention_bwd"]
     replaces = {
         "rowhash": "src/repro/kernels/rowhash.py:43",
         "searchsorted": "src/repro/kernels/searchsorted.py:48",
         "segsum_diff": "src/repro/kernels/segsum_diff.py:42",
         "probe": "src/repro/kernels/probe.py:70",
         "flash_attention": "src/repro/kernels/flash_attention.py:84",
+        # no Pallas entry: the reference differentiates its XLA attention
+        "flash_attention_bwd": "src/repro/models/layers.py:64",
     }
     line = []
     for name in build.SOURCES:

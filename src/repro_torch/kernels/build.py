@@ -34,8 +34,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: the kernels of the data-VCS path (diff, merge, seal) ...
 VCS_SOURCES = ("rowhash", "searchsorted", "segsum_diff", "probe")
-#: ... and every kernel, the model stack's attention included
-SOURCES = VCS_SOURCES + ("flash_attention",)
+#: ... and every kernel, the model stack's attention (forward and
+#: backward) included
+SOURCES = VCS_SOURCES + ("flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -48,6 +48,12 @@
 //   exp2: p = exp2(s * scale * log2e - m), m kept in the log2 domain, a
 //   masked score being NEG * log2e, so a fully masked prefix still gives
 //   p = 1 until a real key rescales it, as in the reference.
+// - LSE for the backward (optional; serving passes null): the epilogue
+//   also writes each row's natural-log sum of exponentials, (m + log2 l)
+//   * ln 2 with m and l as above, into lse (B, H, Sq) float32: the
+//   training forward saves it, so the backward recomputes P in one pass.
+//   It is a template flag, so the serving kernel (kLse false) is compiled
+//   without the store and its code does not change.
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -60,6 +66,7 @@ namespace {
 constexpr int kBN = 128;           // keys per K/V tile
 constexpr int kWG = 128;           // threads per warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegL2 = -1e30f * kLog2e;   // NEG in the log2 domain
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -301,13 +308,13 @@ __device__ __forceinline__ void rescale_pack(const float (&s)[64],
   for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
-template <int HD, int NC>
+template <int HD, int NC, bool kLse>
 __global__ void __launch_bounds__(Cfg<HD, NC>::kThreads, 1)
 flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv,
-                 __nv_bfloat16* __restrict__ o, int sq, int sk, int h, int kv,
-                 float scale_log2, int causal) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int h, int kv, float scale_log2, int causal) {
   using C = Cfg<HD, NC>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -443,6 +450,10 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
           *reinterpret_cast<uint32_t*>(ob + r * pitch + j * 8 + tig * 2) =
               pack_bf16(acc[4 * j + 2 * half] / den,
                         acc[4 * j + 2 * half + 1] / den);
+        // m is the quad's common running max (log2 domain); natural log out
+        if (kLse && tig == 0)
+          lse[(static_cast<int64_t>(b) * h + head) * sq + r] =
+              (m[half] + log2f(den)) * kLn2;
       }
     }
   }
@@ -520,23 +531,23 @@ int default_rows(int device, int b, int sq, int h) {
 }
 
 // The dynamic shared memory size is set once per instantiation and device.
-template <int HD, int NC>
+template <int HD, int NC, bool kLse>
 cudaError_t prepare(int device) {
   static std::atomic<bool> done[kMaxDevices];
   if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<HD, NC>::kSmem);
+      flash_fwd_kernel<HD, NC, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<HD, NC>::kSmem);
   if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
   return err;
 }
 
-template <int HD, int NC>
+template <int HD, int NC, bool kLse>
 int launch(int device, const void* q, const void* k, const void* v, void* o,
-           int b, int sq, int sk, int h, int kv, int causal,
+           float* lse, int b, int sq, int sk, int h, int kv, int causal,
            cudaStream_t stream) {
   using C = Cfg<HD, NC>;
-  cudaError_t err = prepare<HD, NC>(device);
+  cudaError_t err = prepare<HD, NC, kLse>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, b, sq, h, HD, C::kBM) ||
@@ -545,17 +556,30 @@ int launch(int device, const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = static_cast<float>(
       1.0 / std::sqrt(static_cast<double>(HD)) * 1.4426950408889634);
   const dim3 grid(b * h, (sq + C::kBM - 1) / C::kBM);
-  flash_fwd_kernel<HD, NC><<<grid, C::kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, h, kv, scale_log2,
-      causal);
+  flash_fwd_kernel<HD, NC, kLse><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kv,
+      scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The LSE instance when lse is given, else serving's.
+template <int HD, int NC>
+int pick(int device, const void* q, const void* k, const void* v, void* o,
+         float* lse, int b, int sq, int sk, int h, int kv, int causal,
+         cudaStream_t stream) {
+  return lse != nullptr
+             ? launch<HD, NC, true>(device, q, k, v, o, lse, b, sq, sk, h, kv,
+                                    causal, stream)
+             : launch<HD, NC, false>(device, q, k, v, o, lse, b, sq, sk, h,
+                                     kv, causal, stream);
 }
 
 template <int HD, int NC>
 int describe(int* out) {
   using C = Cfg<HD, NC>;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<HD, NC>);
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, flash_fwd_kernel<HD, NC, false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vals[9] = {C::kBM, kBN, C::kStages, C::kThreads, attr.numRegs,
                        kProducerRegs, kConsumerRegs, C::kSmem,
@@ -565,19 +589,20 @@ int describe(int* out) {
 }
 
 int dispatch(int device, const void* q, const void* k, const void* v,
-             void* o, int b, int sq, int sk, int h, int kv, int hd, int causal,
-             int rows, void* stream) {
+             void* o, void* lse_out, int b, int sq, int sk, int h, int kv,
+             int hd, int causal, int rows, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (hd == 64 && rows == 128)
-    return launch<64, 2>(device, q, k, v, o, b, sq, sk, h, kv, causal, s);
+    return pick<64, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
   if (hd == 64 && rows == 64)
-    return launch<64, 1>(device, q, k, v, o, b, sq, sk, h, kv, causal, s);
+    return pick<64, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
   if (hd == 128 && rows == 128)
-    return launch<128, 2>(device, q, k, v, o, b, sq, sk, h, kv, causal, s);
+    return pick<128, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
   if (hd == 128 && rows == 64)
-    return launch<128, 1>(device, q, k, v, o, b, sq, sk, h, kv, causal, s);
+    return pick<128, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -585,14 +610,15 @@ int dispatch(int device, const void* q, const void* k, const void* v,
 
 // q/o: (b, sq, h, hd) bf16; k/v: (b, sk, kv, hd) bf16; all contiguous and
 // 16-byte aligned; h % kv == 0; sq, sk >= 1; hd in {64, 128} (else
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue). lse: null, or (b, h, sq) float32 for the rows'
+// natural-log sums of exponentials.
 extern "C" int rt_flash_attention(int device, const void* q, const void* k,
-                                  const void* v, void* o, int b, int sq,
-                                  int sk, int h, int kv, int hd, int causal,
-                                  void* stream) {
+                                  const void* v, void* o, void* lse, int b,
+                                  int sq, int sk, int h, int kv, int hd,
+                                  int causal, void* stream) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
-  return dispatch(device, q, k, v, o, b, sq, sk, h, kv, hd, causal,
+  return dispatch(device, q, k, v, o, lse, b, sq, sk, h, kv, hd, causal,
                   default_rows(device, b, sq, h), stream);
 }
 
@@ -600,13 +626,13 @@ extern "C" int rt_flash_attention(int device, const void* q, const void* k,
 // of its own choice, to time that choice.
 extern "C" int rt_flash_attention_rows(int device, const void* q,
                                        const void* k, const void* v, void* o,
-                                       int b, int sq, int sk, int h, int kv,
-                                       int hd, int causal, int rows,
+                                       void* lse, int b, int sq, int sk, int h,
+                                       int kv, int hd, int causal, int rows,
                                        void* stream) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
-  return dispatch(device, q, k, v, o, b, sq, sk, h, kv, hd, causal, rows,
-                  stream);
+  return dispatch(device, q, k, v, o, lse, b, sq, sk, h, kv, hd, causal,
+                  rows, stream);
 }
 
 // The configuration rt_flash_attention launches for these sizes, into

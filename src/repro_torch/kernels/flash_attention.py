@@ -22,17 +22,41 @@ HEAD_DIMS = (64, 128)
 CONFIG_FIELDS = ("block_m", "block_n", "stages", "threads", "regs",
                  "producer_regs", "consumer_regs", "smem_bytes",
                  "static_smem_bytes")
-# (device, q, k, v, o, B, Sq, Sk, H, KV, hd, causal[, block_m], stream)
-_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p] + [ctypes.c_int] * 7
+# (device, q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal[, block_m], stream)
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 _FLASH = build.Launcher(NAME, "rt_flash_attention", _ARGS + [ctypes.c_void_p])
 _FLASH_ROWS = build.Launcher(NAME, "rt_flash_attention_rows",
                              _ARGS + [ctypes.c_int, ctypes.c_void_p])
 
 
+def check_inputs(name: str, *tensors: torch.Tensor):
+    """Raise ``ValueError`` unless q, k, v (and any further tensors shaped
+    like q or k: o, dO) are what the kernels take: bf16, contiguous,
+    16-byte aligned on q's device, hd in :data:`HEAD_DIMS`, H % KV == 0.
+    ``tensors`` is (q, k, v, *like_q). Returns (B, Sq, Sk, H, KV, hd)."""
+    q, k, v, *like_q = tensors
+    for t, what in zip(tensors, ("q", "k", "v", "o", "do")):
+        build.check_cuda(t, torch.bfloat16, 4, f"{name} {what}")
+        if t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name} {what}: must be 16-byte aligned on "
+                             f"q's device")
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if (v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd
+            or any(t.shape != q.shape for t in like_q)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if KV == 0 or H % KV or Sk == 0:
+        raise ValueError(f"{name}: needs H % KV == 0 and Sk >= 1 "
+                         f"(H {H}, KV {KV}, Sk {Sk})")
+    return B, Sq, Sk, H, KV, hd
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block: int = 256,
-                    block_m: Optional[int] = None) -> torch.Tensor:
+                    block_m: Optional[int] = None, return_lse: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) with H % KV == 0 -> (B,Sq,H,hd).
 
     On the card: bf16, contiguous, hd in :data:`HEAD_DIMS`; anything else
@@ -40,36 +64,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     own tiles (:func:`config`) unless ``block_m`` (64 or 128 query rows
     per CTA) forces them, for timing that choice. ``block`` is the plain
     version's block size on the CPU, which changes only the order of
-    float sums."""
+    float sums. ``return_lse`` also returns each row's natural-log sum of
+    exponentials, (B,H,Sq) float32, which the backward reads
+    (:func:`ref.attention_lse` on the CPU)."""
     if block_m not in (None, 64, 128):
         raise ValueError(f"{NAME}: block_m {block_m} is not 64 or 128")
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, block=block)
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        build.check_cuda(t, torch.bfloat16, 4, f"{NAME} {what}")
-        if t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"{NAME} {what}: must be 16-byte aligned on "
-                             f"q's device")
-    B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"{NAME}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {hd} not in {HEAD_DIMS}")
-    if KV == 0 or H % KV or Sk == 0:
-        raise ValueError(f"{NAME}: needs H % KV == 0 and Sk >= 1 "
-                         f"(H {H}, KV {KV}, Sk {Sk})")
+        out = ref.attention_lse(q, k, v, causal=causal, block=block)
+        return out if return_lse else out[0]
+    B, Sq, Sk, H, KV, hd = check_inputs(NAME, q, k, v)
     o = torch.empty_like(q)
-    if Sq == 0 or B == 0:
-        return o
-    sizes = (q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), B, Sq, Sk, H, KV, hd, int(causal))
-    if block_m is None:
-        _FLASH(*sizes)
-    else:
-        _FLASH_ROWS(*sizes, block_m)
-    return o
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if Sq and B:
+        sizes = (q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), None if lse is None else lse.data_ptr(),
+                 B, Sq, Sk, H, KV, hd, int(causal))
+        if block_m is None:
+            _FLASH(*sizes)
+        else:
+            _FLASH_ROWS(*sizes, block_m)
+    return (o, lse) if return_lse else o
 
 
 def config(b: int, sq: int, h: int, hd: int, device=None) -> dict:

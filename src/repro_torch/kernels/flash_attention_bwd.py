@@ -1,0 +1,79 @@
+"""flash_attention_bwd: the backward of flash attention.
+
+Wrapper of the CUDA kernel ``csrc/flash_attention_bwd.cu``. The reference
+has no Pallas kernel here: it trains through XLA's automatic
+differentiation of ``repro/models/layers.py::block_causal_attention``. A
+CUDA tensor launches the kernel (three launches a call, counted once: D,
+then dK/dV, then dQ); a CPU tensor runs the plain version,
+:func:`ref.attention_bwd`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+from .flash_attention import HEAD_DIMS, check_inputs
+
+NAME = "flash_attention_bwd"
+#: fields of :func:`config`, in the order ``rt_flash_attention_bwd_config``
+#: writes them
+CONFIG_FIELDS = ("dot_regs", "dkdv_regs", "dq_regs", "dkdv_smem_bytes",
+                 "dq_smem_bytes", "threads")
+# (device, q, k, v, o, lse, do, dq, dk, dv, dsum, B, Sq, Sk, H, KV, hd,
+#  causal, stream)
+_BWD = build.Launcher(NAME, "rt_flash_attention_bwd",
+                      [ctypes.c_int] + [ctypes.c_void_p] * 10
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True):
+    """Gradients (dq, dk, dv) of attention with respect to q (B,Sq,H,hd)
+    and k, v (B,Sk,KV,hd), given the forward's output ``o``, its
+    ``lse`` (B,H,Sq) float32 (``flash_attention(..., return_lse=True)``)
+    and the output's gradient ``do``. Returned in q's, k's and v's dtypes.
+
+    On the card the kernel takes what the forward takes (bf16, contiguous,
+    16-byte aligned, hd in :data:`HEAD_DIMS`, H % KV == 0), and ``lse``
+    contiguous float32; anything else raises ``ValueError``. Its result
+    does not depend on the launch: no float atomics."""
+    if q.device.type == "cpu":
+        dq, dk, dv = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    B, Sq, Sk, H, KV, hd = check_inputs(NAME, q, k, v, o, do)
+    build.check_cuda(lse, torch.float32, 3, f"{NAME} lse")
+    if lse.shape != (B, H, Sq) or lse.device != q.device:
+        raise ValueError(f"{NAME}: lse {tuple(lse.shape)} is not (B, H, Sq) "
+                         f"= {(B, H, Sq)} on q's device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if Sq and B:
+        dsum = torch.empty_like(lse)     # D = rowsum(dO * O), scratch
+        _BWD(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, Sq, Sk, H, KV,
+             hd, int(causal))
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+def config(hd: int, device=None) -> dict:
+    """Registers per thread of the three kernels, the dK/dV kernel's
+    dynamic and the dQ kernel's static shared memory per CTA, and threads
+    per CTA, for head dim ``hd`` on a CUDA ``device``. Builds the kernel
+    if needed; launches nothing."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {hd} not in {HEAD_DIMS}")
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    fn = build.c_function(NAME, "rt_flash_attention_bwd_config", [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(CONFIG_FIELDS))()
+    err = fn(index, hd, out)
+    if err:
+        raise RuntimeError(f"{NAME} config query failed: CUDA error {err}")
+    return dict(zip(CONFIG_FIELDS, out))

@@ -1,10 +1,10 @@
 """The kernel contract the core engine calls, on torch tensors.
 
 Counterpart of ``repro.kernels.ops``. Every op takes and returns tensors
-and dispatches on the tensor's device: the five kernel wrappers
+and dispatches on the tensor's device: the six kernel wrappers
 (``rowhash``, ``searchsorted``, ``segsum_diff``, ``probe``,
-``flash_attention``) launch their CUDA kernel for a CUDA tensor and run
-their plain version for a CPU one.
+``flash_attention``, ``flash_attention_bwd``) launch their CUDA kernel
+for a CUDA tensor and run their plain version for a CPU one.
 
 Signature convention: a 64-bit word is an int64 tensor holding the uint64
 bits; a row signature is two words (lo, hi) and sorts lexicographically
@@ -19,6 +19,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention_bwd import flash_attention_bwd as _flash_bwd_kernel
 from .probe import probe as _probe_kernel
 from .rowhash import signatures as _rowhash_kernel
 from .searchsorted import searchsorted as _searchsorted_kernel
@@ -339,6 +340,28 @@ def diff_aggregate_rows(key_lo: torch.Tensor, key_hi: torch.Tensor,
 
 # --------------------------------------------------------- attention entry
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the flash kernel forward, which also
+    keeps each row's log-sum-exp, and the backward kernel from it (on a
+    CPU tensor their plain versions, ``ref.attention_lse`` and
+    ``ref.attention_bwd``). A build or launch error raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block: int):
+        o, lse = _flash_kernel(q, k, v, causal=causal, block=block,
+                               return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do.contiguous(),
+                                       causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, block_q: int = 256,
               block_k: int = 256) -> torch.Tensor:
@@ -348,7 +371,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA tensor runs the flash kernel (query heads read their KV head in
     place; tiles fixed by the kernel); a CPU tensor runs the plain
     version over ``block_q``-sized block pairs, as the reference's XLA
-    path does. ``block_k`` is kept for the reference's signature: neither
-    path reads it (the reference's XLA path does not either)."""
+    path does. Where autograd records (a tensor that requires grad), the
+    call goes through :class:`FlashAttention`, so its gradient is the
+    backward kernel's; without it the forward alone runs. ``block_k`` is
+    kept for the reference's signature: neither path reads it (the
+    reference's XLA path does not either)."""
     del block_k
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, block_q)
     return _flash_kernel(q, k, v, causal=causal, block=block_q)

@@ -192,6 +192,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     denominator and numerator; block pairs above the diagonal are skipped.
     Returns (B,S,H,hd) in q's dtype.
     """
+    return attention_lse(q, k, v, causal=causal, block=block)[0]
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, block: int = 1024):
+    """:func:`attention` and the natural-log sum of exponentials of each
+    query row's scaled, masked scores (the softmax's log-normalizer):
+    returns (out (B,S,H,hd) in q's dtype, lse (B,H,S) float32). ``out``
+    is :func:`attention`'s, bit for bit."""
     B, S, H, hd = q.shape
     Sk = k.shape[1]
     block = min(block, S, Sk)
@@ -205,6 +214,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(hd)
     row = torch.arange(block, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), device=q.device)
     for qi in range(S // block):
         qs = q[:, qi * block:(qi + 1) * block]
         m = torch.full((B, H, block), -math.inf, device=q.device)
@@ -226,6 +236,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * alpha[..., None] + \
                 attn_sv(p, vs).float().transpose(1, 2)
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        l = torch.clamp(l, min=1e-30)
+        o = acc / l[..., None]
         out[:, qi * block:(qi + 1) * block] = o.transpose(1, 2).to(q.dtype)
-    return out
+        lse[:, :, qi * block:(qi + 1) * block] = m + torch.log(l)
+    return out, lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True):
+    """Gradients of :func:`attention` with respect to q, k and v: the
+    textbook recompute backward, all in float32.
+
+    With scores S = q.k^T * scale (masked as the forward masks them:
+    top-left causal, or all pairs) and the forward's ``lse`` (B,H,Sq):
+    D = rowsum(dO * O), P = exp(S - lse), dV = P^T.dO,
+    dS = P * (dO.V^T - D), dQ = dS.K * scale, dK = dS^T.Q * scale. dK and
+    dV of a KV head sum over its H / KV query heads. Returns (dq, dk, dv)
+    float32, shaped like q, k and v."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, Sq, KV, G, hd)
+    dof = do.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(keep, s, NEG)
+    p = torch.exp(s - lse.float().reshape(B, KV, G, Sq)[..., None])
+    d = (dof * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)  # (B,Sq,KV,G)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf).reshape(B, Sq, H, hd)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
+    return dq * scale, dk * scale, dv

@@ -1,10 +1,16 @@
-"""The reference's parameter tree as the port's state dict.
+"""The reference's parameter tree as the port's state dict, and back.
 
 ``params_from_numpy(cfg, tree)`` takes the tree of ``repro.models.lm.
 init_params`` with its leaves as numpy arrays and returns the state dict
 of :class:`repro_torch.models.lm.LM`: the stacked period axis P of every
 block leaf is split into per-layer tensors (layer ``p * period + i`` is
 period ``p``, slot ``i``). Values are carried bit for bit.
+
+The way back, :func:`stack_tree` (tensors) and :func:`params_to_numpy`,
+rebuilds the reference's stacked tree from any dict keyed like the state
+dict (the parameters, or the optimizer's moments): what the checkpoints
+store, leaf for leaf. :func:`opt_state_from_numpy` takes the reference's
+``OptState(step, mu, nu)``.
 """
 from __future__ import annotations
 
@@ -14,6 +20,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..optim import OptState
+
+#: the top-level leaves of the tree (every other leaf is a layer's)
+TOP = ("embed", "final_norm", "lm_head")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -27,13 +37,72 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
-    sd = {name: _tensor(tree[name])
-          for name in ("embed", "final_norm", "lm_head")}
+def unstack_tree(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
+    """The reference's nested, period-stacked tree (tensor leaves) -> a
+    dict keyed like :class:`LM`'s state dict (views of the leaves)."""
+    sd = {name: tree[name] for name in TOP}
     for i in range(cfg.period):
-        for name, leaf in tree["blocks"][f"slot{i}"].items():
-            stacked = np.asarray(leaf)
+        for name, stacked in tree["blocks"][f"slot{i}"].items():
             for p in range(cfg.n_periods):
-                sd[f"layers.{p * cfg.period + i}.{name}"] = \
-                    _tensor(stacked[p])
+                sd[f"layers.{p * cfg.period + i}.{name}"] = stacked[p]
     return sd
+
+
+def stacked_ndim(name: str, t: torch.Tensor) -> int:
+    """Dimensions of the leaf ``name`` of a state dict in the reference's
+    tree, where every layer leaf carries the period axis: the reference's
+    ndim rules (weight decay, the injected fault) read this."""
+    return t.dim() + (0 if name in TOP else 1)
+
+
+def stack_tree(cfg: ArchConfig, flat: Dict[str, torch.Tensor]) -> Dict:
+    """A dict keyed like :class:`LM`'s state dict -> the reference's
+    nested tree: top-level leaves as they are, each layer leaf stacked
+    over the periods of its slot (new tensors)."""
+    tree: Dict = {name: flat[name] for name in TOP}
+    blocks: Dict = {}
+    for i in range(cfg.period):
+        names = sorted({k.split(".", 2)[2] for k in flat
+                        if k.startswith(f"layers.{i}.")})
+        blocks[f"slot{i}"] = {
+            name: torch.stack([flat[f"layers.{p * cfg.period + i}.{name}"]
+                               for p in range(cfg.n_periods)])
+            for name in names}
+    tree["blocks"] = blocks
+    return tree
+
+
+def params_from_numpy(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
+    sd = unstack_tree(cfg, {
+        **{name: _tensor(tree[name]) for name in TOP},
+        "blocks": {slot: {name: _tensor(leaf) for name, leaf in sp.items()}
+                   for slot, sp in tree["blocks"].items()
+                   if int(slot[4:]) < cfg.period}})
+    return {k: v.clone() for k, v in sd.items()}   # each owns its memory
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu()
+    if a.dtype == torch.bfloat16:
+        return a.view(torch.int16).numpy().view(np.uint16)
+    return a.numpy()
+
+
+def params_to_numpy(cfg: ArchConfig, flat: Dict[str, torch.Tensor]) -> Dict:
+    """:func:`stack_tree` with numpy leaves: the reference's tree, leaf for
+    leaf. numpy has no bfloat16 of its own: a bf16 leaf comes back as its
+    uint16 bits (``.view(jnp.bfloat16)`` gives the reference's dtype)."""
+    tree = stack_tree(cfg, flat)
+    out: Dict = {name: _numpy(tree[name]) for name in TOP}
+    out["blocks"] = {slot: {name: _numpy(leaf)
+                            for name, leaf in sp.items()}
+                     for slot, sp in tree["blocks"].items()}
+    return out
+
+
+def opt_state_from_numpy(cfg: ArchConfig, opt) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` (numpy leaves) -> the
+    port's, keyed like :class:`LM`'s state dict, on the CPU."""
+    return OptState(torch.from_numpy(np.array(opt.step, np.int32)),
+                    params_from_numpy(cfg, opt.mu),
+                    params_from_numpy(cfg, opt.nu))

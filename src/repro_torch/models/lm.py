@@ -10,6 +10,7 @@ reference's ``lax.scan`` over stacked periods; layer ``l`` is period
 Entry points (the reference's, as methods):
   LM(cfg, device=None, generator=None)   -> weights drawn from a seed
   forward(tokens)                        -> logits (B, S, V)
+  loss_fn(model, batch)                  -> scalar loss (a function)
   init_cache(B, seq_cap)                 -> zero decode cache
   prefill(tokens, seq_cap=...)           -> (last_logits (B, V), cache)
   decode_step(token, cache)              -> (logits (B, V), cache)
@@ -20,6 +21,11 @@ Python int here (the reference keeps an int32 scalar). ``decode_step``
 writes the new position into the cache tensors in place (the reference
 returns updated copies) and returns the cache with ``len + 1``; the slot
 it writes is past the old ``len``, so the old cache still reads the same.
+
+The weights are created frozen, for serving. The forward is
+differentiable: a trainer turns gradients on with ``requires_grad_()``,
+and attention then runs through the flash kernel's autograd function
+(``kernels.ops.FlashAttention``), whose backward is a kernel too.
 """
 from __future__ import annotations
 
@@ -215,3 +221,21 @@ class LM(nn.Module):
             x = x + layer.mlp(rms_norm(x, layer.ln2, cfg.norm_eps))
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return x[:, 0] @ self.lm_head, {**cache, "len": pos + 1}
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
+            attn_block: int = 1024, aux_coef: float = 0.01) -> torch.Tensor:
+    """Causal LM loss, the reference's ``loss_fn``: next-token cross
+    entropy over float32 logits, averaged over the targets >= 0 (a target
+    < 0 is masked), plus ``aux_coef`` times the MoE load-balance loss,
+    which is 0 for the dense configs the port runs. ``batch`` holds
+    ``tokens`` and ``targets``, (B, S) integer tensors on the model's
+    device."""
+    del aux_coef                       # dense configs: the aux loss is 0
+    targets = batch["targets"]
+    logits = model(batch["tokens"], attn_block=attn_block).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        targets.clamp(min=0)[..., None].long())[..., 0]
+    mask = (targets >= 0).float()
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -16,7 +16,10 @@ segsum look-back to walk past a 32-tile window, and views that are not
 16-byte aligned. The flash attention kernel is held to its
 plain version in bf16 at atol = rtol = 2e-2 (the plain version rounds
 each block's P.V product to bf16, the kernel accumulates it in fp32), and
-its relative L2 error at ``chip_smoke.FLASH_REL_TOL``.
+its relative L2 error at ``chip_smoke.FLASH_REL_TOL``. Its backward
+is held to the plain backward at the same atol and rtol and at
+``chip_smoke.BWD_REL_TOL``, its LSE at ``chip_smoke.LSE_TOL``, and two of
+its launches must give the same bits.
 """
 import dataclasses
 
@@ -28,11 +31,13 @@ from repro_torch.benchmarks import digests
 from repro_torch.distributed import sharding
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
-from chip_smoke import FLASH_REL_TOL, GOLDEN, GOLDEN_APPLY
+from chip_smoke import (BWD_REL_TOL, BWD_SHAPES, FLASH_REL_TOL, GOLDEN,
+                        GOLDEN_APPLY, LSE_TOL)
 
 pytestmark = pytest.mark.card
 
@@ -779,3 +784,98 @@ def test_serve_cli_runs_the_published_widths(cuda, capsys):
                 "4", "--batch", "2"])
     assert capsys.readouterr().out.startswith("served 3 requests")
     assert build.LAUNCHES["flash_attention"] == 24 * 3
+
+
+def _bwd_close(got, want):
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x.float(), w, atol=2e-2, rtol=2e-2)
+        if float(w.norm()) > 1e-3:      # a gradient that is not ~0
+            assert float((x.float() - w).norm() / w.norm()) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (2, 63, 63, 4, 4, 64, True),         # one tile, ragged
+    (2, 64, 64, 4, 2, 64, True),         # the tile seam, GQA 2:1
+    (1, 65, 65, 8, 2, 128, True),        # past the seam, GQA 4:1, hd 128
+    (1, 129, 129, 4, 1, 64, True),       # MQA: the group sum over 4 heads
+    (3, 77, 200, 4, 1, 64, False),       # all pairs, MQA, Sq < Sk ragged
+    (2, 256, 190, 6, 3, 128, False),     # all pairs, Sk off the tile
+    (1, 150, 64, 4, 4, 64, True),        # top-left causal, Sq > Sk
+    (1, 1, 1, 2, 2, 64, True),           # one position
+    *BWD_SHAPES,                         # chip_smoke's three shapes
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv,
+                                                  hd, causal):
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + sk)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(sq), device=cuda).bfloat16()
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want_o, want_lse = ref.attention_lse(q, k, v, causal=causal, block=64)
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert [x.dtype for x in got] == [torch.bfloat16] * 3
+    assert [x.shape for x in got] == [q.shape, k.shape, v.shape]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _bwd_close(got, ref.attention_bwd(q, k, v, o, lse, do, causal=causal))
+    assert build.LAUNCHES["flash_attention_bwd"] == 2
+
+
+def test_flash_attention_with_and_without_lse_gives_equal_outputs(cuda):
+    for b, sq, sk, h, kv, hd, causal in ((1, 1000, 1000, 16, 4, 64, True),
+                                         (2, 300, 450, 8, 8, 128, False)):
+        q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert torch.equal(o, flash_attention(q, k, v, causal=causal))
+        assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+        for bm in (64, 128):
+            o2, lse2 = flash_attention(q, k, v, causal=causal, block_m=bm,
+                                       return_lse=True)
+            assert float((lse2 - lse).abs().max()) <= LSE_TOL
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_plain_path(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 2, 300, 300, 8, 4,
+                                                  64, seed=3))
+    do = torch.randn(q.shape, device=cuda).bfloat16()
+    got = ops.attention(q, k, v, causal=True)
+    got_g = torch.autograd.grad(got, (q, k, v), do)
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.attention(q, k, v, causal=True, block=64)
+    want_g = torch.autograd.grad(want, (q, k, v), do)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    _bwd_close(got_g, [w.float() for w in want_g])
+
+
+def test_flash_attention_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 2, 2, 64)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, lse, q.float())
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, lse[:, :1].contiguous(), q)
+    q2, k2, v2 = _qkv(cuda, 1, 64, 64, 2, 2, 96)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q2, k2, v2, q2, lse, q2)
+    assert build.LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_train_loop_on_the_card(cuda, capsys):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    # the reduced config's head dim (16) has no kernel instance: widen it
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              head_dim=64)
+    _, losses, engine = train_loop(cfg, reduced=False, steps=6,
+                                   seq_len=64, global_batch=4, ckpt_every=2,
+                                   inject_fault_at=3, log_every=100,
+                                   device=cuda)
+    assert "rolled back to run1-step-2" in capsys.readouterr().out
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    steps_run = 7                        # step 3 ran twice
+    assert build.LAUNCHES["flash_attention"] == cfg.n_layers * steps_run
+    assert build.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * steps_run
+    assert engine.device.type == "cuda"

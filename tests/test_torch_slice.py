@@ -250,7 +250,10 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.interop, repro_torch.kernels.build, "
             "repro_torch.configs, repro_torch.models.lm, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
-            "repro_torch.benchmarks.serve_consistency; "
+            "repro_torch.benchmarks.serve_consistency, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.launch.train, repro_torch.examples.train_versioned, "
+            "repro_torch.kernels.flash_attention_bwd; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
