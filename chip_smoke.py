@@ -140,6 +140,7 @@ import functools
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -197,7 +198,7 @@ SERVE_REL_TOL = 0.3
 # Flash backward shapes: the training step's (qwen1.5-0.5b at B 4 x 2048)
 # and the forward table's (b) and (c).
 BWD_SHAPES = ((4, 2048, 2048, 16, 16, 64, True),) + FLASH_SHAPES[1:]
-BWD_TILE = 64               # rows per query and key tile of the kernel
+BWD_TILE = 128              # keys per CTA tile of the kernel
 # dq, dk, dv against the plain version (float32 on the same bf16 inputs):
 # atol = rtol = FLASH_TOL and ||kernel - plain|| / ||plain|| at most this.
 # The kernel rounds P and dS to bf16 before their products and its outputs
@@ -617,8 +618,11 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
     and dv within FLASH_TOL and BWD_REL_TOL, the forward's LSE within
     LSE_TOL, two launches bitwise equal, a planted mask fault shown to
     exceed BWD_REL_TOL, the kernel's event and device time, TFLOP/s, its
-    bound (2.5 x the forward's tensor FLOPs), the plain version's time and
-    SDPA's backward through autograd on the same inputs."""
+    bound (2.5 x the forward's tensor FLOPs), the plain version's time,
+    SDPA's backward through autograd on the same inputs, and the launch
+    configuration. ``forward_lse`` times the forward that the training
+    step runs before it (the LSE stored) beside its bound and SDPA's
+    forward."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (config,
@@ -695,6 +699,23 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
                                        retain_graph=True)
         lib_err = max(float((x.transpose(1, 2).float() - w).abs().max())
                       for x, w in zip(lib(), want))
+
+        def fwd():
+            return flash_attention(q, k, v, causal=causal, return_lse=True)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        # q, k, v read and o written (bf16), the LSE written (float32);
+        # S and P.V: 4 FLOPs a pair and hd
+        f_ms, f_by = bound(2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+                           + 4 * b * h * sq, 0,
+                           4.0 * b * h * hd * attention_pairs(sq, sk, causal))
+        forward_lse = {"ms": cuda_ms(torch, fwd, 20),
+                       "device_ms": per_launch_ms(fwd, "flash_fwd"),
+                       "bound_ms": f_ms, "bound_by": f_by,
+                       "library_ms": cuda_ms(torch, lib_fwd, 20),
+                       "library_device_ms": per_launch_ms(lib_fwd, "")}
         rows.append({
             "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
             "ok": ok, "tol": FLASH_TOL, "rel_tol": BWD_REL_TOL,
@@ -710,7 +731,8 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
             "library_ms": cuda_ms(torch, lib, 20),
             "library_device_ms": per_launch_ms(lib, ""),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops, "config": config(hd, dev)})
+            "flops": flops, "config": config(hd, dev),
+            "forward_lse": forward_lse})
         if not ok:
             bad.append((rows[-1]["shape"], errs, lse_err, same_bits))
         del q, k, v, do, o, lse, got, again, want, qt, kt, vt, out
@@ -722,15 +744,27 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
 
 
 def hopper_sass(build) -> dict:
-    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-    built flash library's SASS (``cuobjdump -sass``); fails without them."""
-    lib = build._lib_path("flash_attention")
+    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and, in the backward,
+    TMA store and reduce (UTMASTG, UTMAREDG) and mma.sync (HMMA)
+    instructions in the built attention libraries' SASS (``cuobjdump
+    -sass``); fails without wgmma and TMA loads in either, or with an
+    mma.sync left in the backward."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    check(all(counts.values()), f"{lib.name} lacks Hopper's wgmma or TMA "
-                                f"instructions: {counts}")
+    counts = {}
+    for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
+                      ("flash_attention_bwd", ("HGMMA", "UTMALDG", "UTMASTG",
+                                               "UTMAREDG", "HMMA"))):
+        lib = build._lib_path(name)
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ops}
+        check(counts[name]["HGMMA"] and counts[name]["UTMALDG"],
+              f"{lib.name} lacks Hopper's wgmma or TMA instructions: "
+              f"{counts[name]}")
+    check(not counts["flash_attention_bwd"]["HMMA"],
+          f"the backward still runs mma.sync: {counts}")
     return counts
 
 

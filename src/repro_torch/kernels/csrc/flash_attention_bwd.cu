@@ -12,418 +12,840 @@
 // of a KV head sum over its H / KV query heads.
 //
 // Layout: q, o, dO, dq (B, Sq, H, hd); k, v, dk, dv (B, Sk, KV, hd), all
-// contiguous bf16; lse and the D scratch (B, H, Sq) fp32.
+// contiguous bf16; lse (B, H, Sq) fp32. Scratch (the wrapper allocates
+// it; nothing needs zeroing): rowstats (2, B, H, Sqp) fp32 with Sqp = Sq
+// rounded up to 64, dq_acc (B, H, Sqp, hd) fp32, counters
+// (B * H * ceil(Sq / 64) + 1) int32.
 //
-// Bound: five products of 2 * Sq * Sk * hd FLOPs each per head (S and dP
-// twice: once in each pass below), 2.5 times the forward's tensor work
-// counted as the backward's bound; the tensor cores bound it, not memory.
-// Design (FlashAttention-2's split, on mma.sync.m16n8k16 bf16 -> fp32):
+// Bound: five products of 2 * Sq * Sk * hd FLOPs each per head, 2.5 times
+// the forward's tensor work; the tensor cores bound it, not memory.
+// Design (FlashAttention-3's backward shape), three launches a call:
 //
-// - attn_bwd_dot: one thread per query row and head computes D.
-// - attn_bwd_dkdv: one CTA of 4 warps per (batch, KV head, 64-key tile);
-//   each warp owns 16 keys and keeps their dK and dV in registers. The CTA
-//   loops over the group's query heads and, for each, over the 64-row
-//   query tiles that reach its keys (causal: from the diagonal tile on;
-//   tiles wholly above the diagonal are skipped), staging Q, dO, lse and D
-//   of the tile in shared memory. Per tile: S^T = K Q^T, P^T, dV += P^T
-//   dO, dP^T = V dO^T, dS^T, dK += dS^T Q. The group sum stays in
-//   registers, so dK and dV are each written once.
-// - attn_bwd_dq: one CTA of 4 warps per (batch, head, 64-row query tile);
-//   Q and dO of a warp's 16 rows stay in registers as A fragments; the
-//   CTA walks the key tiles up to the diagonal: S = Q K^T, P, dP = dO V^T,
-//   dS, dQ += dS K.
-// - No float atomics: every output element has one writer and a fixed
-//   order of sums, so two launches on the same inputs give the same bits.
-// - P and dS are rounded to bf16 for the products that take them as an
-//   operand (as the forward rounds P before P.V); every sum is fp32.
-//   K, V, Q and dO fragments come from padded shared-memory rows (pitch
-//   hd + 8) or, transposed, through ldmatrix.trans.
+// - attn_bwd_dot: D = rowsum(dO * O) with HD / 8 lanes per row (16-byte
+//   loads, a shuffle tree), coalesced over (B, Sq, H); it also writes
+//   lse * log2e (+inf past Sq, so P is 0 there without a mask) beside D in
+//   rowstats, padded to whole 64-row tiles, and zeroes the counters.
+// - attn_bwd_main: one CTA of three warpgroups per (batch, KV head,
+//   128-key tile). Warpgroup 0 holds the producer and the dQ writers;
+//   setmaxnreg lowers its registers and raises the consumers'. One
+//   producer thread issues every TMA load: K and V of the tile once, then
+//   Q and dO tiles of 64 rows (4-D tensor maps, 128-byte swizzle,
+//   zero-filled past S) and their 64 lse and D values (bulk copies)
+//   through a ring of kStages stages, each guarded by a full (TMA bytes)
+//   and an empty (consumer warps) mbarrier. The CTA loops over the
+//   group's query heads and, for each, over the query tiles from the
+//   diagonal on; the group sum of dK and dV stays in registers.
+//   Warpgroups 1-2 are consumers, each owning 64 keys. Per query tile a
+//   consumer runs five wgmma products: S^T = K Q^T and dP^T = V dO^T
+//   (A and B from shared memory, K-major, m64n64); P^T = exp2(S^T * scale
+//   * log2e - lse * log2e), masked only on diagonal and ragged-key tiles;
+//   dS^T = P^T * (dP^T - D); dV += P^T dO and dK += dS^T Q (A the bf16
+//   repack of the fp32 accumulator in registers, B MN-major); dS^T goes to
+//   a swizzled shared tile (double-buffered), and after a barrier of both
+//   consumers each computes dQ_part = dS K for its half of hd (A and B
+//   from shared memory, both MN-major) over all 128 keys, into an fp32
+//   shared buffer laid out as the dq_acc tensor map's 128-byte swizzle
+//   (no bank conflicts).
+// - dQ with a fixed summation order, no float atomics whose order varies:
+//   each (batch, head, 64-row query tile) has a counter. One writer warp
+//   per dQ buffer (kDQBufs) adds a part into dq_acc with a TMA reduce
+//   when its turn comes -- descending key tile, the order in which parts
+//   arrive while CTAs walk query tiles upward from the diagonal -- waits
+//   for the reduce to complete and bumps the counter (release / acquire
+//   at gpu scope). The first part (the highest key tile that reaches the
+//   query tile) is a TMA store, so dq_acc needs no zeroing, and two
+//   launches give the same bits.
+// - Deadlock freedom: a CTA takes its tile id from a global atomic
+//   counter, not from blockIdx, so every id below a running CTA's belongs
+//   to a CTA that runs or has finished. Ids run by (batch, KV head), then
+//   key tile from last to first, and a tile only ever waits on the higher
+//   key tiles of its own (batch, KV head): smaller ids. The cost is tail
+//   balance: causal tiles nearer the start carry more query tiles
+//   (key tile t of n walks 2 (n - t) of them per head at Sq = Sk), yet
+//   each group's longest tile (t = 0) takes the group's last id. At the
+//   training shape (B 4, 16 KV heads, 16 key tiles) the 1,024 CTAs hold
+//   17,408 tile steps, 132 per SM on average, and the last CTA to start
+//   holds 32 of them: at most about a quarter of the mean, paid once.
+//   All pairs, every key tile waits on the next one's part of each query
+//   tile, so a group's CTAs run staggered by one reduce each.
+// - attn_bwd_convert: dq = bf16(dq_acc * scale), back to (B, Sq, H, hd).
 //
-// Not yet done (later work): wgmma, TMA and a ring of stages.
+// Every sum is fp32; P and dS are rounded to bf16 where they are a
+// product's operand (as the forward rounds P before P.V). A wait that
+// outlives kSpinCycles (a broken schedule, not a slow one) traps, so a
+// fault fails the launch instead of hanging the card.
+//
+// What it costs (timed in PERF.md): at hd 128 a consumer holds dK and dV
+// (128 fp32 registers) beside S^T and dP^T (64), and ptxas does not give
+// the consumer loop of a 384-thread CTA all the registers setmaxnreg
+// grants, so that instance spills and serializes its wgmmas (warning
+// C7512); hd 64 fits. Both consumers meet at the dS barrier every query
+// tile, so their softmaxes run together and the tensor cores idle then.
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>          // CUtensorMap and the encoder's types (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kT = 64;           // rows per query tile and per key tile
-constexpr int kThreads = 128;    // 4 warps x 16 rows
+constexpr int kBN = 128;           // keys per CTA tile
+constexpr int kBM = 64;            // query rows per tile
+constexpr int kWG = 128;           // threads per warpgroup
+constexpr int kThreads = 3 * kWG;  // producer + two consumers
+constexpr int kDotThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr long long kSpinCycles = 20000000000LL;   // ~10 s at 2 GHz
 constexpr int kMaxDevices = 64;
 
 template <int HD>
-struct Tile {
-  static constexpr int kLD = HD + 8;                 // padded row pitch
-  static constexpr int kBytes = kT * kLD * 2;        // one staged tile
-  // attn_bwd_dkdv: K | V | Q | dO | lse[kT] | D[kT]
-  static constexpr int kDkdvSmem = 4 * kBytes + 2 * kT * 4;
+struct Cfg {
+  static constexpr int kStages = 2;                  // Q / dO ring depth
+  static constexpr int kSlabs = HD / 64;              // 128-byte column slabs
+  static constexpr int kKVBytes = kBN * HD * 2;       // one K or V tile
+  static constexpr int kQBytes = kBM * HD * 2;        // one Q or dO tile
+  static constexpr int kDSBytes = kBN * kBM * 2;      // one dS^T tile
+  static constexpr int kDQBytes = kBM * HD * 4;       // one fp32 dQ part
+  // dQ parts in flight, one writer warp each (the budget at hd 128)
+  static constexpr int kDQBufs = HD == 64 ? 3 : 2;
+  // Shared memory, 1024-byte aligned for the 128-byte swizzle:
+  // K | V | Q[kStages] | dO[kStages] | dS[2] | dQ[kDQBufs] | lse[kStages][64] |
+  // D[kStages][64] | mbarriers (kv, full[], empty[]) | tile id.
+  static constexpr int kVOff = kKVBytes;
+  static constexpr int kQOff = 2 * kKVBytes;
+  static constexpr int kDOOff = kQOff + kStages * kQBytes;
+  static constexpr int kDSOff = kDOOff + kStages * kQBytes;
+  static constexpr int kDQOff = kDSOff + 2 * kDSBytes;
+  static constexpr int kRowOff = kDQOff + kDQBufs * kDQBytes;
+  static constexpr int kBarOff = kRowOff + 2 * kStages * kBM * 4;
+  static constexpr int kIdOff = kBarOff + 8 * (1 + 2 * kStages);
+  static constexpr int kSmem = kIdOff + 16 + 1024;
 };
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed; trap if it never
+// does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kSpinCycles) __trap();
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an asynchronous wgmma reads or writes: pin them around it so
+// the compiler neither reads an accumulator before the wait nor reuses an
+// operand register while the product is in flight.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers: both consumers' dS^T in place (256 threads); per dQ
+// buffer, the part in it, and the buffer free again (both consumers and
+// the dQ writer warp, 288 threads).
+constexpr int kBarDS = 1, kBarDQFull = 2, kBarDQEmpty = 5;   // + buffer
+constexpr int kDQSync = 2 * kWG + 32;
+
+// Wait at barrier `id` over `n` threads.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Arrive at barrier `id` over `n` threads without waiting.
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// One box of a 2-D tensor map stored from, or added (fp32) from, shared
+// memory into global memory; tracked by the thread's bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_add(const CUtensorMap* map, uint32_t src,
+                                        int c0, int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+// Commit the thread's bulk copies and wait until they have read their
+// shared memory; then (bulk_wait) until they are complete.
+__device__ __forceinline__ void bulk_commit_wait_read() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Order this thread's bulk-copy (async proxy) global accesses with its
+// generic ones.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_smem(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ void st_smem_f2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+// Spin until *p >= target (acquire at gpu scope); trap if it never is.
+__device__ __forceinline__ void wait_turn(const int* p, int target) {
+  const long long t0 = clock64();
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    if (v >= target) return;
+    if (clock64() - t0 > kSpinCycles) __trap();
+  }
+}
+
+// *p += 1 after every write this thread has seen (release at gpu scope).
+__device__ __forceinline__ void bump(int* p) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(1)
+      : "memory");
+}
+
+#define D8(i)                                                       \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),   \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D16 D8(0), D8(8)
+#define D32 D16, D8(16), D8(24)
+#define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R16                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define R32                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define R64                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// S^T or dP^T (64 x 64, fp32) (+)= A (64 x 16, smem) . B^T (16 x 64,
+// smem), both K-major.
+__device__ __forceinline__ void wgmma_st(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// dV or dK (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// dV or dK (64 x 128, fp32) += A (64 x 16, registers) . B (16 x 128, smem).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// dQ_part (64 x 32, fp32) (+)= dS (64 x 16, smem, MN-major) . K (16 x 32,
+// smem, MN-major).
+__device__ __forceinline__ void wgmma_dq(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " R16
+      ", %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// dQ_part (64 x 64, fp32) (+)= dS (64 x 16, smem, MN-major) . K (16 x 64,
+// smem, MN-major).
+__device__ __forceinline__ void wgmma_dq(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef D8
+#undef D16
+#undef D32
+#undef D64
+#undef R16
+#undef R32
+#undef R64
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ----------------------------------------------------------------- kernels
 
-// Two transposed 8x8 b16 matrices: lanes 0-7 address the rows of the
-// first, lanes 8-15 those of the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows x 16 columns from column c0) of a row-major bf16
-// tile with pitch ld, rows r .. r + 15 where r = the warp's first row.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int r, int c0, int g, int tig) {
-  const __nv_bfloat16* p = tile + (r + g) * ld + c0 + 2 * tig;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// C (16 rows x kT columns as 8 n-tiles) (+)= A (16 x HD, fragments from a
-// row-major shared tile `a_tile` at warp row `ar`) . B^T, B the row-major
-// shared tile `b_tile` (kT rows x HD): c[n] += sum_d A[., d] B[8n + ., d].
+// rowstats[0][b][h][s] = lse * log2e (+inf for s >= Sq) and
+// rowstats[1][b][h][s] = sum_d dO[b, s, h, d] * O[b, s, h, d] (0 for
+// s >= Sq), over s < Sqp; counters[0 .. n_counters) = 0.
 template <int HD>
-__device__ __forceinline__ void mma_abt(float (&c)[kT / 8][4],
-                                        const __nv_bfloat16* a_tile, int ar,
-                                        const __nv_bfloat16* b_tile, int g,
-                                        int tig) {
-  constexpr int LD = Tile<HD>::kLD;
-#pragma unroll
-  for (int t = 0; t < HD / 16; ++t) {
-    uint32_t a[4];
-    a_frag(a, a_tile, LD, ar, t * 16, g, tig);
-#pragma unroll
-    for (int n = 0; n < kT / 8; ++n) {
-      const __nv_bfloat16* br = b_tile + (n * 8 + g) * LD + t * 16 + tig * 2;
-      mma16816(c[n], a, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// C (16 rows x HD as HD/8 n-tiles) += P (16 x kT, fp32 accumulators of an
-// earlier product, rounded to bf16 A fragments) . B, B the row-major
-// shared tile `b_tile` (kT rows x HD), read transposed by ldmatrix.
-template <int HD>
-__device__ __forceinline__ void mma_pb(float (&c)[HD / 8][4],
-                                       const float (&p)[kT / 8][4],
-                                       const __nv_bfloat16* b_tile, int lane) {
-  constexpr int LD = Tile<HD>::kLD;
-#pragma unroll
-  for (int t = 0; t < kT / 16; ++t) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * t][0], p[2 * t][1]),
-                            pack_bf16(p[2 * t][2], p[2 * t][3]),
-                            pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]),
-                            pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3])};
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, b_tile + (t * 16 + (lane & 15)) * LD + j * 8);
-      mma16816(c[j], pa, b0, b1);
-    }
-  }
-}
-
-// Stage kT rows (row0 ..) of one head of a (B, S, heads, HD) tensor into a
-// padded shared tile; rows at or past s are zero.
-template <int HD>
-__device__ __forceinline__ void stage(__nv_bfloat16* tile,
-                                      const __nv_bfloat16* base, int64_t pitch,
-                                      int row0, int s) {
-  constexpr int LD = Tile<HD>::kLD;
-  for (int c = threadIdx.x; c < kT * HD / 8; c += kThreads) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < s)
-      x = *reinterpret_cast<const uint4*>(base + (row0 + r) * pitch + col);
-    *reinterpret_cast<uint4*>(&tile[r * LD + col]) = x;
-  }
-}
-
-// Write a warp's 16 rows (r, r + 8 per thread) of fp32 accumulators times
-// `mul` as bf16 into one head of a (B, S, heads, HD) tensor, rows < s.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t pitch,
-                                           const float (&acc)[HD / 8][4],
-                                           float mul, int r, int s, int tig) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + half * 8;
-    if (row < s) {
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(base + row * pitch + j * 8 + tig * 2) =
-            pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
-    }
-  }
-}
-
-// D[b, h, r] = sum_d dO[b, r, h, d] * O[b, r, h, d] in fp32.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDotThreads)
 attn_bwd_dot(const __nv_bfloat16* __restrict__ o,
-             const __nv_bfloat16* __restrict__ d_o, float* __restrict__ dsum,
-             int64_t rows, int sq, int h) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= rows) return;
-  const uint4* x = reinterpret_cast<const uint4*>(o + t * HD);
-  const uint4* y = reinterpret_cast<const uint4*>(d_o + t * HD);
+             const __nv_bfloat16* __restrict__ d_o,
+             const float* __restrict__ lse, float* __restrict__ rowstats,
+             int* __restrict__ counters, int n_counters, int b_all, int sq,
+             int sqp, int h) {
+  constexpr int L = HD / 8;          // lanes per row, 16 bytes each
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kDotThreads + threadIdx.x;
+  if (t < n_counters) counters[t] = 0;
+  const int64_t rows = static_cast<int64_t>(b_all) * sqp * h;
+  const int64_t r = t / L;           // (b, s, head) over (B, Sqp, H)
+  const int part = static_cast<int>(t % L);
+  const int head = static_cast<int>(r % h);
+  const int64_t bs = r / h;
+  const int s = static_cast<int>(bs % sqp);
+  const int64_t b = bs / sqp;
   float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    const uint4 a = x[i], b = y[i];
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+  if (r < rows && s < sq) {
+    const int64_t off = ((b * sq + s) * h + head) * HD + part * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(d_o + off);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 fa = __bfloat1622float2(a2[e]);
-      const float2 fb = __bfloat1622float2(b2[e]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
+      const float2 fx = __bfloat1622float2(x2[e]);
+      const float2 fy = __bfloat1622float2(y2[e]);
+      acc = fmaf(fx.x, fy.x, acc);
+      acc = fmaf(fx.y, fy.y, acc);
     }
   }
-  // row t of (B, Sq, H) -> (B, H, Sq)
-  const int head = static_cast<int>(t % h);
-  const int64_t bs = t / h;
-  const int r = static_cast<int>(bs % sq);
-  const int64_t b = bs / sq;
-  dsum[(b * h + head) * sq + r] = acc;
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && part == 0) {
+    const int64_t bh = b * h + head;
+    rowstats[bh * sqp + s] = s < sq ? lse[bh * sq + s] * kLog2e : INFINITY;
+    rowstats[rows + bh * sqp + s] = acc;
+  }
 }
 
-// One (batch, KV head, key tile): dK and dV of its 64 keys.
+// One (batch, KV head, 128-key tile), by tile id: dK and dV of its keys,
+// and its parts of dQ, added into dq_acc (B, H, Sqp, hd) in their turn.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ d_o,
-              const float* __restrict__ lse, const float* __restrict__ dsum,
-              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-              int sq, int sk, int h, int kv, float scale, int causal) {
-  using T = Tile<HD>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kT * T::kLD;
-  __nv_bfloat16* qs = vs + kT * T::kLD;
-  __nv_bfloat16* dos = qs + kT * T::kLD;
-  float* lse_s = reinterpret_cast<float*>(dos + kT * T::kLD);
-  float* d_s = lse_s + kT;
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_main(__grid_constant__ const CUtensorMap tq,
+              __grid_constant__ const CUtensorMap tk,
+              __grid_constant__ const CUtensorMap tv,
+              __grid_constant__ const CUtensorMap tdo,
+              __grid_constant__ const CUtensorMap tacc,
+              const float* __restrict__ rowstats,
+              int* __restrict__ counters, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, int b_all, int sq, int sk,
+              int h, int kv, float scale, int causal) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t s_k = base, s_v = base + C::kVOff;
+  const uint32_t s_q = base + C::kQOff, s_do = base + C::kDOOff;
+  const uint32_t s_ds = base + C::kDSOff, s_dq = base + C::kDQOff;
+  const uint32_t s_rows = base + C::kRowOff;
+  const uint32_t bar_kv = base + C::kBarOff;
+  const uint32_t bar_full = bar_kv + 8;                  // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * C::kStages;  // [kStages]
+  int* tile_id = reinterpret_cast<int*>(sm + C::kIdOff);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * kT;          // causal: the longest tiles first
-  const int kvh = blockIdx.y % kv, b = blockIdx.y / kv;
+  const int nqt = (sq + kBM - 1) / kBM;
+  const int nkt = (sk + kBN - 1) / kBN;
+  const int sqp = nqt * kBM;
+  if (threadIdx.x == 0) {
+    // the last counter hands out tile ids in the order CTAs start
+    *tile_id = atomicAdd(counters + static_cast<int64_t>(b_all) * h * nqt, 1);
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int id = *tile_id;
+  const int kt = nkt - 1 - id % nkt;      // last key tile first
+  const int b = id / nkt / kv, kvh = id / nkt % kv;
+  const int k0 = kt * kBN;
   const int group = h / kv;
-  const float scale_log2 = scale * kLog2e;
-  const int kr = 16 * warp;                // the warp's first key in the tile
+  // causal: query tiles wholly above the diagonal (every row < k0) see no
+  // key of this tile
+  const int qt_first = causal ? min(k0 / kBM, nqt) : 0;
+  const int n_q = nqt - qt_first;         // query tiles per head
+  const int n_iter = group * n_q;
 
-  const int64_t q_pitch = static_cast<int64_t>(h) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(kv) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * sk * kv + kvh) * HD;
-  stage<HD>(ks, k + kv_off, kv_pitch, k0, sk);
-  stage<HD>(vs, v + kv_off, kv_pitch, k0, sk);
-
-  float dkacc[HD / 8][4], dvacc[HD / 8][4];
+  const int wg = threadIdx.x / kWG;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      // ---- producer: one thread issues every TMA load
+      mbar_expect_tx(bar_kv, 2 * C::kKVBytes);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
-
-  // Query tiles wholly above the diagonal (every row < k0) see no key here.
-  const int qt_first = causal ? k0 / kT : 0;
-  const int n_qt = (sq + kT - 1) / kT;
-  for (int j = 0; j < group; ++j) {
-    const int head = kvh * group + j;
-    const int64_t q_off = (static_cast<int64_t>(b) * sq * h + head) * HD;
-    const float* lse_h = lse + (static_cast<int64_t>(b) * h + head) * sq;
-    const float* d_h = dsum + (static_cast<int64_t>(b) * h + head) * sq;
-    for (int qt = qt_first; qt < n_qt; ++qt) {
-      const int q0 = qt * kT;
-      __syncthreads();   // every warp is done with the previous Q / dO tile
-      stage<HD>(qs, q + q_off, q_pitch, q0, sq);
-      stage<HD>(dos, d_o + q_off, q_pitch, q0, sq);
-      if (threadIdx.x < kT) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < sq ? lse_h[r] * kLog2e : 0.f;
-        d_s[threadIdx.x] = r < sq ? d_h[r] : 0.f;
+      for (int sl = 0; sl < C::kSlabs; ++sl) {
+        tma_load(s_k + sl * kBN * 128, &tk, bar_kv, sl * 64, kvh, k0, b);
+        tma_load(s_v + sl * kBN * 128, &tv, bar_kv, sl * 64, kvh, k0, b);
       }
-      __syncthreads();
+      const int64_t plane = static_cast<int64_t>(b_all) * h * sqp;
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % C::kStages;
+        mbar_wait(bar_empty + 8 * st, ((i / C::kStages) & 1) ^ 1);
+        const int head = kvh * group + i / n_q;
+        const int q0 = (qt_first + i % n_q) * kBM;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * C::kQBytes + 2 * kBM * 4);
+#pragma unroll
+        for (int sl = 0; sl < C::kSlabs; ++sl) {
+          const uint32_t off = st * C::kQBytes + sl * kBM * 128;
+          tma_load(s_q + off, &tq, full, sl * 64, head, q0, b);
+          tma_load(s_do + off, &tdo, full, sl * 64, head, q0, b);
+        }
+        const float* row = rowstats + (static_cast<int64_t>(b) * h + head) * sqp + q0;
+        bulk_load(s_rows + st * kBM * 4, row, kBM * 4, full);
+        bulk_load(s_rows + (C::kStages + st) * kBM * 4, row + plane, kBM * 4,
+                  full);
+      }
+    } else if (warp >= 1 && warp <= C::kDQBufs) {
+      // ---- dQ writers, one warp per dQ buffer (iterations i = buf mod
+      // kDQBufs): each adds its parts into dq_acc when their turn comes
+      // (descending key tile: `turn` higher key tiles reach the query tile
+      // and add first; the first one stores), then bumps the counter
+      const int buf = warp - 1;
+      if (buf < n_iter) named_arrive(kBarDQEmpty + buf, kDQSync);
+      for (int i = buf; i < n_iter; i += C::kDQBufs) {
+        const int head = kvh * group + i / n_q;
+        const int qt = qt_first + i % n_q;
+        const int kt_max =
+            causal ? min(nkt - 1, (qt * kBM + kBM - 1) / kBN) : nkt - 1;
+        const int turn = kt_max - kt;
+        int* cnt = counters + (static_cast<int64_t>(b) * h + head) * nqt + qt;
+        if (lane == 0 && turn > 0) {
+          wait_turn(cnt, turn);
+          fence_async_global();
+        }
+        named_sync(kBarDQFull + buf, kDQSync);   // part i is in buffer buf
+        if (lane == 0) {
+          const int row = (b * h + head) * sqp + qt * kBM;   // of dq_acc
+#pragma unroll
+          for (int sl = 0; sl < HD / 32; ++sl) {
+            const uint32_t src = s_dq + buf * C::kDQBytes + sl * kBM * 128;
+            if (turn == 0)
+              tma_store(&tacc, src, sl * 32, row);
+            else
+              tma_add(&tacc, src, sl * 32, row);
+          }
+          bulk_commit_wait_read();
+        }
+        __syncwarp();
+        if (i + C::kDQBufs < n_iter) named_arrive(kBarDQEmpty + buf, kDQSync);
+        if (lane == 0) {
+          bulk_wait();
+          fence_async_global();
+          bump(cnt);
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+    // ---- consumer warpgroup c: keys k0 + 64c .. k0 + 64c + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x % kWG;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane >> 2, tig = lane & 3;
+    const int kc0 = k0 + 64 * c;            // this consumer's first key
+    const int krow = 64 * c + 16 * warp + g;   // its rows krow, krow + 8
+    const float scale_log2 = scale * kLog2e;
+    const float* lse_s = reinterpret_cast<const float*>(sm + C::kRowOff);
+    const float* d_s = lse_s + C::kStages * kBM;
 
-      // S^T = K Q^T (16 keys x 64 queries), then P^T in place.
-      float s[kT / 8][4];
+    float dkacc[HD / 2], dvacc[HD / 2];
 #pragma unroll
-      for (int n = 0; n < kT / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      mma_abt<HD>(s, ks, kr, qs, g, tig);
-      const bool full = q0 + kT <= sq && k0 + kT <= sk &&
-                        (!causal || q0 >= k0 + kT - 1);
+    for (int i = 0; i < HD / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+
+    const uint32_t k_rows = s_k + c * 64 * 128, v_rows = s_v + c * 64 * 128;
+    mbar_wait(bar_kv, 0);
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % C::kStages;
+      const int q0 = (qt_first + i % n_q) * kBM;
+      const uint32_t q_t = s_q + st * C::kQBytes, do_t = s_do + st * C::kQBytes;
+      mbar_wait(bar_full + 8 * st, (i / C::kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T over hd in steps of 16
+      auto issue_st = [&](float (&acc)[32], uint32_t a_rows, uint32_t b_t) {
 #pragma unroll
-      for (int n = 0; n < kT / 8; ++n) {
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          wgmma_st(acc,
+                   sw128_desc(a_rows + (kk / 4) * kBN * 128 + col, 16, 1024),
+                   sw128_desc(b_t + (kk / 4) * kBM * 128 + col, 16, 1024),
+                   kk > 0);
+        }
+      };
+      // dV += P^T dO or dK += dS^T Q over the tile's queries in steps of
+      // 16 (16 rows of dO or Q)
+      auto issue_kv = [&](float (&acc)[HD / 2], const uint32_t(&a)[16],
+                          uint32_t b_t) {
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_rs(acc, &a[4 * kk],
+                   sw128_desc(b_t + kk * 16 * 128, kBM * 128, 1024));
+      };
+      float s[32], dp[32];
+      pin(s);
+      pin(dp);
+      wg_fence();
+      issue_st(s, k_rows, q_t);
+      issue_st(dp, v_rows, do_t);
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+      pin(dp);
+
+      // P^T = exp2(S^T * scale * log2e - lse * log2e), masked, and dS^T =
+      // P^T * (dP^T - D), in place: s[4j + e] is key krow + 8 (e >> 1),
+      // query q0 + 8j + 2 tig + (e & 1)
+      const bool masked = (causal && q0 < kc0 + 63) || kc0 + 64 > sk;
+      const float* lse_t = lse_s + st * kBM;
+      const float* d_t = d_s + st * kBM;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * tig);
+        const float2 dd = *reinterpret_cast<const float2*>(d_t + 8 * j + 2 * tig);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = n * 8 + tig * 2 + (e & 1);       // query in tile
-          const int key = k0 + kr + g + (e >> 1) * 8;
-          const int qr = q0 + qi;
-          const bool keep =
-              full || (qr < sq && key < sk && (!causal || qr >= key));
-          s[n][e] = keep ? exp2f(fmaf(s[n][e], scale_log2, -lse_s[qi])) : 0.f;
+          const int x = 4 * j + e;
+          float p = ex2(fmaf(s[x], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (masked) {
+            const int key = k0 + krow + 8 * (e >> 1);
+            const int qr = q0 + 8 * j + 2 * tig + (e & 1);
+            if (key >= sk || (causal && qr < key)) p = 0.f;
+          }
+          s[x] = p;
+          dp[x] = p * (dp[x] - ((e & 1) ? dd.y : dd.x));
         }
       }
-      // dV += P^T dO
-      mma_pb<HD>(dvacc, s, dos, lane);
-      // dP^T = V dO^T, then dS^T = P^T * (dP^T - D) in place.
-      float dp[kT / 8][4];
+      uint32_t pa[16], da[16];
 #pragma unroll
-      for (int n = 0; n < kT / 8; ++n)
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      mma_abt<HD>(dp, vs, kr, dos, g, tig);
+      for (int t = 0; t < 16; ++t) {
+        pa[t] = pack_bf16(s[2 * t], s[2 * t + 1]);
+        da[t] = pack_bf16(dp[2 * t], dp[2 * t + 1]);
+      }
+      // dS^T as bf16 into the swizzled [key][query] tile: key row R holds
+      // 64 queries in 128 bytes, 16-byte chunk j at j ^ (R & 7)
+      const uint32_t ds_t = s_ds + (i & 1) * C::kDSBytes;
 #pragma unroll
-      for (int n = 0; n < kT / 8; ++n)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = krow + 8 * hh;
+        const uint32_t row = ds_t + r * 128 + tig * 4;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[n][e] = s[n][e] * (dp[n][e] - d_s[n * 8 + tig * 2 + (e & 1)]);
-      // dK += dS^T Q
-      mma_pb<HD>(dkacc, dp, qs, lane);
+        for (int j = 0; j < 8; ++j)
+          st_smem(row + ((j ^ (r & 7)) << 4), da[2 * j + hh]);
+      }
+      fence_async_smem();
+
+      pin(dvacc);
+      pin(dkacc);
+      pin(pa);
+      pin(da);
+      wg_fence();
+      issue_kv(dvacc, pa, do_t);
+      issue_kv(dkacc, da, q_t);
+      wg_commit();
+
+      // dQ_part = dS K over the tile's 128 keys, for this consumer's half
+      // of hd; both consumers' dS^T rows must be in place
+      named_sync(kBarDS, 2 * kWG);
+      float dq[HD / 4];
+      pin(dq);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint32_t kb = HD == 64 ? s_k + kk * 16 * 128 + c * 64
+                                     : s_k + c * kBN * 128 + kk * 16 * 128;
+        wgmma_dq(dq, sw128_desc(ds_t + kk * 16 * 128, C::kDSBytes, 1024),
+                 sw128_desc(kb, kBN * 128, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait<1>();                 // dV and dK: the stage is free
+      pin(dvacc);
+      pin(dkacc);
+      pin(pa);
+      pin(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      wg_wait<0>();
+      pin(dq);
+
+      // the part, this consumer's half of the columns, into the fp32
+      // buffer for the dQ writer: slabs of 32 columns x 64 rows, each row
+      // 128 bytes with 16-byte chunk j at j ^ (row & 7) (the tensor map's
+      // 128-byte swizzle, so the stores meet no bank conflict)
+      const int buf = i % C::kDQBufs;
+      named_sync(kBarDQEmpty + buf, kDQSync);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * warp + g + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < HD / 16; ++j) {
+          const int col = c * (HD / 2) + 8 * j + 2 * tig;
+          const uint32_t at = s_dq + buf * C::kDQBytes + (col / 32) * kBM * 128 +
+                              r * 128 + ((((col % 32) / 4) ^ (r & 7)) << 4) +
+                              (col % 4) * 4;
+          st_smem_f2(at, dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+        }
+      }
+      fence_async_smem();
+      named_arrive(kBarDQFull + buf, kDQSync);
+    }
+
+    // dK (times scale) and dV of this consumer's keys below Sk
+    const int64_t kv_pitch = static_cast<int64_t>(kv) * HD;
+    const int64_t kv_off = (static_cast<int64_t>(b) * sk * kv + kvh) * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + krow + 8 * hh;
+      if (key < sk) {
+        __nv_bfloat16* dkr = dk + kv_off + key * kv_pitch + 2 * tig;
+        __nv_bfloat16* dvr = dv + kv_off + key * kv_pitch + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
+              pack_bf16(dkacc[4 * j + 2 * hh] * scale,
+                        dkacc[4 * j + 2 * hh + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvr + 8 * j) =
+              pack_bf16(dvacc[4 * j + 2 * hh], dvacc[4 * j + 2 * hh + 1]);
+        }
+      }
     }
   }
-  __nv_bfloat16* dkb = dk + kv_off;
-  __nv_bfloat16* dvb = dv + kv_off;
-  store_rows<HD>(dkb, kv_pitch, dkacc, scale, k0 + kr + g, sk, tig);
-  store_rows<HD>(dvb, kv_pitch, dvacc, 1.f, k0 + kr + g, sk, tig);
 }
 
-// One (batch, head, query tile): dQ of its 64 rows.
+// dq (B, Sq, H, hd) = bf16(dq_acc (B, H, Sqp, hd) * scale), four values
+// a thread.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v,
-            const __nv_bfloat16* __restrict__ d_o,
-            const float* __restrict__ lse, const float* __restrict__ dsum,
-            __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int kv,
-            float scale, int causal) {
-  using T = Tile<HD>;
-  __shared__ __align__(16) __nv_bfloat16 ks[kT * T::kLD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kT * T::kLD];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  // Causal tiles further down carry more key tiles: launch those first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kT;
-  const int head = blockIdx.y % h, b = blockIdx.y / h;
-  const int kvh = head / (h / kv);
-  const float scale_log2 = scale * kLog2e;
-  const int r_lo = q0 + 16 * warp + g;     // this thread's rows r_lo, r_lo + 8
-
-  const int64_t q_pitch = static_cast<int64_t>(h) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(kv) * HD;
-  const int64_t q_off = (static_cast<int64_t>(b) * sq * h + head) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * sk * kv + kvh) * HD;
-  const float* lse_h = lse + (static_cast<int64_t>(b) * h + head) * sq;
-  const float* d_h = dsum + (static_cast<int64_t>(b) * h + head) * sq;
-
-  // Q and dO of the warp's rows as A fragments; rows past Sq read as zero.
-  uint32_t qf[HD / 16][4], dof[HD / 16][4];
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r_lo + half * 8;
-    const bool in = r < sq;
-    lse_r[half] = in ? lse_h[r] * kLog2e : 0.f;
-    d_r[half] = in ? d_h[r] : 0.f;
-#pragma unroll
-    for (int t = 0; t < HD / 16; ++t) {
-      const __nv_bfloat16* qp = q + q_off + r * q_pitch + t * 16 + tig * 2;
-      const __nv_bfloat16* dp = d_o + q_off + r * q_pitch + t * 16 + tig * 2;
-      qf[t][half] = in ? ld32(qp) : 0u;
-      qf[t][half + 2] = in ? ld32(qp + 8) : 0u;
-      dof[t][half] = in ? ld32(dp) : 0u;
-      dof[t][half + 2] = in ? ld32(dp + 8) : 0u;
-    }
-  }
-
-  float dqacc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-    dqacc[j][0] = dqacc[j][1] = dqacc[j][2] = dqacc[j][3] = 0.f;
-
-  // Key tiles at or past k_end are masked for every row of this tile.
-  const int k_end = causal ? min(sk, q0 + kT) : sk;
-  const int n_kt = (k_end + kT - 1) / kT;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();   // every warp is done with the previous tile
-    stage<HD>(ks, k + kv_off, kv_pitch, k0, sk);
-    stage<HD>(vs, v + kv_off, kv_pitch, k0, sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T (16 rows x 64 keys each).
-    float s[kT / 8][4], dp[kT / 8][4];
-#pragma unroll
-    for (int n = 0; n < kT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int t = 0; t < HD / 16; ++t) {
-#pragma unroll
-      for (int n = 0; n < kT / 8; ++n) {
-        const __nv_bfloat16* kr = &ks[(n * 8 + g) * T::kLD + t * 16 + tig * 2];
-        const __nv_bfloat16* vr = &vs[(n * 8 + g) * T::kLD + t * 16 + tig * 2];
-        mma16816(s[n], qf[t], ld32(kr), ld32(kr + 8));
-        mma16816(dp[n], dof[t], ld32(vr), ld32(vr + 8));
-      }
-    }
-    const bool full = q0 + kT <= sq && k0 + kT <= sk &&
-                      (!causal || q0 >= k0 + kT - 1);
-    // dS = P * (dP - D), P = exp(S * scale - lse), in place in dp.
-#pragma unroll
-    for (int n = 0; n < kT / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int r = r_lo + half * 8;
-        const int key = k0 + n * 8 + tig * 2 + (e & 1);
-        const bool keep = full || (r < sq && key < sk && (!causal || r >= key));
-        const float p =
-            keep ? exp2f(fmaf(s[n][e], scale_log2, -lse_r[half])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - d_r[half]);
-      }
-    }
-    // dQ += dS K
-    mma_pb<HD>(dqacc, dp, ks, lane);
-  }
-  store_rows<HD>(dq + q_off, q_pitch, dqacc, scale, r_lo, sq, tig);
+__global__ void __launch_bounds__(kDotThreads)
+attn_bwd_convert(const float* __restrict__ acc, uint2* __restrict__ dq,
+                 int64_t n4, int sq, int sqp, int h, float scale) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kDotThreads + threadIdx.x;
+  if (i >= n4) return;
+  const int64_t row = i / (HD / 4);          // (b, s, head) of dq
+  const int head = static_cast<int>(row % h);
+  const int64_t bs = row / h;
+  const int64_t b = bs / sq, s = bs % sq;
+  const float4 x = *reinterpret_cast<const float4*>(
+      acc + ((b * h + head) * sqp + s) * HD + (i % (HD / 4)) * 4);
+  dq[i] = make_uint2(pack_bf16(x.x * scale, x.y * scale),
+                     pack_bf16(x.z * scale, x.w * scale));
 }
 
-// The dK/dV kernel's dynamic shared memory limit, once per device.
+// ------------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so
+// the library needs no -lcuda. Looked up once.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (hd, heads, S, B) map of a contiguous (B, S, heads, hd) bf16 tensor;
+// boxes of 64 columns x `rows` positions of one head and batch.
+bool encode(CUtensorMap* map, const void* ptr, int b, int s, int heads, int hd,
+            int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * hd * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2, row,
+                                 row * static_cast<cuuint64_t>(s)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (hd, rows) map of a contiguous (rows, hd) fp32 tensor; boxes of 32
+// columns x 64 rows, 128-byte swizzle.
+bool encode_acc(CUtensorMap* map, void* ptr, int64_t rows, int hd) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(hd) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(kBM)};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ptr, dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The main kernel's dynamic shared memory limit, once per device.
 template <int HD>
 cudaError_t prepare(int device) {
   static std::atomic<bool> done[kMaxDevices];
   if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<HD>::kDkdvSmem);
+      attn_bwd_main<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<HD>::kSmem);
   if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
   return err;
 }
@@ -431,49 +853,78 @@ cudaError_t prepare(int device) {
 template <int HD>
 int launch(int device, const void* q, const void* k, const void* v,
            const void* o, const void* lse, const void* d_o, void* dq,
-           void* dk, void* dv, void* dsum, int b, int sq, int sk, int h,
-           int kv, int causal, cudaStream_t stream) {
+           void* dk, void* dv, void* rowstats, void* dq_acc, void* counters,
+           int b, int sq, int sk, int h, int kv, int causal,
+           cudaStream_t stream) {
+  using bf = __nv_bfloat16;
   cudaError_t err = prepare<HD>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  using bf = __nv_bfloat16;
+  const int nqt = (sq + kBM - 1) / kBM, nkt = (sk + kBN - 1) / kBN;
+  const int sqp = nqt * kBM;
+  CUtensorMap tq, tk, tv, tdo, tacc;
+  if (!encode_acc(&tacc, dq_acc, static_cast<int64_t>(b) * h * sqp, HD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode(&tq, q, b, sq, h, HD, kBM) || !encode(&tdo, d_o, b, sq, h, HD, kBM) ||
+      !encode(&tk, k, b, sk, kv, HD, kBN) || !encode(&tv, v, b, sk, kv, HD, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
-  const int64_t rows = static_cast<int64_t>(b) * sq * h;
-  attn_bwd_dot<HD><<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
-                     kThreads, 0, stream>>>(
+  const int n_counters = b * h * nqt + 1;
+  const int64_t dot_threads = static_cast<int64_t>(b) * sqp * h * (HD / 8);
+  attn_bwd_dot<HD><<<static_cast<unsigned>((dot_threads + kDotThreads - 1) /
+                                           kDotThreads),
+                     kDotThreads, 0, stream>>>(
       static_cast<const bf*>(o), static_cast<const bf*>(d_o),
-      static_cast<float*>(dsum), rows, sq, h);
+      static_cast<const float*>(lse), static_cast<float*>(rowstats),
+      static_cast<int*>(counters), n_counters, b, sq, sqp, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv((sk + kT - 1) / kT, b * kv);
-  attn_bwd_dkdv<HD><<<grid_kv, kThreads, Tile<HD>::kDkdvSmem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(d_o),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk, h, kv, scale,
+  attn_bwd_main<HD><<<b * kv * nkt, kThreads, Cfg<HD>::kSmem, stream>>>(
+      tq, tk, tv, tdo, tacc, static_cast<const float*>(rowstats),
+      static_cast<int*>(counters),
+      static_cast<bf*>(dk), static_cast<bf*>(dv), b, sq, sk, h, kv, scale,
       causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((sq + kT - 1) / kT, b * h);
-  attn_bwd_dq<HD><<<grid_q, kThreads, 0, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(d_o),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf*>(dq), sq, sk, h, kv, scale, causal);
+  const int64_t n4 = static_cast<int64_t>(b) * sq * h * HD / 4;
+  attn_bwd_convert<HD><<<static_cast<unsigned>((n4 + kDotThreads - 1) /
+                                               kDotThreads),
+                         kDotThreads, 0, stream>>>(
+      static_cast<const float*>(dq_acc), static_cast<uint2*>(dq), n4, sq, sqp,
+      h, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int describe(int* out) {
+  using C = Cfg<HD>;
+  cudaFuncAttributes main_a, dot_a, conv_a;
+  cudaError_t err = cudaFuncGetAttributes(&main_a, attn_bwd_main<HD>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&dot_a, attn_bwd_dot<HD>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&conv_a, attn_bwd_convert<HD>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[10] = {kBN, kBM, C::kStages, kThreads, main_a.numRegs,
+                        kProducerRegs, kConsumerRegs, C::kSmem, dot_a.numRegs,
+                        conv_a.numRegs};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // namespace
 
 // q, o, d_o, dq: (b, sq, h, hd) bf16; k, v, dk, dv: (b, sk, kv, hd) bf16;
-// lse, dsum (scratch for D): (b, h, sq) fp32; all contiguous and 16-byte
+// lse: (b, h, sq) fp32; scratch: rowstats (2, b, h, sqp) fp32 with sqp =
+// 64 * ceil(sq / 64), dq_acc (b, h, sqp, hd) fp32, counters (b * h *
+// ceil(sq / 64) + 1) int32, none of it zeroed; all contiguous and 16-byte
 // aligned; h % kv == 0; sq, sk >= 1; hd in {64, 128} (else
-// cudaErrorInvalidValue). Three launches on `stream`: D, dK/dV, dQ.
+// cudaErrorInvalidValue). Three launches on `stream`: D (which zeroes the
+// counters), the main kernel, the dq conversion.
 extern "C" int rt_flash_attention_bwd(int device, const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* lse, const void* d_o,
                                       void* dq, void* dk, void* dv,
-                                      void* dsum, int b, int sq, int sk,
+                                      void* rowstats, void* dq_acc,
+                                      void* counters, int b, int sq, int sk,
                                       int h, int kv, int hd, int causal,
                                       void* stream) {
   if (device < 0 || device >= kMaxDevices)
@@ -482,40 +933,25 @@ extern "C" int rt_flash_attention_bwd(int device, const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch<64>(device, q, k, v, o, lse, d_o, dq, dk, dv, dsum, b, sq,
-                      sk, h, kv, causal, s);
+    return launch<64>(device, q, k, v, o, lse, d_o, dq, dk, dv, rowstats,
+                      dq_acc, counters, b, sq, sk, h, kv, causal, s);
   if (hd == 128)
-    return launch<128>(device, q, k, v, o, lse, d_o, dq, dk, dv, dsum, b, sq,
-                       sk, h, kv, causal, s);
+    return launch<128>(device, q, k, v, o, lse, d_o, dq, dk, dv, rowstats,
+                       dq_acc, counters, b, sq, sk, h, kv, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The kernels' registers per thread (cudaFuncGetAttributes) and shared
-// memory per CTA, into out[6]: D pass regs, dK/dV regs, dQ regs, dK/dV
-// dynamic smem, dQ static smem, threads per CTA.
+// The launch configuration for head dim hd, into out[10]: keys per CTA
+// tile, query rows per tile, ring stages, threads per CTA of the main
+// kernel, its registers per thread at launch (cudaFuncGetAttributes),
+// producer and consumer registers after setmaxnreg, its dynamic shared
+// memory bytes, and the D pass's and the conversion's registers.
 extern "C" int rt_flash_attention_bwd_config(int device, int hd, int* out) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes a0, a1, a2;
-  if (hd == 64) {
-    err = cudaFuncGetAttributes(&a0, attn_bwd_dot<64>);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a1, attn_bwd_dkdv<64>);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a2, attn_bwd_dq<64>);
-  } else if (hd == 128) {
-    err = cudaFuncGetAttributes(&a0, attn_bwd_dot<128>);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a1, attn_bwd_dkdv<128>);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a2, attn_bwd_dq<128>);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = a0.numRegs;
-  out[1] = a1.numRegs;
-  out[2] = a2.numRegs;
-  out[3] = hd == 64 ? Tile<64>::kDkdvSmem : Tile<128>::kDkdvSmem;
-  out[4] = static_cast<int>(a2.sharedSizeBytes);
-  out[5] = kThreads;
-  return 0;
+  if (hd == 64) return describe<64>(out);
+  if (hd == 128) return describe<128>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

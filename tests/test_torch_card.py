@@ -802,6 +802,18 @@ def _bwd_close(got, want):
     (2, 256, 190, 6, 3, 128, False),     # all pairs, Sk off the tile
     (1, 150, 64, 4, 4, 64, True),        # top-left causal, Sq > Sk
     (1, 1, 1, 2, 2, 64, True),           # one position
+    # the seams of the 128-key tile: a consumer's 64 keys all past Sk
+    # (129), exactly one tile (128), one key short (127)
+    (2, 127, 127, 4, 4, 64, True),
+    (1, 128, 128, 4, 2, 64, True),
+    (2, 129, 129, 4, 4, 128, False),
+    (1, 129, 129, 2, 2, 64, True),
+    # Sq > Sk across 128-key tiles: query tiles past the last key tile
+    # take every key tile's part, in order
+    (2, 400, 130, 4, 2, 64, True),
+    (1, 333, 257, 4, 4, 128, False),
+    (2, 300, 300, 4, 1, 128, True),      # MQA over 4 heads at hd 128
+    (1, 512, 512, 8, 2, 128, True),      # GQA 4:1 at hd 128, 4 key tiles
     *BWD_SHAPES,                         # chip_smoke's three shapes
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv,
@@ -820,6 +832,66 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv,
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     _bwd_close(got, ref.attention_bwd(q, k, v, o, lse, do, causal=causal))
     assert build.LAUNCHES["flash_attention_bwd"] == 2
+
+
+def _bwd_inputs(dev, b, sq, sk, h, kv, hd, causal):
+    q, k, v = _qkv(dev, b, sq, sk, h, kv, hd, seed=sq + sk + hd)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(sq), device=dev).bfloat16()
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (2, 1024, 1024, 8, 8, 64, True),     # causal: parts arrive in turn
+    (2, 512, 700, 4, 2, 128, False),     # all pairs: every tile waits
+])
+def test_flash_attention_bwd_gives_the_same_bits_five_times(cuda, b, sq, sk,
+                                                            h, kv, hd,
+                                                            causal):
+    args = _bwd_inputs(cuda, b, sq, sk, h, kv, hd, causal)
+    runs = [flash_attention_bwd(*args, causal=causal) for _ in range(5)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(run, runs[0]))
+    _bwd_close(runs[0], ref.attention_bwd(*args, causal=causal))
+    assert build.LAUNCHES["flash_attention_bwd"] == 5
+
+
+def test_flash_attention_bwd_needs_no_zeroed_scratch(cuda):
+    # The wrapper's scratch comes from torch.empty: the D pass zeroes the
+    # counters and the first part of each query tile stores, so a call
+    # whose scratch blocks held another call's values, or garbage, gives
+    # the same bits.
+    b, sq, sk, h, kv, hd = 2, 300, 300, 8, 2, 64
+    args = _bwd_inputs(cuda, b, sq, sk, h, kv, hd, True)
+    first = flash_attention_bwd(*args, causal=True)
+    second = flash_attention_bwd(*args, causal=True)
+    sqp = -(-sq // 64) * 64
+    junk = [torch.full((2, b, h, sqp), float("nan"), device=cuda),
+            torch.full((b, h, sqp, hd), float("nan"), device=cuda),
+            torch.full((b * h * (sqp // 64) + 1,), 7, dtype=torch.int32,
+                       device=cuda)]
+    del junk
+    third = flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    for run in (second, third):
+        assert all(torch.equal(x, y) for x, y in zip(run, first))
+    _bwd_close(first, ref.attention_bwd(*args, causal=True))
+    assert build.LAUNCHES["flash_attention_bwd"] == 3
+
+
+def test_flash_attention_bwd_config(cuda):
+    from repro_torch.kernels.flash_attention_bwd import CONFIG_FIELDS, config
+    for hd in (64, 128):
+        cfg = config(hd, cuda)
+        assert set(CONFIG_FIELDS) <= set(cfg) and cfg["tile_order"]
+        assert (cfg["block_n"], cfg["block_m"], cfg["threads"]) == \
+            (128, 64, 384)
+        assert cfg["stages"] >= 2 and 0 < cfg["regs"] <= 255
+        assert cfg["producer_regs"] < cfg["regs"] < cfg["consumer_regs"]
+        assert cfg["smem_bytes"] <= 232448
+    assert build.LAUNCHES["flash_attention_bwd"] == 0
 
 
 def test_flash_attention_with_and_without_lse_gives_equal_outputs(cuda):
@@ -848,6 +920,32 @@ def test_flash_attention_autograd_on_the_card_matches_the_plain_path(cuda):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
     _bwd_close(got_g, [w.float() for w in want_g])
+
+
+def test_flash_attention_bwd_is_as_close_to_float32_as_the_plain_path(cuda):
+    # The autograd test above holds the kernel against the plain path in
+    # bf16, whose own rounding is of the tolerance's size; here both are
+    # held against the float32 backward of the same bf16 inputs, over
+    # seeded draws of dO: the kernel's worst error is no larger than the
+    # plain bf16 path's.
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 2, 300, 300, 8, 4,
+                                                  64, seed=3))
+    qf, kf, vf = (x.detach().float() for x in (q, k, v))
+    o, lse = ref.attention_lse(qf, kf, vf, causal=True)
+    worst = {"kernel": 0.0, "plain": 0.0}
+    for draw in range(8):
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                         .manual_seed(1000 + draw), device=cuda).bfloat16()
+        true = ref.attention_bwd(qf, kf, vf, o, lse, do.float(), causal=True)
+        for name, fwd in (("kernel", ops.attention(q, k, v, causal=True)),
+                          ("plain", ref.attention(q, k, v, causal=True,
+                                                  block=64))):
+            grads = torch.autograd.grad(fwd, (q, k, v), do)
+            worst[name] = max(worst[name], *(
+                float((x.float() - t).abs().max())
+                for x, t in zip(grads, true)))
+    assert worst["kernel"] <= worst["plain"], worst
+    assert build.LAUNCHES["flash_attention_bwd"] == 8
 
 
 def test_flash_attention_bwd_refuses_what_it_does_not_take(cuda):

@@ -1,18 +1,27 @@
 """Attention's backward on the CPU: the plain versions against JAX's
 automatic differentiation of the reference's attention, the autograd
-function of the port, and a numpy replay of the backward kernel's tiling.
+function of the port, and a numpy replay of the backward kernel's
+schedule.
 
 The kernel itself runs only on the card (``test_torch_card.py``). Its
 arithmetic is held here through the plain version it is compared with
-there, and its schedule through the replay: key tiles for dK/dV (the
-group's query heads summed in one program), query tiles for dQ, and the
-tiles above the diagonal skipped, at the tile seams.
+there, and its schedule through the replay: one program per (batch, KV
+head, 128-key tile) in the kernel's tile-id order, which sums its keys'
+dK and dV over the group's query heads and the 64-row query tiles from
+the diagonal on, and adds its part of each query tile's dQ in the
+kernel's fixed order (descending key tile, the first part stored), at
+the tile seams. A second check replays the kernel's index arithmetic
+alone: a program only ever waits on programs with smaller ids, and each
+of them adds a part to the query tile waited for.
 
 Tolerances: float32 throughout. The plain versions against ``jax.vjp``
 at rtol = atol = 1e-5 (the same math, sums in another order: the largest
-gap measured is 1.7e-6); the replay against the plain version at 1e-5
-(another blocking of the same sums); ``FlashAttention`` on the CPU
-against torch's autograd of ``ref.attention`` at 1e-5.
+gap measured is 1.7e-6); the replay against the plain version and
+``jax.vjp`` at 1e-5 (another blocking of the same sums); the replay that
+rounds P and dS to bf16 where the kernel does, against the plain
+version at ``chip_smoke.BWD_REL_TOL`` in relative L2 (the card's bound
+for the kernel); ``FlashAttention`` on the CPU against torch's autograd
+of ``ref.attention`` at 1e-5.
 """
 import math
 import re
@@ -23,16 +32,17 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BWD_REL_TOL, BWD_SHAPES
 from repro.models.layers import block_causal_attention
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 TOL = 1e-5
 HD = 16
-#: rows per query tile and per key tile of csrc/flash_attention_bwd.cu
-TILE = int(re.search(r"constexpr int kT = (\d+);",
-                     (build.CSRC / "flash_attention_bwd.cu").read_text())
-           .group(1))
+_SRC = (build.CSRC / "flash_attention_bwd.cu").read_text()
+#: keys per CTA tile and query rows per tile of csrc/flash_attention_bwd.cu
+TILE = int(re.search(r"constexpr int kBN = (\d+);", _SRC).group(1))
+Q_TILE = int(re.search(r"constexpr int kBM = (\d+);", _SRC).group(1))
 
 
 def _inputs(seed, b, sq, sk, h, kv, hd=HD):
@@ -114,81 +124,112 @@ def test_backward_wrapper_on_cpu_returns_the_input_dtypes():
         assert torch.equal(a, b.bfloat16())
 
 
-def replay_bwd(q, k, v, o, lse, do, causal, tile=TILE, first_shift=0):
-    """The backward kernel's schedule in numpy (float32): attn_bwd_dot,
-    then one program per (batch, KV head, key tile) that sums its keys'
-    dK and dV over the group's query heads and the query tiles from the
-    diagonal on, then one per (batch, head, query tile) over the key
-    tiles up to the diagonal. ``first_shift`` moves the first query tile
-    of the dK/dV programs (a planted fault). Returns (dq, dk, dv, the
-    (query tile, key tile) pairs each pass visited)."""
+def tile_of(tile_id, kv, n_kt):
+    """(batch, KV head, key tile) of a main-kernel CTA's tile id: by
+    (batch, KV head), then key tile from last to first."""
+    kt = n_kt - 1 - tile_id % n_kt
+    return tile_id // n_kt // kv, tile_id // n_kt % kv, kt
+
+
+def query_tiles(kt, n_qt, causal, first_shift=0):
+    """The query tiles key tile ``kt`` walks per head: from the diagonal
+    on (causal; ``first_shift`` moves the start, a planted fault), else
+    all."""
+    first = min(kt * TILE // Q_TILE + first_shift, n_qt) if causal else 0
+    return range(first, n_qt)
+
+
+def turn_of(qt, kt, n_kt, causal):
+    """How many key tiles add their part of query tile ``qt`` before key
+    tile ``kt`` does: those above it that reach the tile."""
+    kt_max = min(n_kt - 1, (qt * Q_TILE + Q_TILE - 1) // TILE) \
+        if causal else n_kt - 1
+    return kt_max - kt
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)) \
+        .bfloat16().float().numpy()
+
+
+def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
+    """The backward kernel's schedule in numpy (float32): the D pass, then
+    one program per (batch, KV head, key tile) in tile-id order that sums
+    its keys' dK and dV over the group's query heads and the query tiles
+    from the diagonal on, and adds its dQ part of each query tile into
+    the accumulator in its turn (the first part stored). ``rounded``
+    rounds P and dS to bf16 where the kernel takes them as an operand;
+    ``first_shift`` moves the first query tile of each program (a planted
+    fault). Returns (dq, dk, dv, the (query tile, key tile) pairs visited
+    once per head, each query tile's key tiles in the order they added,
+    whether every part came in the turn the kernel computes for it)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
+    n_qt, n_kt = -(-Sq // Q_TILE), -(-Sk // TILE)
     scale = np.float32(1.0 / math.sqrt(hd))
     f32 = np.float32
     dsum = (do * o).sum(-1)                                  # (B, Sq, H)
-    dq = np.zeros_like(q)
     dk = np.zeros_like(k)
     dv = np.zeros_like(v)
+    dq_acc, order, visited = {}, {}, []
+    in_turn = True
+    rnd = _bf16 if rounded else (lambda x: x)
 
-    def rows(x, b, r0, n, head):
+    def rows(x, b, r0, n, head, tile):
         out = np.zeros((tile, x.shape[3]), f32)
         out[:max(0, min(tile, n - r0))] = x[b, r0:r0 + tile, head]
         return out
 
-    def keep(q0, k0):
-        qr = q0 + np.arange(tile)[:, None]
-        kr = k0 + np.arange(tile)[None, :]
-        m = (qr < Sq) & (kr < Sk)
-        return m & (qr >= kr) if causal else m
-
-    visited_kv, visited_q = [], []
-    for b in range(B):
-        for kvh in range(KV):
-            for k0 in range(0, Sk, tile):
-                kt, vt = rows(k, b, k0, Sk, kvh), rows(v, b, k0, Sk, kvh)
-                dk_acc = np.zeros((tile, hd), f32)
-                dv_acc = np.zeros((tile, hd), f32)
-                first = (k0 // tile + first_shift) * tile if causal else 0
-                for j in range(G):
-                    h = kvh * G + j
-                    for q0 in range(first, Sq, tile):
-                        visited_kv.append((q0 // tile, k0 // tile))
-                        qs, dos = rows(q, b, q0, Sq, h), rows(do, b, q0, Sq, h)
-                        lse_t = np.zeros(tile, f32)
-                        d_t = np.zeros(tile, f32)
-                        n = max(0, min(tile, Sq - q0))
-                        lse_t[:n] = lse[b, h, q0:q0 + n]
-                        d_t[:n] = dsum[b, q0:q0 + n, h]
-                        pt = np.where(keep(q0, k0).T,
-                                      np.exp(kt @ qs.T * scale - lse_t), 0)
-                        dv_acc += pt @ dos
-                        dst = pt * (vt @ dos.T - d_t)
-                        dk_acc += dst @ qs
-                n = min(tile, Sk - k0)
-                dk[b, k0:k0 + n, kvh] = (dk_acc * scale)[:n]
-                dv[b, k0:k0 + n, kvh] = dv_acc[:n]
-        for h in range(H):
-            kvh = h // G
-            for q0 in range(0, Sq, tile):
-                qs, dos = rows(q, b, q0, Sq, h), rows(do, b, q0, Sq, h)
-                n = min(tile, Sq - q0)
-                lse_t = np.zeros(tile, f32)
-                d_t = np.zeros(tile, f32)
+    for tile_id in range(B * KV * n_kt):
+        b, kvh, kt = tile_of(tile_id, KV, n_kt)
+        k0 = kt * TILE
+        kt_rows = rows(k, b, k0, Sk, kvh, TILE)
+        vt_rows = rows(v, b, k0, Sk, kvh, TILE)
+        dk_acc = np.zeros((TILE, hd), f32)
+        dv_acc = np.zeros((TILE, hd), f32)
+        kr = k0 + np.arange(TILE)[:, None]
+        for j in range(G):
+            h = kvh * G + j
+            for qt in query_tiles(kt, n_qt, causal, first_shift):
+                q0 = qt * Q_TILE
+                visited.append((qt, kt))
+                qs = rows(q, b, q0, Sq, h, Q_TILE)
+                dos = rows(do, b, q0, Sq, h, Q_TILE)
+                n = max(0, min(Q_TILE, Sq - q0))
+                lse_t = np.full(Q_TILE, np.inf, f32)   # P = 0 past Sq
+                d_t = np.zeros(Q_TILE, f32)
                 lse_t[:n] = lse[b, h, q0:q0 + n]
                 d_t[:n] = dsum[b, q0:q0 + n, h]
-                k_end = min(Sk, q0 + tile) if causal else Sk
-                dq_acc = np.zeros((tile, hd), f32)
-                for k0 in range(0, k_end, tile):
-                    visited_q.append((q0 // tile, k0 // tile))
-                    kt, vt = rows(k, b, k0, Sk, kvh), rows(v, b, k0, Sk, kvh)
-                    p = np.where(keep(q0, k0),
-                                 np.exp(qs @ kt.T * scale - lse_t[:, None]), 0)
-                    ds = p * (dos @ vt.T - d_t[:, None])
-                    dq_acc += ds @ kt
-                dq[b, q0:q0 + n, h] = (dq_acc * scale)[:n]
-    return dq, dk, dv, visited_kv, visited_q
+                qr = q0 + np.arange(Q_TILE)[None, :]
+                keep = (kr < Sk) & (qr >= kr) if causal else (kr < Sk)
+                pt = np.where(keep, np.exp(kt_rows @ qs.T * scale - lse_t), 0)
+                dst = pt * (vt_rows @ dos.T - d_t)
+                dv_acc += rnd(pt) @ dos
+                dk_acc += rnd(dst) @ qs
+                part = rnd(dst).T @ kt_rows                # (Q_TILE, hd)
+                added = order.setdefault((b, h, qt), [])
+                in_turn &= len(added) == turn_of(qt, kt, n_kt, causal)
+                if added:
+                    dq_acc[b, h, qt] += part
+                else:
+                    dq_acc[b, h, qt] = part
+                added.append(kt)
+        n = min(TILE, Sk - k0)
+        dk[b, k0:k0 + n, kvh] = (dk_acc * scale)[:n]
+        dv[b, k0:k0 + n, kvh] = dv_acc[:n]
+    dq = np.zeros_like(q)
+    for (b, h, qt), acc in dq_acc.items():
+        n = min(Q_TILE, Sq - qt * Q_TILE)
+        dq[b, qt * Q_TILE:qt * Q_TILE + n, h] = (acc * scale)[:n]
+    return dq, dk, dv, visited, order, in_turn
+
+
+def _pairs(sq, sk, causal):
+    """The (query tile, key tile) pairs the kernel visits per head."""
+    n_qt, n_kt = -(-sq // Q_TILE), -(-sk // TILE)
+    return [(i, j) for j in range(n_kt)
+            for i in query_tiles(j, n_qt, causal)]
 
 
 @pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 2 * TILE + 3])
@@ -198,28 +239,114 @@ def test_replay_of_the_kernel_tiling_matches_plain(n, causal, h, kv):
     sk = n if causal else n + 5
     q, k, v, do = _inputs(n + h, 1, n, sk, h, kv)
     o, lse, want = _plain(q, k, v, do, causal)
-    dq, dk, dv, vis_kv, vis_q = replay_bwd(q, k, v, o, lse, do, causal)
+    dq, dk, dv, visited, order, in_turn = replay_bwd(q, k, v, o, lse, do,
+                                                     causal)
+    assert in_turn
     for got, w in zip((dq, dk, dv), want):
         np.testing.assert_allclose(got, w, rtol=TOL, atol=TOL)
-    tiles_q, tiles_k = -(-n // TILE), -(-sk // TILE)
-    pairs = ([(i, j) for i in range(tiles_q) for j in range(i + 1)]
-             if causal else
-             [(i, j) for i in range(tiles_q) for j in range(tiles_k)])
+    pairs = _pairs(n, sk, causal)
     # each program visits only the pairs at or below the diagonal, once
-    # per query head of the group (dK/dV) or per head (dQ)
-    assert sorted(set(vis_kv)) == sorted(pairs)
-    assert len(vis_kv) == len(pairs) * h
-    assert sorted(set(vis_q)) == sorted(pairs)
-    assert len(vis_q) == len(pairs) * h
+    # per query head of its group; every query tile takes a part from
+    # each key tile that reaches it, in descending key-tile order
+    assert sorted(set(visited)) == sorted(pairs)
+    assert len(visited) == len(pairs) * h
+    n_qt = -(-n // Q_TILE)
+    assert sorted(order) == [(0, hh, qt) for hh in range(h)
+                             for qt in range(n_qt)]
+    for (_, _, qt), kts in order.items():
+        assert kts == sorted((j for i, j in pairs if i == qt), reverse=True)
+
+
+@pytest.mark.parametrize("sq,sk,causal,h,kv,hd", [
+    (2 * TILE + 3, 2 * TILE + 3, True, 4, 2, HD),
+    (Q_TILE + 7, 2 * TILE + 9, False, 4, 1, 2 * HD),
+])
+def test_replay_matches_jax_vjp(sq, sk, causal, h, kv, hd):
+    q, k, v, do = _inputs(sq + sk, 2, sq, sk, h, kv, hd)
+
+    @jax.jit
+    def forward_and_vjp(a, b, c, d):
+        out, vjp = jax.vjp(lambda x, y, z: block_causal_attention(
+            x, y, z, causal=causal), a, b, c)
+        return out, vjp(d)
+    out, want = forward_and_vjp(*(jnp.asarray(x) for x in (q, k, v, do)))
+    o, lse, _ = _plain(q, k, v, do, causal)
+    got = replay_bwd(q, k, v, o, lse, do, causal)[:3]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("sq,sk,causal,h,kv", [
+    (2 * TILE + 3, 2 * TILE + 3, True, 4, 2),
+    (TILE + 1, 3 * TILE - 5, False, 2, 1),
+])
+def test_replay_rounded_where_the_kernel_rounds_is_within_the_card_bound(
+        sq, sk, causal, h, kv):
+    q, k, v, do = _inputs(sq * 3 + sk, 1, sq, sk, h, kv, 64)
+    o, lse, want = _plain(q, k, v, do, causal)
+    got = replay_bwd(q, k, v, o, lse, do, causal, rounded=True)[:3]
+    for g, w in zip(got, want):
+        rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+        # the roundings show (the bf16 step is 2**-9) and stay inside the
+        # bound the card holds the kernel to
+        assert 1e-4 < rel <= BWD_REL_TOL
+
+
+def _schedule_checks(B, sq, sk, h, kv, causal):
+    """Replay the main kernel's index arithmetic: every (program, head,
+    query tile) with a turn waits only on programs of smaller id, and
+    exactly ``turn`` of them add a part of that query tile before it."""
+    n_qt, n_kt = -(-sq // Q_TILE), -(-sk // TILE)
+    G = h // kv
+    adders = {}                       # (b, head, qt) -> [(tile id, kt)]
+    for tile_id in range(B * kv * n_kt):
+        b, kvh, kt = tile_of(tile_id, kv, n_kt)
+        for j in range(G):
+            for qt in query_tiles(kt, n_qt, causal):
+                adders.setdefault((b, kvh * G + j, qt), []).append(
+                    (tile_id, kt))
+    assert len(adders) == B * h * n_qt       # every query tile gets a part
+    waits = 0
+    parts_all = sum(len(p) for p in adders.values())
+    for (b, head, qt), parts in adders.items():
+        for tile_id, kt in parts:
+            turn = turn_of(qt, kt, n_kt, causal)
+            before = [i for i, j in parts if j > kt]
+            assert len(before) == turn
+            assert all(i < tile_id for i in before)
+            waits += turn > 0
+    # one part of each query tile stores and every other one waits
+    assert waits == parts_all - B * h * n_qt
+    return waits
+
+
+@pytest.mark.parametrize("shape", [
+    *BWD_SHAPES,     # (B, Sq, Sk, H, KV, hd, causal)
+    # ragged causal, Sq > Sk, Sq < Sk, MQA, one position
+    (2, 333, 333, 4, 2, 64, True),
+    (1, 700, 130, 4, 4, 64, True),
+    (1, 100, 700, 8, 1, 128, True),
+    (3, 257, 129, 8, 1, 64, False),
+    (1, 1, 1, 2, 2, 64, True),
+])
+def test_tile_order_waits_only_on_smaller_ids(shape):
+    B, sq, sk, h, kv, _, causal = shape
+    waits = _schedule_checks(B, sq, sk, h, kv, causal)
+    # several key tiles reach a query tile unless Sk is one tile, or
+    # (causal) every query row sits above the second key tile
+    assert (waits > 0) == (sk > TILE and (not causal or sq > TILE))
 
 
 def test_replay_that_skips_the_diagonal_tile_is_caught():
     n = 2 * TILE + 3
     q, k, v, do = _inputs(1, 1, n, n, 4, 2)
     o, lse, want = _plain(q, k, v, do, True)
-    _, dk, dv, _, _ = replay_bwd(q, k, v, o, lse, do, True, first_shift=1)
+    _, dk, dv, _, _, in_turn = replay_bwd(q, k, v, o, lse, do, True,
+                                          first_shift=1)
     assert not np.allclose(dk, want[1], rtol=TOL, atol=TOL)
     assert not np.allclose(dv, want[2], rtol=TOL, atol=TOL)
+    # and dQ's parts no longer arrive in the turns the kernel waits for
+    assert not in_turn
 
 
 def test_chip_smoke_pads_the_planted_fault_to_the_backward_tile():
@@ -227,4 +354,4 @@ def test_chip_smoke_pads_the_planted_fault_to_the_backward_tile():
     assert chip_smoke.BWD_TILE == TILE
     # the all-pairs shape has a ragged key tile, so its fault is real
     assert any(not causal and sk % TILE
-               for _, _, sk, *_, causal in chip_smoke.BWD_SHAPES)
+               for _, _, sk, *_, causal in BWD_SHAPES)
