@@ -10,6 +10,14 @@ Phases, one line each:
   2. build    — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``
      (and the flash library's SASS must hold Hopper's HGMMA and
                 UTMALDG instructions: wgmma and TMA loads)
+     lint     — the port's invariant lint (python -m repro_torch.analysis)
+                over src/repro_torch: exit 0, no unsuppressed finding, a
+                reason on every suppression; a planted tree under build/
+                (a bare torch.sort in core/merge.py, a clock in a core
+                module, an in-place write to a sealed lane) exits 1 with
+                each flagged by its rule; LINT through the statement door
+                on a Repo on the card and `datagit lint --format json`
+                give the runner's findings
   3. kernels  — each kernel at the main path's shapes against its plain
                 PyTorch version on the same inputs (the integer kernels
                 EXACTLY equal, flash attention within atol = rtol = 2e-2
@@ -33,6 +41,12 @@ Phases, one line each:
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
                 GOLDEN_APPLY again from an evicted store
+     examples — repro_torch.examples.quickstart and
+                data_engineering_workflow (100,000 rows each) with
+                --device cpu and --device cuda in processes of their own:
+                the card's stdout byte-equal to the CPU's, the card run's
+                seconds and its launches by kernel (all four VCS kernels
+                launched)
   5. mainpath — TPC-H SF1 lineitem (6,001,215 rows), PK and NoPK: load,
                 snapshot, clone, a 100,000-row update (change set C4),
                 cold and warm SNAPSHOT DIFF, SQL diff and a three-way
@@ -128,8 +142,8 @@ It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
-tiers, both modes; flash from serving and training, its backward from
-training). The full record goes to ``build/chip_smoke.json``.
+tiers, both modes, and the examples; flash from serving and training,
+its backward from training). The full record goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -140,6 +154,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -517,13 +532,13 @@ def flash_close(torch, got, want):
 
 
 def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
-                plain: bool = True, tiles: bool = False) -> list:
+                tiles: bool = False) -> list:
     """The flash kernel against its plain version (bf16, FLASH_TOL) and
     scaled_dot_product_attention (timed only) at ``shapes``: CUDA-event
     time over back-to-back launches (as every kernel here), the device
     time of the kernel and of SDPA from a profiler trace, TFLOP/s, and
-    the launch configuration. ``plain`` also times the plain version;
-    ``tiles`` also checks and times the kernel with each CTA tile forced
+    the launch configuration, and the plain version's time; ``tiles``
+    also checks and times the kernel with each CTA tile forced
     (64 and 128 query rows), which tests its choice of tile."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import config, flash_attention
@@ -590,7 +605,7 @@ def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
             "device_ms": dev_ms,
             "device_tflops": flops / dev_ms / 1e9 if dev_ms else None,
             "plain_ms": cuda_ms(torch, lambda: ref.attention(
-                q, k, v, causal=causal, block=256), 3) if plain else None,
+                q, k, v, causal=causal, block=256), 3),
             "library_ms": cuda_ms(torch, lib, 20),
             "library_device_ms": lib_dev_ms,
             "device_vs_library": dev_ms / lib_dev_ms
@@ -713,6 +728,8 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
                            4.0 * b * h * hd * attention_pairs(sq, sk, causal))
         forward_lse = {"ms": cuda_ms(torch, fwd, 20),
                        "device_ms": per_launch_ms(fwd, "flash_fwd"),
+                       "plain_ms": cuda_ms(torch, lambda: ref.attention_lse(
+                           q, k, v, causal=causal, block=256), 3),
                        "bound_ms": f_ms, "bound_by": f_by,
                        "library_ms": cuda_ms(torch, lib_fwd, 20),
                        "library_device_ms": per_launch_ms(lib_fwd, "")}
@@ -2075,6 +2092,16 @@ def tiers_engine(pk: bool, rows: int, change: int, device="cuda"):
     return engine, base, pre
 
 
+def traced_fsck(engine, **kw):
+    """fsck under an armed tracer: its report, and its host seconds by
+    layer read from the fsck layer spans."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.fsck import fsck, layer_seconds
+    with telemetry.trace(engine) as tracer:
+        report = fsck(engine, **kw)
+    return report, layer_seconds(tracer)
+
+
 def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
                 seed: int, device="cuda", root=None) -> dict:
     """The durability-and-tiers slice on the SF1 engine after its doors
@@ -2099,7 +2126,7 @@ def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
 
     from repro_torch.benchmarks.digests import diff_digest
     from repro_torch.benchmarks.vcs_tables import _random_update
-    from repro_torch.core import fsck, snapshot_diff, sql_diff
+    from repro_torch.core import snapshot_diff, sql_diff
     from repro_torch.core.faults import corrupt_object_bit, flip_bit
     from repro_torch.core.objects import lane_nbytes
     from repro_torch.core.wal import CRC32C_IMPL
@@ -2188,8 +2215,8 @@ def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
             del d
 
         # 3. fsck, every layer
-        rep = step("fsck", lambda: fsck(engine, sample=1.0,
-                                        check_replay=True))
+        rep, rep_s = step("fsck", lambda: traced_fsck(
+            engine, sample=1.0, check_replay=True))
         check(rep.ok, f"fsck: {[str(i) for i in rep.issues][:4]}")
         check(not on_gpu or steps["fsck"]["launches"].get("rowhash", 0),
               "fsck launched no rowhash")
@@ -2197,7 +2224,7 @@ def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
                     "rows_verified": rep.rows_verified,
                     "packs": rep.packs_checked,
                     "replay_checked": rep.replay_checked,
-                    "seconds": rep.seconds}
+                    "seconds": rep_s}
 
         # 4. remotes: push, shallow clone on the card, a C4 change pushed
         # from the clone and pulled back
@@ -2253,9 +2280,8 @@ def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
         corrupt_object_bit(st2.get(x), row=0, bit=5)
         st2.get(y)
         flip_bit(st2.packs.path(st2.digest_of(y)), 200)
-        bad = step("fsck_repair", lambda: fsck(engine2, repair=True,
-                                                check_replay=False),
-                   engine2)
+        bad, bad_s = step("fsck_repair", lambda: traced_fsck(
+            engine2, repair=True, check_replay=False), engine2)
         got = sorted((i.kind, i.oid) for i in bad.issues)
         check(got == sorted([("signature_mismatch", x),
                              ("pack_corrupt", y)]),
@@ -2265,7 +2291,7 @@ def tiers_phase(torch, pk: bool, engine, base, pre, change: int,
         planted = {"issues": [list(g) for g in got],
                    "quarantined": bad.quarantined,
                    "refs_unreachable": len(bad.refs_unreachable),
-                   "seconds": bad.seconds}
+                   "seconds": bad_s}
         del engine2
     launches = dict(build.LAUNCHES)
     shapes = shape_record(launches, *hists)
@@ -2698,6 +2724,180 @@ def train_phase(torch, seed: int) -> dict:
 
 # --------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ lint
+
+#: the lint phase's planted tree: one module for each of three rules, each
+#: holding one finding that rule must flag
+LINT_PLANTED = {
+    "src/repro_torch/core/merge.py": (
+        "hidden-sort",
+        "import torch\n\n\ndef order(x):\n    return torch.sort(x).indices\n"),
+    "src/repro_torch/core/clocky.py": (
+        "wal-hygiene",
+        "import time\n\n\ndef stamp():\n    return time.perf_counter()\n"),
+    "src/repro_torch/core/rot.py": (
+        "sealed-write",
+        "def rot(obj):\n    obj.key_lo.view(-1).add_(1)\n"),
+}
+
+
+def run_src(argv, **kw):
+    """Run ``argv`` from the checkout's root with ``src`` on the path."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, **kw)
+
+
+def finish(proc, what: str, timeout: float = 600):
+    """Wait for ``proc``; its (returncode, stdout, stderr) as text."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"{what} did not finish in {timeout} s")
+    return proc.returncode, out.decode(), err.decode()
+
+
+def lint_phase(device="cuda", root=None) -> dict:
+    """The port's invariant lint on the host: ``python -m
+    repro_torch.analysis`` over ``src/repro_torch`` must exit 0 with 0
+    unsuppressed findings and a reason on every suppression; a planted
+    tree (under ``root``, ``build/lint_planted``) must exit 1 with each of
+    its modules flagged by its rule; ``LINT`` through the statement door
+    on a ``Repo`` on ``device`` and ``datagit lint --format json`` must
+    give the runner's findings."""
+    from repro_torch.analysis import (default_paths, discover_count,
+                                      repo_root, run_analysis, to_json)
+    from repro_torch.core import Repo, execute
+
+    t0 = time.perf_counter()
+    rc, out, err = finish(run_src(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json"]),
+        "python -m repro_torch.analysis")
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"python -m repro_torch.analysis exited {rc}: "
+          f"{out[-2000:]}{err[-2000:]}")
+    doc = json.loads(out)
+    check(doc["counts"]["findings"] == 0,
+          f"{doc['counts']['findings']} unsuppressed lint finding(s)")
+    check(all(f["reason"] for f in doc["findings"] if f["suppressed"]),
+          "a lint suppression has no reason")
+    by_rule = collections.Counter(f["rule"] for f in doc["findings"]
+                                  if f["suppressed"])
+
+    planted = Path(root or ROOT / "build" / "lint_planted")
+    shutil.rmtree(planted, ignore_errors=True)
+    for rel, (_, src) in LINT_PLANTED.items():
+        (planted / rel).parent.mkdir(parents=True, exist_ok=True)
+        (planted / rel).write_text(src)
+    t0 = time.perf_counter()
+    rc_bad, out, err = finish(run_src(
+        [sys.executable, "-m", "repro_torch.analysis", str(planted),
+         "--format", "json"]), "the planted lint")
+    planted_s = time.perf_counter() - t0
+    check(rc_bad == 1, f"the planted tree's lint exited {rc_bad}: "
+          f"{err[-2000:]}")
+    # paths from the checkout's root when build/ lies inside it: compare
+    # them from their src/ directory on
+    flagged = sorted((f["path"][f["path"].rindex("src/"):], f["rule"])
+                     for f in json.loads(out)["findings"]
+                     if not f["suppressed"])
+    want = sorted((rel, rule) for rel, (rule, _) in LINT_PLANTED.items())
+    check(flagged == want, f"the planted tree flagged {flagged}")
+
+    root_ = repo_root()
+    paths = default_paths(root_)
+    t0 = time.perf_counter()
+    findings = run_analysis(paths, root=root_)
+    in_process_s = time.perf_counter() - t0
+    res = execute(Repo(device=device), "LINT")
+    check(res.kind == "lint" and res.data == findings,
+          "LINT through the statement door differs from the runner")
+    rc_cli, out, err = finish(run_src(
+        [sys.executable, "-m", "repro_torch.vcs_cli", "lint", "--format",
+         "json"]), "datagit lint")
+    check(rc_cli == 0 and json.loads(out) == to_json(
+        findings, discover_count(paths)),
+        f"datagit lint (exit {rc_cli}) differs from the runner: "
+        f"{err[-2000:]}")
+    return {"files": doc["counts"]["files"],
+            "findings": doc["counts"]["findings"],
+            "suppressed": doc["counts"]["suppressed"],
+            "suppressed_by_rule": dict(sorted(by_rule.items())),
+            "seconds": seconds, "in_process_s": in_process_s,
+            "planted": {"exit": rc_bad, "flagged": flagged,
+                        "seconds": planted_s},
+            "statement_door": "equal", "datagit_lint": "equal"}
+
+
+# -------------------------------------------------------------- examples
+
+#: the port's VCS examples (``repro_torch.examples.<name>``)
+EXAMPLES = ("quickstart", "data_engineering_workflow")
+#: runs one example in a process of its own: its stdout is the example's
+#: alone, and the last line of its stderr holds the seconds of ``main``
+#: (to a sync on the card) and the kernels' launches in that window
+EXAMPLE_RUNNER = """
+import importlib, json, sys, time
+import torch
+from repro_torch.kernels import build
+name, device = sys.argv[1:3]
+mod = importlib.import_module("repro_torch.examples." + name)
+build.reset_launches()
+t0 = time.perf_counter()
+mod.main(["--device", device])
+if device == "cuda":
+    torch.cuda.synchronize()
+s = time.perf_counter() - t0
+sys.stdout.flush()
+print(json.dumps({"s": s, "launches": dict(build.LAUNCHES)}),
+      file=sys.stderr)
+"""
+
+
+def run_example(name: str, device: str):
+    return run_src([sys.executable, "-c", EXAMPLE_RUNNER, name, device])
+
+
+def examples_phase(device="cuda") -> dict:
+    """Each VCS example with ``--device cpu`` (both started together) and
+    then with ``--device <device>`` (one after another, so the host is
+    the card run's alone): the card's stdout must equal the CPU's byte
+    for byte, and on the card every VCS kernel must be launched (both
+    examples reach all four on the plain path). Records each card run's
+    wall seconds (the process, and ``main`` to a sync), its launches by
+    kernel, and the CPU run's ``main`` seconds (which ran beside the
+    other CPU run)."""
+    from repro_torch.kernels import build
+
+    plain, plain_s = {}, {}
+    for name, proc in [(n, run_example(n, "cpu")) for n in EXAMPLES]:
+        rc, out, err = finish(proc, f"{name} --device cpu")
+        check(rc == 0, f"{name} --device cpu exited {rc}: {err[-2000:]}")
+        plain[name] = out
+        plain_s[name] = json.loads(err.strip().splitlines()[-1])["s"]
+    rec = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        rc, out, err = finish(run_example(name, device),
+                              f"{name} --device {device}")
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{name} --device {device} exited {rc}: "
+              f"{err[-2000:]}")
+        check(out == plain[name], f"{name}: the stdout with --device "
+              f"{device} differs from the CPU's")
+        run = json.loads(err.strip().splitlines()[-1])
+        launches = run["launches"]
+        if device == "cuda":
+            check(all(launches[k] > 0 for k in build.VCS_SOURCES),
+                  f"{name} left a VCS kernel unlaunched: {launches}")
+        rec[name] = {"stdout_equal": True, "lines": out.count("\n"),
+                     "wall_s": wall, "main_s": run["s"],
+                     "cpu_main_s": plain_s[name], "launches": launches}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=SF1_ROWS,
@@ -2738,6 +2938,7 @@ def main(argv=None) -> int:
         record["build"] = phase("build", seconds=seconds,
                                 sources=list(build.SOURCES),
                                 flash_sass=hopper_sass(build))
+        record["lint"] = phase("lint", **lint_phase())
 
         kern = kernel_phase(torch, args.seed)
         record["kernels"] = kern
@@ -2750,11 +2951,12 @@ def main(argv=None) -> int:
                                 | {f: e[f] for f in flash_extra if f in e}
                                 for e in v] for k, v in kern.items()})
         flash_serve = flash_phase(torch, args.seed, FLASH_SERVE_SHAPES,
-                                  plain=False, tiles=True)
+                                  tiles=True)
         record["flash_serve"] = phase("flash_serve", rows=[
             {f: e[f] for f in ("shape", "ok", "rel_l2_err", "ms", "tflops",
-                               "device_ms", "device_tflops", "library_ms",
-                               "library_device_ms", "bound_ms")}
+                               "device_ms", "device_tflops", "plain_ms",
+                               "library_ms", "library_device_ms",
+                               "bound_ms")}
             | {"block_m": e["config"]["block_m"],
                "device_ms_by_block_m": {bm: t["device_ms"] for bm, t in
                                         e["by_block_m"].items()}}
@@ -2780,6 +2982,8 @@ def main(argv=None) -> int:
                   f"(pk={pk}): {bad}")
             gold[("pk" if pk else "nopk") + "_evicted"] = "match"
         record["golden"] = phase("golden", **gold)
+        examples = examples_phase()
+        record["examples"] = phase("examples", **examples)
 
         runs, flows, doors, tiers = [], [], [], []
         for pk in (True, False):
@@ -2887,9 +3091,9 @@ def main(argv=None) -> int:
         return 1
 
     # every path's window: the main path's, the workflow's, the doors' and
-    # the tiers', both modes
+    # the tiers', both modes, and both examples'
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
-                       + tiers)
+                       + tiers + list(examples.values()))
                 for k in build.VCS_SOURCES}
     # attention: the serve window's and the train window's
     launches["flash_attention"] = serve["flash_launches"] \

@@ -36,8 +36,7 @@ from .fsck import FsckIssue, FsckReport, fsck                  # noqa: F401
 from .refs import (AmbiguousRefError, Ref, RefSyntaxError,     # noqa: F401
                    ResolvedRef, UnknownRefError, as_branch,
                    format_ref, parse_ref, resolve)
-from .repo import (MODE_ALIASES, NotPortedError, Repo,         # noqa: F401
-                   parse_mode)
+from .repo import MODE_ALIASES, Repo, parse_mode               # noqa: F401
 from .workspace import (TRUNK, Branch, CheckContext,           # noqa: F401
                         CheckResult, PublishBlocked, PullRequest,
                         RevertConflict)

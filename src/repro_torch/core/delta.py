@@ -305,6 +305,8 @@ def _signed_delta(store: ObjectStore, a: Directory, b: Directory,
                               .flatten())
         # each part is already sorted & duplicate-free
         cand = (cand_parts[0] if len(cand_parts) == 1
+                # lint: sort-ok multi-part candidate dedup is off the
+                # dominant single-part path; parts are tiny tombstone sets
                 else torch.unique(torch.cat(cand_parts)))
         if cand.shape[0] == 0:
             stats.objects_skipped_shared += 1

@@ -159,6 +159,8 @@ class Txn:
             from .indices import maintain_on_commit
             for name in list(self._ins.keys() | self._del.keys()):
                 if name in self.engine.indices:
+                    # lint: sort-ok delete-target dedup at commit time —
+                    # targets arrive from arbitrary staging order
                     dels = (torch.unique(torch.cat(self._del[name]))
                             if self._del.get(name)
                             else torch.zeros((0,), dtype=torch.int64,
@@ -351,8 +353,8 @@ class Engine:
     def _seal_tombstones(self, targets: torch.Tensor, ts: int) -> List[int]:
         if targets.shape[0] == 0:
             return []
-        # rowid-sorted targets group their oids contiguously, so one
-        # boundary pass gathers every object's key lanes
+        # lint: sort-ok tombstone targets must be rowid-sorted so the
+        # one boundary pass below can gather per-object key lanes
         targets = torch.sort(targets).values
         klo = torch.empty_like(targets)
         khi = torch.empty_like(targets)
@@ -400,8 +402,8 @@ class Engine:
             try:
                 for name in names:
                     t = self.table(name)
-                    # delete-target dedup (targets arrive from arbitrary
-                    # staging order)
+                    # lint: sort-ok delete-target dedup at commit time —
+                    # targets arrive from arbitrary staging order
                     dels = (torch.unique(torch.cat(tx._del[name]))
                             if tx._del.get(name)
                             else torch.zeros((0,), dtype=torch.int64,
@@ -414,6 +416,8 @@ class Engine:
                             raise TxnConflict(
                                 f"{name}: delete target already deleted")
                         live_oids = set(t.directory.data_oids)
+                        # lint: sort-ok per-object liveness check — unique
+                        # oids, not rows; a handful of values per commit
                         for oid in torch.unique(rowid_oid(dels)).tolist():
                             if int(oid) not in live_oids:
                                 raise TxnConflict(

@@ -25,7 +25,10 @@ self-contained integrity check — no external checksum database needed.
 The report equals the reference's on the same history: the same issue
 kinds, places, oids and counts (sampling draws with
 ``np.random.default_rng(seed)`` exactly as the reference does, so both
-verify the same objects). ``FsckReport.seconds`` splits the run by layer.
+verify the same objects). Each layer runs in a telemetry span of its own
+(``fsck.objects``, ``fsck.signatures`` once per recomputed object,
+``fsck.packs``, ``fsck.replay``); :func:`layer_seconds` reads the run's
+host seconds by layer from an armed tracer. fsck reads no clock itself.
 
 ``repair=True`` is salvage, not undo: corrupt/missing objects are
 quarantined (dropped from the store and scrubbed from every directory),
@@ -38,7 +41,6 @@ longer replay-matches its log, and the report says so.
 from __future__ import annotations
 
 import hashlib
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -52,11 +54,26 @@ from .directory import Directory
 from .objects import DataObject, TombstoneObject, rowid_oid
 from .sigs import compute_sigs
 
-__all__ = ["FsckIssue", "FsckReport", "fsck"]
+__all__ = ["FsckIssue", "FsckReport", "fsck", "layer_seconds"]
 
 SP_FSCK = telemetry.register_span(
     "fsck", "integrity verification: objects, reachability, refs, packs, "
     "replay round-trip")
+#: one span per layer, by the layer's name in :func:`layer_seconds`
+LAYER_SPANS = {
+    "objects": telemetry.register_span(
+        "fsck.objects", "fsck layer: reachability, refs, every object's "
+                        "fault-in, structure and sortedness (its "
+                        "fsck.signatures spans nest inside)"),
+    "signatures": telemetry.register_span(
+        "fsck.signatures", "fsck layer: one data object's rowhash "
+                           "recompute and compare"),
+    "packs": telemetry.register_span(
+        "fsck.packs", "fsck layer: every packed oid's pack file verified"),
+    "replay": telemetry.register_span(
+        "fsck.replay", "fsck layer: the WAL round-trip replay and its "
+                       "digests"),
+}
 
 
 @dataclass
@@ -89,10 +106,6 @@ class FsckReport:
     quarantined: List[int] = field(default_factory=list)
     refs_unreachable: List[str] = field(default_factory=list)
     indices_rebuilt: List[str] = field(default_factory=list)
-    # host seconds by layer: objects (fault-in and structure), signatures
-    # (the rowhash recompute and compare), packs, replay
-    seconds: Dict[str, float] = field(default_factory=dict, compare=False,
-                                      repr=False)
 
     @property
     def ok(self) -> bool:
@@ -204,22 +217,21 @@ def _check_data_object(obj: DataObject, schema, where: str,
     if (not verify_sigs or schema is None
             or tuple(schema.names) != tuple(obj.cols)):
         return
-    t0 = time.perf_counter()
-    rlo, rhi, klo, khi, lob = compute_sigs(schema, obj.cols)
-    mism = (rlo != obj.row_lo) | (rhi != obj.row_hi)
-    if schema.has_pk:
-        mism |= (klo != obj.key_lo) | (khi != obj.key_hi)
-    for cname, sig in lob.items():
-        mism |= sig != obj.lob_sigs[cname]
-    if bool(mism.any()):
-        rows = torch.nonzero(mism).flatten()
-        report.issues.append(FsckIssue(
-            "signature_mismatch", where,
-            f"{rows.shape[0]} row(s) disagree with carried signatures "
-            f"(first at row {int(rows[0])})", obj.oid))
-    else:
-        report.rows_verified += n
-    report.seconds["signatures"] += time.perf_counter() - t0
+    with telemetry.span(LAYER_SPANS["signatures"]):
+        rlo, rhi, klo, khi, lob = compute_sigs(schema, obj.cols)
+        mism = (rlo != obj.row_lo) | (rhi != obj.row_hi)
+        if schema.has_pk:
+            mism |= (klo != obj.key_lo) | (khi != obj.key_hi)
+        for cname, sig in lob.items():
+            mism |= sig != obj.lob_sigs[cname]
+        if bool(mism.any()):
+            rows = torch.nonzero(mism).flatten()
+            report.issues.append(FsckIssue(
+                "signature_mismatch", where,
+                f"{rows.shape[0]} row(s) disagree with carried signatures "
+                f"(first at row {int(rows[0])})", obj.oid))
+        else:
+            report.rows_verified += n
 
 
 def _check_tombstone(obj: TombstoneObject, where: str,
@@ -256,25 +268,10 @@ def _is_data(store, oid: int) -> bool:
     return not store._packed[oid][1]
 
 
-def fsck(engine, *, sample: float = 1.0, check_replay: bool = True,
-         repair: bool = False, seed: int = 0) -> FsckReport:
-    """Verify the engine's integrity; optionally salvage (see module doc).
-
-    ``sample`` is the fraction of reachable data objects whose signatures
-    are recomputed (1.0 = every row of every object; structural and
-    sortedness checks always run on all of them). Deterministic under
-    ``seed``."""
-    with telemetry.span(SP_FSCK):
-        return _fsck(engine, sample=sample, check_replay=check_replay,
-                     repair=repair, seed=seed)
-
-
-def _fsck(engine, *, sample: float, check_replay: bool, repair: bool,
-          seed: int) -> FsckReport:
-    report = FsckReport()
-    report.seconds.update(objects=0.0, signatures=0.0, packs=0.0,
-                          replay=0.0)
-    t0 = time.perf_counter()
+def _objects_layer(engine, report: FsckReport, sample: float,
+                   seed: int) -> List[Tuple[str, object, Directory]]:
+    """Reachability, ref resolvability and every reachable object's
+    checks (a sampled signature recompute); returns the roots walked."""
     roots = _ref_roots(engine)
     report.directories_checked = len(roots)
 
@@ -322,49 +319,87 @@ def _fsck(engine, *, sample: float, check_replay: bool, repair: bool,
             _check_tombstone(obj, where, report)
         else:
             _check_data_object(obj, schema, where, oid in verify, report)
-    report.seconds["objects"] = (time.perf_counter() - t0
-                                 - report.seconds["signatures"])
+    return roots
+
+
+def fsck(engine, *, sample: float = 1.0, check_replay: bool = True,
+         repair: bool = False, seed: int = 0) -> FsckReport:
+    """Verify the engine's integrity; optionally salvage (see module doc).
+
+    ``sample`` is the fraction of reachable data objects whose signatures
+    are recomputed (1.0 = every row of every object; structural and
+    sortedness checks always run on all of them). Deterministic under
+    ``seed``."""
+    with telemetry.span(SP_FSCK):
+        return _fsck(engine, sample=sample, check_replay=check_replay,
+                     repair=repair, seed=seed)
+
+
+def _fsck(engine, *, sample: float, check_replay: bool, repair: bool,
+          seed: int) -> FsckReport:
+    report = FsckReport()
+    with telemetry.span(LAYER_SPANS["objects"]):
+        roots = _objects_layer(engine, report, sample, seed)
 
     # ---- pack tier integrity: every packed oid's pack file must exist (or
     # be origin-backed), match its content address, and frame-verify —
     # bit rot in the spill tier is caught here even while a heap copy
     # masks it from readers
-    t0 = time.perf_counter()
     packs = engine.store.packs
     if packs is not None:
-        for oid, ent in sorted(engine.store._packed.items()):
-            report.packs_checked += 1
-            for why in packs.verify(ent[0]):
-                report.issues.append(FsckIssue(
-                    "pack_corrupt", f"pack:{ent[0][:12]}", why, oid))
-    report.seconds["packs"] = time.perf_counter() - t0
+        with telemetry.span(LAYER_SPANS["packs"]):
+            for oid, ent in sorted(engine.store._packed.items()):
+                report.packs_checked += 1
+                for why in packs.verify(ent[0]):
+                    report.issues.append(FsckIssue(
+                        "pack_corrupt", f"pack:{ent[0][:12]}", why, oid))
 
     # ---- WAL replay equivalence (skipped when state is already damaged:
     # the live digests would throw on missing objects)
     if check_replay and not report.issues:
-        from .engine import Engine
-        from .wal import WAL
-        t0 = time.perf_counter()
-        report.replay_checked = True
-        try:
-            replayed = Engine.replay(
-                WAL.deserialize(engine.wal.serialize()),
-                device=engine.device)
-            live, redo = _state(engine), _state(replayed)
-            if live != redo:
-                keys = sorted(k for k in set(live) | set(redo)
-                              if live.get(k) != redo.get(k))
-                report.issues.append(FsckIssue(
-                    "replay_divergence", "wal",
-                    f"replayed state differs at {keys}"))
-        except Exception as exc:
-            report.issues.append(FsckIssue(
-                "replay_failure", "wal", f"{type(exc).__name__}: {exc}"))
-        report.seconds["replay"] = time.perf_counter() - t0
+        with telemetry.span(LAYER_SPANS["replay"]):
+            _replay_layer(engine, report)
 
     if repair:
         _repair(engine, report, roots)
     return report
+
+
+def _replay_layer(engine, report: FsckReport) -> None:
+    from .engine import Engine
+    from .wal import WAL
+    report.replay_checked = True
+    try:
+        replayed = Engine.replay(
+            WAL.deserialize(engine.wal.serialize()),
+            device=engine.device)
+        live, redo = _state(engine), _state(replayed)
+        if live != redo:
+            keys = sorted(k for k in set(live) | set(redo)
+                          if live.get(k) != redo.get(k))
+            report.issues.append(FsckIssue(
+                "replay_divergence", "wal",
+                f"replayed state differs at {keys}"))
+    except Exception as exc:
+        report.issues.append(FsckIssue(
+            "replay_failure", "wal", f"{type(exc).__name__}: {exc}"))
+
+
+def layer_seconds(tracer: telemetry.Tracer) -> Dict[str, float]:
+    """Host seconds of the fsck runs in ``tracer``'s window by layer:
+    objects (its spans less the signature spans nested in them),
+    signatures, packs and replay; 0.0 for a layer that did not run. On
+    the card a span times what the host enqueued and waited for."""
+    names = {sp: layer for layer, sp in LAYER_SPANS.items()}
+    out = dict.fromkeys(LAYER_SPANS, 0.0)
+    stack = list(tracer.roots)
+    while stack:
+        sp = stack.pop()
+        if sp.name in names:
+            out[names[sp.name]] += sp.dur_s
+        stack.extend(sp.children)
+    out["objects"] -= out["signatures"]
+    return out
 
 
 def _repair(engine, report: FsckReport, roots) -> None:

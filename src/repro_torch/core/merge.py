@@ -356,6 +356,9 @@ def _merge_nopk(engine: Engine, target: str, source: Snapshot,
         t_minus = d_t.rowid[d_t.sign < 0]
         s_minus = d_s.rowid[d_s.sign < 0]
         if t_minus.shape[0] and s_minus.shape[0]:
+            # lint: sort-ok the reference's np.intersect1d
+            # (src/repro/core/merge.py:346) sorts and dedups this set too;
+            # it holds only the rowids both sides deleted
             common_del = torch.unique(t_minus[torch.isin(t_minus, s_minus)])
 
     def residual(stream: SignedStream) -> SignedStream:

@@ -62,6 +62,8 @@ def _frozen(t):
         return t
     if t.is_inference():
         return t
+    # lint: seal-ok the freeze itself: the lane is cloned into a fresh
+    # inference tensor, and nothing is written in place under the mode
     with torch.inference_mode():
         return t.clone()
 

@@ -32,10 +32,6 @@ every verb maps 1:1 onto a statement and a CLI subcommand:
     (clone repo)    —                             clone new-store dir
     ==============  ============================  =====================
 
-    ``lint`` (the analysis suite) is the one verb of the doors that is not
-    ported yet: it raises :class:`NotPortedError` naming the ROADMAP item
-    that brings it.
-
 The facade is thin by design: verbs delegate to the engine/workspace layer
 (which owns WAL logging and replay), so a statement-driven session and a
 Repo-driven session write the same WAL. ``Repo()`` builds ``Engine()``,
@@ -60,27 +56,6 @@ MODE_ALIASES = {
     "accept": ConflictMode.ACCEPT, "theirs": ConflictMode.ACCEPT,
     "cell": ConflictMode.CELL,
 }
-
-
-class NotPortedError(NotImplementedError):
-    """A verb whose module the port does not have yet."""
-
-    def __init__(self, verb: str, needs: str, item: str):
-        super().__init__(
-            f"{verb} needs {needs}, which repro_torch does not port yet "
-            f"(ROADMAP Queue 1, {item})")
-        self.verb = verb
-
-
-#: what each not-yet-ported verb waits for: (module, ROADMAP Queue 1 item)
-NOT_PORTED = {
-    "lint": ("the analysis suite (analysis/)", "item 6"),
-}
-
-
-def not_ported(verb: str) -> NotPortedError:
-    needs, item = NOT_PORTED[verb]
-    return NotPortedError(verb, needs, item)
 
 
 def parse_mode(mode: Union[str, ConflictMode, None]) -> ConflictMode:

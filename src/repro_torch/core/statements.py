@@ -41,8 +41,8 @@ Supported statements (keywords case-insensitive; refs quoted or bare)::
 ``execute(repo, text)`` runs one statement; ``execute_script`` splits on
 ``;``. Unknown verbs raise :class:`StatementError` with did-you-mean
 suggestions, resolution failures surface the typed ref errors unchanged.
-``LINT`` parses as in the reference and raises :class:`StatementError`
-saying that the analysis suite behind it is not ported yet.
+``LINT`` runs the port's invariant lint (``repro_torch.analysis``) over
+the port's source tree, not over the repo's data.
 """
 from __future__ import annotations
 
@@ -461,14 +461,6 @@ def _gc(repo, p: _P) -> StatementResult:
         f"{stats.pinned_horizons} pinned horizon(s) honored")
 
 
-def _not_ported(verb: str, p: _P) -> StatementError:
-    from .repo import NOT_PORTED
-    needs, item = NOT_PORTED[verb.lower()]
-    return StatementError(
-        p.text, f"{verb} needs {needs}, which repro_torch does not port "
-        f"yet (ROADMAP Queue 1, {item})")
-
-
 def _fsck(repo, p: _P) -> StatementResult:
     repair = p.opt_kw("REPAIR") is not None
     p.end()
@@ -478,9 +470,19 @@ def _fsck(repo, p: _P) -> StatementResult:
 
 
 def _lint(repo, p: _P) -> StatementResult:
-    """Static invariant analysis of the source tree: not ported yet."""
+    """Static invariant analysis of the SOURCE tree (not the repo data) —
+    the statement surface of ``datagit lint`` / ``python -m
+    repro_torch.analysis``, so statement-driven sessions can gate on it
+    too."""
     p.end()
-    raise _not_ported("LINT", p)
+    from ..analysis import (default_paths, discover_count, render_text,
+                            repo_root, run_analysis)
+    root = repo_root()
+    paths = default_paths(root)
+    findings = run_analysis(paths, root=root)
+    return StatementResult(
+        "lint", findings,
+        render_text(findings, discover_count(paths)))
 
 
 def _push(repo, p: _P) -> StatementResult:

@@ -21,6 +21,8 @@ recovery and the CLI share one durability story.
   ... log orders
   ... revert-pr 1
   ... gc
+  ... fsck
+  ... lint --format json
 
 ``seed`` / ``mutate`` generate deterministic demo data, the same rows as
 the reference CLI's (they are the only subcommands that do not map onto a
@@ -28,8 +30,10 @@ statement). ``push`` / ``pull`` / ``fetch`` exchange with a remote
 directory, ``clone <remote> [--shallow]`` makes a new refs-mode store
 (``<store>.refs`` + ``<store>.packs``) whose objects fault in from the
 origin, and ``fsck [--repair]`` verifies the store's frames and then the
-engine. ``lint`` needs the analysis suite, which the port does not have
-yet: it exits 2 with a typed error naming the ROADMAP item.
+engine. ``lint`` runs the port's static invariant analysis
+(``repro_torch.analysis``) over the port's source tree; it needs no store
+and no device, and shares the runner with ``python -m
+repro_torch.analysis`` and the ``LINT`` statement.
 
 Caveat on ``pr check``: user CI checks are in-process Python callables
 (``repo.pr(n).add_check(fn)``) and cannot survive the WAL round-trip, so
@@ -55,7 +59,6 @@ from .core import (AmbiguousRefError, Column, CorruptFrame, CType,
 from .core import telemetry
 from .core.engine import Engine
 from .core.faults import crash_point, register
-from .core.repo import NOT_PORTED, NotPortedError, not_ported
 from .core.statements import StatementError, execute, execute_script
 from .core.wal import (STORE_HEADER, StoreVersionError, check_store_header,
                        dump_records, encode_frame, iter_frames)
@@ -461,7 +464,7 @@ _READ_ONLY = {"diff", "log", "branches", "snapshots", "prs", "tables",
 _TYPED_ERRORS = (UnknownRefError, AmbiguousRefError, RefSyntaxError,
                  StatementError, MergeConflictError, PublishBlocked,
                  RevertConflict, PKViolation, TxnConflict,
-                 StoreFormatError, NotPortedError)
+                 StoreFormatError)
 
 
 def _store_fsck(store: str, repair: bool) -> int:
@@ -655,8 +658,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--format", choices=("text", "json"), default="text")
 
     p = sub.add_parser(
-        "lint", help="static invariant analysis of the source tree (not "
-                     "ported yet: exits 2)")
+        "lint",
+        help="static invariant analysis of the source tree",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        description=(
+            "Run the invariant analysis suite (repro_torch.analysis) over "
+            "the port's package, src/repro_torch/ (or the given paths).\n\n"
+            "Passes:\n"
+            "  sorted-claims   runs=/sigs=/presorted=True claims outside\n"
+            "                  the reviewed producer modules\n"
+            "  hidden-sort     np./torch. sort/lexsort/unique/argsort on\n"
+            "                  the zero-rehash hot paths (delta/merge/ops/"
+            "engine)\n"
+            "  crash-coverage  core.faults registry vs crash_point sites;\n"
+            "                  unguarded fsync/directory swings; broad\n"
+            "                  excepts around seams\n"
+            "  deprecation     the deprecated resolvers, incl. aliasing\n"
+            "                  and getattr forms\n"
+            "  wal-hygiene     WAL kinds vs the replay dispatch; time/RNG\n"
+            "                  (numpy's and torch's) in logging functions;\n"
+            "                  clocks anywhere in repro_torch.core outside\n"
+            "                  core.telemetry\n"
+            "  sealed-write    in-place writes to sealed-object lanes,\n"
+            "                  in-place tensor methods, re-armed writes\n"
+            "                  (static half of REPRO_SANITIZE=1)\n\n"
+            "Suppress a finding with a JUSTIFIED pragma on the finding\n"
+            "line or a comment line directly above:\n"
+            "  # lint: <token> <reason>\n"
+            "where <token> is the pass's token (runs-ok, sort-ok,\n"
+            "crash-ok, legacy-ok, wal-ok, seal-ok). A pragma without a\n"
+            "reason suppresses nothing and is itself a finding.\n\n"
+            "Exit codes: 0 clean, 1 unsuppressed findings, 2 usage "
+            "error."))
     p.add_argument("paths", nargs="*",
                    help="files/dirs to lint (default: the repo tree)")
     p.add_argument("--format", choices=("text", "json"), default="text")
@@ -707,8 +740,21 @@ def _run(args, tracer: Optional[telemetry.Tracer]) -> int:
 
 def _cmd(args, tracer: Optional[telemetry.Tracer]) -> int:
     try:
-        if args.cmd in NOT_PORTED:
-            raise not_ported(args.cmd)
+        if args.cmd == "lint":
+            # pure source analysis: no store, no repo, no device — same
+            # runner and exit-code contract as `python -m
+            # repro_torch.analysis`
+            from .analysis.runner import main as lint_main
+            largv: List[str] = list(args.paths)
+            if args.format != "text":
+                largv += ["--format", args.format]
+            if args.baseline:
+                largv += ["--baseline", args.baseline]
+            if args.write_baseline:
+                largv += ["--write-baseline", args.write_baseline]
+            if args.verbose:
+                largv.append("-v")
+            return lint_main(largv)
         try:
             device = resolve_device(args.device)
         except RuntimeError as exc:

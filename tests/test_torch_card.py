@@ -22,6 +22,7 @@ is held to the plain backward at the same atol and rtol and at
 its launches must give the same bits.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -36,8 +37,8 @@ from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
-from chip_smoke import (BWD_REL_TOL, BWD_SHAPES, FLASH_REL_TOL, GOLDEN,
-                        GOLDEN_APPLY, LSE_TOL)
+from chip_smoke import (BWD_REL_TOL, BWD_SHAPES, EXAMPLES, FLASH_REL_TOL,
+                        GOLDEN, GOLDEN_APPLY, LSE_TOL, finish, run_example)
 
 pytestmark = pytest.mark.card
 
@@ -907,19 +908,34 @@ def test_flash_attention_with_and_without_lse_gives_equal_outputs(cuda):
             assert float((lse2 - lse).abs().max()) <= LSE_TOL
 
 
+#: the dO draws of the autograd test: seeds 0-15, and the two draws of
+#: ``benchmarks/bwd_draws.py`` (512 seeded draws on an H100) on which the
+#: kernel's and the plain bf16 path's gradients fell out of ``_bwd_close``
+#: with each other while neither left it against the float32 backward
+DO_SEEDS = tuple(range(16)) + (149, 476)
+
+
 def test_flash_attention_autograd_on_the_card_matches_the_plain_path(cuda):
+    # The forward is held against the plain path; the backward against
+    # the float32 backward of the same bf16 inputs, where the two bf16
+    # paths' rounding errors do not add up.
     q, k, v = (x.requires_grad_() for x in _qkv(cuda, 2, 300, 300, 8, 4,
                                                   64, seed=3))
-    do = torch.randn(q.shape, device=cuda).bfloat16()
     got = ops.attention(q, k, v, causal=True)
-    got_g = torch.autograd.grad(got, (q, k, v), do)
     assert build.LAUNCHES["flash_attention"] == 1
-    assert build.LAUNCHES["flash_attention_bwd"] == 1
     want = ref.attention(q, k, v, causal=True, block=64)
-    want_g = torch.autograd.grad(want, (q, k, v), do)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
-    _bwd_close(got_g, [w.float() for w in want_g])
+    qf, kf, vf = (x.detach().float() for x in (q, k, v))
+    o, lse = ref.attention_lse(qf, kf, vf, causal=True)
+    for seed in DO_SEEDS:
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                         .manual_seed(seed), device=cuda).bfloat16()
+        got_g = torch.autograd.grad(ops.attention(q, k, v, causal=True),
+                                    (q, k, v), do)
+        _bwd_close(got_g, ref.attention_bwd(qf, kf, vf, o, lse, do.float(),
+                                            causal=True))
+    assert build.LAUNCHES["flash_attention_bwd"] == len(DO_SEEDS)
 
 
 def test_flash_attention_bwd_is_as_close_to_float32_as_the_plain_path(cuda):
@@ -977,3 +993,24 @@ def test_train_loop_on_the_card(cuda, capsys):
     assert build.LAUNCHES["flash_attention"] == cfg.n_layers * steps_run
     assert build.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * steps_run
     assert engine.device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_prints_on_the_card_what_it_prints_on_the_cpu(cuda, name):
+    rc, cpu_out, err = finish(run_example(name, "cpu"), name)
+    assert rc == 0, err[-2000:]
+    rc, card_out, err = finish(run_example(name, "cuda"), name)
+    assert rc == 0, err[-2000:]
+    assert card_out == cpu_out
+    launches = json.loads(err.strip().splitlines()[-1])["launches"]
+    assert all(launches[k] > 0 for k in build.VCS_SOURCES), launches
+
+
+def test_lint_statement_on_a_card_repo_equals_the_runner(cuda):
+    from repro_torch.analysis import default_paths, repo_root, run_analysis
+    from repro_torch.core import Repo, execute
+    root = repo_root()
+    findings = run_analysis(default_paths(root), root=root)
+    res = execute(Repo(device=cuda), "LINT")
+    assert res.kind == "lint" and res.data == findings
+    assert not [f for f in findings if not f.suppressed]

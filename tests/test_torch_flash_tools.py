@@ -102,3 +102,15 @@ def test_searchsorted_split_checks_the_commonest_shapes_and_largest_table():
 def test_searchsorted_split_of_no_launches_checks_nothing():
     groups, checks = chip_smoke.split_by_queries(collections.Counter())
     assert checks == [] and all(g["launches"] == 0 for g in groups)
+
+
+def test_bwd_draws_holds_both_paths_to_the_card_tests_allowance():
+    """The dO-draw study (``benchmarks/bwd_draws.py``) uses the card
+    test's tolerances and shape; on the CPU both of its paths are the
+    plain one, so one draw rehearses its control flow."""
+    from repro_torch.benchmarks import bwd_draws
+    assert bwd_draws.REL_TOL == chip_smoke.BWD_REL_TOL
+    rec = bwd_draws.run(1, 7, device="cpu")
+    assert rec["do_seeds"] == [7, 7] and rec["device"] == "cpu"
+    assert rec["kernel_not_close_to_plain"] == []
+    assert 0 < rec["kernel_err"] and 0 < rec["plain_err"] < 0.05

@@ -24,6 +24,8 @@ import repro.store as RS
 import repro_torch.core as P
 import repro_torch.core.faults as P_faults
 import repro_torch.store as PS
+from repro_torch.core import telemetry as P_telemetry
+from repro_torch.core.fsck import layer_seconds as fsck_layer_seconds
 import repro_torch.vcs_cli as P_cli
 from conftest import kv_batch as _batch
 from test_torch_indices import schema
@@ -185,9 +187,12 @@ def test_object_bit_rot_is_one_mismatch_and_replay_then_diverges():
     repaired = P.fsck(e, repair=True, check_replay=False)
     assert oid in repaired.quarantined and repaired.refs_unreachable
     assert P.fsck(e, check_replay=False).ok
-    assert {i.kind for i in P.fsck(e).issues} == {"replay_divergence"}
-    assert set(report.seconds) == {"objects", "signatures", "packs",
-                                   "replay"}
+    with P_telemetry.trace(e) as tracer:
+        assert {i.kind for i in P.fsck(e).issues} == {"replay_divergence"}
+    seconds = fsck_layer_seconds(tracer)
+    assert set(seconds) == {"objects", "signatures", "packs", "replay"}
+    assert all(v >= 0.0 for v in seconds.values())
+    assert seconds["signatures"] > 0.0 and seconds["replay"] > 0.0
 
 
 def test_repo_fsck_statement_and_cli(tmp_path, capsys):
@@ -301,3 +306,10 @@ def test_cli_store_crash_sweep_all_or_nothing(point, tmp_path):
         recovered.insert("z", _batch([99]))
         P_cli.save_repo(store, recovered)
         assert P.fsck(P_cli.load_repo(store, "cpu").engine).ok
+
+
+def test_fsck_report_has_the_reference_fields():
+    """The port's report carries exactly the reference's fields (its
+    layer times come from telemetry spans, not from the report)."""
+    assert [f.name for f in dataclasses.fields(P.FsckReport)] == \
+        [f.name for f in dataclasses.fields(R.FsckReport)]

@@ -193,19 +193,24 @@ def test_ref_errors_pass_through_typed():
     ("FSCK", "FSCK"), ("FSCK REPAIR", "FSCK"), ("LINT", "LINT"),
     ("PUSH TO '/tmp/remote'", "PUSH"), ("PULL FROM '/tmp/remote'", "PULL"),
     ("FETCH FROM '/tmp/remote'", "FETCH")])
-def test_not_ported_statements_raise_a_typed_error(text, verb, tmp_path):
-    """LINT is the one statement whose module the port still lacks: it
-    raises a typed error naming its ROADMAP item. FSCK, PUSH, PULL and
-    FETCH run since the durability-and-tiers slice, and their result
-    kind and text equal the reference's (the remote is a temporary
-    directory, pushed to first where the statement reads one)."""
+def test_fsck_lint_and_remote_statements_run_as_in_the_reference(
+        text, verb, tmp_path):
+    """FSCK, PUSH, PULL and FETCH give the reference's result kind and
+    text (the remote is a temporary directory, pushed to first where the
+    statement reads one). LINT lints each package's own tree: the result
+    kind is ``lint`` in both, and the port's findings and text are its
+    runner's over ``src/repro_torch``."""
     if verb == "LINT":
-        r = new_repo("port")
-        P_cli.seed_table(r, "t", 10, 0)
-        with pytest.raises(P_stmt.StatementError,
-                           match=f"{verb} needs .* not port yet") as exc:
-            P_stmt.execute(r, text)
-        assert "ROADMAP Queue 1" in str(exc.value)
+        kinds = {}
+        for side in ("ref", "port"):
+            r = new_repo(side)
+            CLI[side].seed_table(r, "t", 10, 0)
+            res = STMT[side].execute(r, text)
+            kinds[side] = res.kind
+        assert kinds == {"ref": "lint", "port": "lint"}
+        findings, message = _port_lint()
+        assert res.data == findings and res.message == message
+        assert "0 finding(s)" in res.message
         return
     got = {}
     for side in ("ref", "port"):
@@ -220,10 +225,11 @@ def test_not_ported_statements_raise_a_typed_error(text, verb, tmp_path):
     assert got["port"][0] == verb.lower()
 
 
-def test_not_ported_repo_verbs_raise_not_ported_error(tmp_path, capsys):
-    """``Repo.fsck/push/pull/fetch`` run on the port; ``lint`` is the one
-    verb left that is not ported (ROADMAP Queue 1 item 6): the statement
-    door raises its typed error and the CLI exits 2 with its text."""
+def test_repo_verbs_and_lint_run_through_every_door(tmp_path, capsys):
+    """``Repo.fsck/push/pull/fetch`` run on the port, and so does the last
+    door verb, lint: the ``LINT`` statement and ``datagit lint`` give the
+    port's runner's findings and text, and the CLI exits 0 on the clean
+    tree."""
     r = new_repo("port")
     P_cli.seed_table(r, "t", 10, 0)
     remote = str(tmp_path / "remote")
@@ -231,11 +237,13 @@ def test_not_ported_repo_verbs_raise_not_ported_error(tmp_path, capsys):
     assert r.push(remote)["objects_pushed"] == len(set(r.engine.store.oids()))
     assert r.fetch(remote)["objects_pulled"] == 0
     assert r.pull(remote)["up_to_date"]
-    assert set(P.repo.NOT_PORTED) == {"lint"}
-    with pytest.raises(P_stmt.StatementError, match="LINT needs the analysis"):
-        P_stmt.execute(r, "LINT")
-    assert cli_main("port", _init(tmp_path), ["lint"]) == 2
-    assert capsys.readouterr().err == f"error: {P.repo.not_ported('lint')}\n"
+    findings, message = _port_lint()
+    res = P_stmt.execute(r, "LINT")
+    assert (res.kind, res.data, res.message) == ("lint", findings, message)
+    store = _init(tmp_path)
+    capsys.readouterr()
+    assert cli_main("port", store, ["lint"]) == 0
+    assert capsys.readouterr() == (message + "\n", "")
 
 
 def _diff_direction(side):
@@ -376,6 +384,16 @@ def test_table_position_wins_over_name_collision():
 
 
 # ------------------------------------------------------------------- CLI
+
+def _port_lint():
+    """The port runner's findings over its own tree, and their text."""
+    from repro_torch.analysis import (default_paths, discover_count,
+                                      render_text, repo_root, run_analysis)
+    root = repo_root()
+    paths = default_paths(root)
+    findings = run_analysis(paths, root=root)
+    return findings, render_text(findings, discover_count(paths))
+
 
 def _init(tmp_path, side="port"):
     store = str(tmp_path / f"{side}-s.wal")
@@ -547,17 +565,24 @@ def test_cli_legacy_headerless_store_loads_and_upgrades(tmp_path):
     ["fsck"], ["fsck", "--repair"], ["lint"], ["push", "/tmp/remote"],
     ["pull", "/tmp/remote"], ["fetch", "/tmp/remote"],
     ["clone", "/tmp/remote"]])
-def test_cli_not_ported_subcommands_exit_with_a_typed_error(tmp_path,
-                                                            capsys, argv):
-    """``lint`` exits 2 with a typed error naming its ROADMAP item; the
-    other subcommands run since the durability-and-tiers slice and exit 0
-    (the remote is a temporary directory, pushed to first where the
-    subcommand reads one; a repo clone makes a new store)."""
+def test_cli_durability_and_lint_subcommands_run(tmp_path, capsys, argv):
+    """Every subcommand runs and exits 0 (the remote is a temporary
+    directory, pushed to first where the subcommand reads one; a repo
+    clone makes a new store). ``lint`` exits as the reference's does: 0
+    on each package's clean tree, 1 on a tree with a planted finding (a
+    bare sort in the hot merge module of either package)."""
     store = _init(tmp_path)
     if argv == ["lint"]:
-        assert cli_main("port", store, argv) == 2
-        err = capsys.readouterr().err
-        assert err.startswith("error: ") and "ROADMAP Queue 1" in err
+        codes = {}
+        for side, pkg in (("ref", "repro"), ("port", "repro_torch")):
+            bad = tmp_path / side / "src" / pkg / "core" / "merge.py"
+            bad.parent.mkdir(parents=True)
+            bad.write_text("import numpy as np\nx = np.unique(y)\n")
+            s = store if side == "port" else _init(tmp_path, "ref")
+            codes[side] = (cli_main(side, s, argv),
+                           cli_main(side, s, argv + [str(tmp_path / side)]))
+        assert codes == {"ref": (0, 1), "port": (0, 1)}
+        assert "hidden-sort" in capsys.readouterr().out
         return
     remote = str(tmp_path / "remote")
     argv = [remote if a == "/tmp/remote" else a for a in argv]
