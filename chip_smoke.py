@@ -36,7 +36,13 @@ Phases, one line each:
                 LSE within 1e-4, a planted mask fault shown to exceed
                 the L2 bound, two launches bitwise equal), with its
                 event and device time, TFLOP/s, bound and SDPA's
-                backward through autograd (flash_bwd)
+                backward through autograd (flash_bwd); the forward with
+                a sliding window at mixtral-8x7b's prefill (8,192 tokens,
+                W 4,096), at hd 64 with W off the key tile and at W = Sq
+                (bit-equal to the unwindowed kernel), both instances
+                (serving's and the LSE one) against the plain version,
+                beside SDPA with a boolean band mask, bound by the
+                in-window pairs
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
@@ -123,6 +129,18 @@ Phases, one line each:
                 continuous-batching server (batch 4), prefill attention on
                 the flash kernel (24 x 8 launches); then prefill-vs-decode
                 consistency of the last logits on one 2048-token prompt
+     serve_models — deepseek-7b, internlm2-1.8b, granite-20b,
+                phi3.5-moe-42b-a6.6b (24 of 32 layers) and mixtral-8x7b
+                (20 of 32; MoE and a 4,096-token window) at their
+                published widths, each built from the seed, served and
+                freed in turn: two requests through the server (flash
+                launches = layers x requests; mixtral's first prompt
+                8,192 tokens), the consistency check (MoE: the decode
+                replays the prefill's routes, each side's own routing
+                recorded unheld; mixtral's over a prefill of 8,192
+                positions, and its ring fault measured at 6,144),
+                parameters, peak and free memory, prefill tokens/s,
+                decode ms a token beside its weight-read bound
   7. train    — qwen1.5-0.5b at full width (random weights from seed 0):
                 a corpus of 4,096 samples x 2,049 tokens in a token table
                 on the card engine, pinned; train_loop at 2,048 tokens x
@@ -142,8 +160,9 @@ It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
-tiers, both modes, and the examples; flash from serving and training,
-its backward from training). The full record goes to ``build/chip_smoke.json``.
+tiers, both modes, and the examples; flash from both serving phases and
+training, its backward from training). The full record goes to
+``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -210,6 +229,29 @@ FLASH_SERVE_SHAPES = tuple((1, n, n, 16, 16, 64, True)
 # four weight and prompt seeds, and a decode one position ahead or behind
 # 1.31-1.40 (repro_torch.benchmarks.serve_consistency and this check).
 SERVE_REL_TOL = 0.3
+# Windowed flash rows: (B, Sq, Sk, H, KV, hd, W), all causal. (w1)
+# mixtral-8x7b's prefill of 8,192 tokens in its 4,096-token window; (w2)
+# hd 64 with W off the 128-key tile; (w3) W = Sq, where the window never
+# binds and the kernel must give the unwindowed kernel's bits.
+FLASH_WINDOW_SHAPES = ((1, 8192, 8192, 32, 8, 128, 4096),
+                       (1, 4096, 4096, 16, 16, 64, 1000),
+                       (1, 2048, 2048, 16, 8, 128, 2048))
+# The other configs the port serves, at their published widths, each with
+# the layers it keeps on one 80 GB card (None: all of them): phi3.5-moe's
+# 32 layers need 83.7 GB of bf16 weights and mixtral's 93.4 GB, so they
+# keep 24 and 20 (random weights from the seed).
+SERVE_MODELS = (("deepseek-7b", None), ("internlm2-1.8b", None),
+                ("granite-20b", None), ("phi3.5-moe-42b-a6.6b", 24),
+                ("mixtral-8x7b", 20))
+SERVE_MODELS_PROMPTS = (2048, 1024)   # prompt tokens of the requests
+SERVE_MODELS_NEW = 8                  # new tokens of each request
+# mixtral also serves a prompt longer than its window, and its consistency
+# check prefills 8,192 positions (a multiple of W, so the window binds and
+# the ring is placed right) before it decodes; RING_OFFSET_PREFILL (not a
+# multiple of W) measures the reference's ring fault, kept for parity
+# (ROADMAP Queue 3): recorded as ring_offset_gap, not held to a limit
+WINDOW_PROMPT = 8192
+RING_OFFSET_PREFILL = 6144
 # Flash backward shapes: the training step's (qwen1.5-0.5b at B 4 x 2048)
 # and the forward table's (b) and (c).
 BWD_SHAPES = ((4, 2048, 2048, 16, 16, 64, True),) + FLASH_SHAPES[1:]
@@ -509,7 +551,8 @@ def kernel_phase(torch, seed: int) -> dict:
             launch_times(torch, lambda: segsum(*args), SEGSUM_FOCUS))
         del args
     torch.cuda.synchronize()
-    results["flash_attention"] = flash_phase(torch, seed)
+    results["flash_attention"] = flash_phase(torch, seed) \
+        + flash_window_phase(torch, seed)
     results["flash_attention_bwd"] = bwd_phase(torch, seed)
     return results
 
@@ -549,11 +592,6 @@ def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
     g.manual_seed(seed)
     rows, bad = [], []
 
-    def per_launch_ms(fn, focus):
-        prof = device_profile(torch, lambda: [fn() for _ in range(20)],
-                              focus=focus)
-        return prof["focus_ms"] / 20 if prof["focus_count"] else None
-
     for b, sq, sk, h, kv, hd, causal in shapes:
         q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
         k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
@@ -584,17 +622,17 @@ def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
         def lib():
             return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
         ms = cuda_ms(torch, run, 20)
-        dev_ms = per_launch_ms(run, "flash_fwd")
+        dev_ms = per_launch_ms(torch, run, "flash_fwd")
         # every kernel SDPA launches (the trace holds nothing else)
-        lib_dev_ms = per_launch_ms(lib, "")
+        lib_dev_ms = per_launch_ms(torch, lib, "")
         by_tile = {}
         for bm in ((64, 128) if tiles else ()):
             t_ok, t_err, t_rel = flash_close(torch, run(bm).float(), want)
             ok = ok and t_ok
             by_tile[str(bm)] = {"ok": t_ok, "max_abs_err": t_err,
                                 "rel_l2_err": t_rel,
-                                "device_ms": per_launch_ms(lambda: run(bm),
-                                                           "flash_fwd")}
+                                "device_ms": per_launch_ms(
+                                    torch, lambda: run(bm), "flash_fwd")}
         rows.append({
             "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
             "ok": ok, "tol": FLASH_TOL, "rel_tol": FLASH_REL_TOL,
@@ -619,6 +657,106 @@ def flash_phase(torch, seed: int, shapes=FLASH_SHAPES,
     check(not bad, f"flash_attention differs from its plain version "
                    f"beyond {FLASH_TOL} abs or {FLASH_REL_TOL} rel-L2 "
                    f"(shape, max abs, rel-L2): {bad}")
+    return rows
+
+
+def window_pairs(sq: int, sk: int, window: int) -> int:
+    """Unmasked (query, key) pairs of top-left causal attention in a
+    sliding window: query i sees keys max(0, i - W + 1) .. min(i, Sk - 1)."""
+    return sum(max(0, min(i, sk - 1) - max(0, i - window + 1) + 1)
+               for i in range(sq))
+
+
+def flash_window_phase(torch, seed: int,
+                       shapes=FLASH_WINDOW_SHAPES) -> list:
+    """The flash kernel with a sliding window against its plain version
+    (``ref.attention(window=)``, bf16, FLASH_TOL and FLASH_REL_TOL), for
+    serving's instance and the LSE instance (LSE within LSE_TOL, the
+    outputs of both equal); at W >= Sq both must equal the unwindowed
+    kernel bit for bit. Each row has the kernel's CUDA-event and device
+    time, the unwindowed kernel's device time at the shape, the LSE
+    instance's, a bound that counts only the in-window pairs, and
+    scaled_dot_product_attention with an explicit boolean band mask (K
+    and V repeated to the query heads first, outside the timing) as the
+    library call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import config, flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rows, bad = [], []
+
+    for b, sq, sk, h, kv, hd, w in shapes:
+        q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
+        got, lse = flash_attention(q, k, v, window=w, return_lse=True)
+        want, want_lse = ref.attention_lse(q, k, v, window=w, block=256)
+        ok, err, rel = flash_close(torch, got.float(), want.float())
+        lse_err = float((lse - want_lse).abs().max())
+        same = torch.equal(got, flash_attention(q, k, v, window=w))
+        ok = ok and lse_err <= LSE_TOL and same
+        bits = None
+        if w >= sq:
+            bits = torch.equal(got, flash_attention(q, k, v)) and all(
+                torch.equal(x, y) for x, y in zip(
+                    (got, lse), flash_attention(q, k, v, return_lse=True)))
+            ok = ok and bits
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                  for x in (k, v))
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(sk, device=dev)[None, :]
+        band = (i >= j) & (i - j < w)
+        lib_err = float((sdpa(qt, kt, vt, attn_mask=band).transpose(1, 2)
+                         .float() - want.float()).abs().max())
+        pairs = window_pairs(sq, sk, w)
+        flops = 4.0 * b * h * hd * pairs
+        # q and o once; the keys and values that some row's window holds
+        nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+        b_ms, b_by = bound(nbytes, 0, flops)
+
+        def run():
+            return flash_attention(q, k, v, window=w)
+
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=band)
+        ms = cuda_ms(torch, run, 20)
+        dev_ms = per_launch_ms(torch, run, "flash_fwd")
+        lib_dev_ms = per_launch_ms(torch, lib, "")
+        rows.append({
+            "shape": [b, sq, sk, h, kv, hd, "causal", f"window {w}"],
+            "ok": ok, "tol": FLASH_TOL, "rel_tol": FLASH_REL_TOL,
+            "max_abs_err": err, "rel_l2_err": rel, "lse_max_abs_err": lse_err,
+            "lse_tol": LSE_TOL, "serve_equals_lse_instance": same,
+            "bit_equal_unwindowed": bits,
+            "library_max_abs_err": lib_err,
+            "ms": ms, "tflops": flops / ms / 1e9,
+            "device_ms": dev_ms,
+            "device_tflops": flops / dev_ms / 1e9 if dev_ms else None,
+            "lse_device_ms": per_launch_ms(torch, lambda: flash_attention(
+                q, k, v, window=w, return_lse=True), "flash_fwd"),
+            "unwindowed_device_ms": per_launch_ms(
+                torch, lambda: flash_attention(q, k, v), "flash_fwd"),
+            "plain_ms": cuda_ms(torch, lambda: ref.attention(
+                q, k, v, window=w, block=256), 3),
+            "library_ms": cuda_ms(torch, lib, 20),
+            "library_device_ms": lib_dev_ms,
+            "library_is": "scaled_dot_product_attention with a boolean "
+                          "band mask, K and V repeated to H heads",
+            "device_vs_library": dev_ms / lib_dev_ms
+            if dev_ms and lib_dev_ms else None,
+            "pairs": pairs, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops,
+            "config": config(b, sq, h, hd, dev)})
+        if not ok:
+            bad.append((rows[-1]["shape"], err, rel, lse_err, same, bits))
+        del q, k, v, qt, kt, vt, got, want, lse, want_lse, band
+    check(not bad, f"windowed flash_attention differs from its plain "
+                   f"version (shape, max abs, rel-L2, LSE, serve = LSE "
+                   f"instance, bits at W >= Sq): {bad}")
     return rows
 
 
@@ -647,11 +785,6 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
     rows, bad = [], []
-
-    def per_launch_ms(fn, focus):
-        prof = device_profile(torch, lambda: [fn() for _ in range(10)],
-                              focus=focus)
-        return prof["focus_ms"] / 10 if prof["focus_count"] else None
 
     def rel(got, want):
         return float((got.float() - want).norm() / want.norm())
@@ -702,7 +835,7 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
         nbytes = bwd_bytes(b, sq, sk, h, kv, hd)
         b_ms, b_by = bound(nbytes, 0, flops)
         ms = cuda_ms(torch, run, 20)
-        dev_ms = per_launch_ms(run, "attn_bwd")
+        dev_ms = per_launch_ms(torch, run, "attn_bwd", 10)
         # SDPA's backward through autograd on the same inputs
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -727,12 +860,14 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
                            + 4 * b * h * sq, 0,
                            4.0 * b * h * hd * attention_pairs(sq, sk, causal))
         forward_lse = {"ms": cuda_ms(torch, fwd, 20),
-                       "device_ms": per_launch_ms(fwd, "flash_fwd"),
+                       "device_ms": per_launch_ms(torch, fwd, "flash_fwd",
+                                                  10),
                        "plain_ms": cuda_ms(torch, lambda: ref.attention_lse(
                            q, k, v, causal=causal, block=256), 3),
                        "bound_ms": f_ms, "bound_by": f_by,
                        "library_ms": cuda_ms(torch, lib_fwd, 20),
-                       "library_device_ms": per_launch_ms(lib_fwd, "")}
+                       "library_device_ms": per_launch_ms(torch, lib_fwd,
+                                                          "", 10)}
         rows.append({
             "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
             "ok": ok, "tol": FLASH_TOL, "rel_tol": BWD_REL_TOL,
@@ -746,7 +881,7 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
             "plain_ms": cuda_ms(torch, lambda: ref.attention_bwd(
                 q, k, v, o, lse, do, causal=causal), 3),
             "library_ms": cuda_ms(torch, lib, 20),
-            "library_device_ms": per_launch_ms(lib, ""),
+            "library_device_ms": per_launch_ms(torch, lib, "", 10),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "flops": flops, "config": config(hd, dev),
             "forward_lse": forward_lse})
@@ -820,6 +955,14 @@ def device_profile(torch, fn, focus: str = "flash_fwd") -> dict:
             "busy_share": busy / wall if kern else None,
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                              "count": e.count} for e in top]}
+
+
+def per_launch_ms(torch, fn, focus: str, iters: int = 20):
+    """Device ms of one call of ``fn`` from a trace of ``iters`` calls:
+    the kernels whose name holds ``focus`` (every kernel for "")."""
+    prof = device_profile(torch, lambda: [fn() for _ in range(iters)],
+                          focus=focus)
+    return prof["focus_ms"] / iters if prof["focus_count"] else None
 
 
 def span_summary(tracer) -> list:
@@ -2472,6 +2615,162 @@ def serve_phase(torch, seed: int) -> dict:
     return rec
 
 
+def param_count(cfg) -> int:
+    """Parameters of ``cfg`` from its fields (the reference's
+    ``init_params`` shapes): per layer two norms, Q/K/V/O (and QKV biases)
+    and a gated MLP, or a router and E gated experts; embed, head and the
+    final norm."""
+    d, hd, H, KV, f = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_ff)
+    attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+    if cfg.qkv_bias:
+        attn += H * hd + 2 * KV * hd
+    ffn = (d * cfg.moe.n_experts + cfg.moe.n_experts * 3 * d * f
+           if cfg.moe else 3 * d * f)
+    return cfg.n_layers * (2 * d + attn + ffn) + 2 * cfg.vocab * d + d
+
+
+def serve_model(torch, arch: str, layers, seed: int) -> dict:
+    """One config at its published widths (depth cut to ``layers`` where
+    given) through the serving path: built from the seed, two requests
+    through ``Server`` (prefill on the flash kernel, a few decode steps),
+    then the prefill-vs-decode consistency check. Returns its record;
+    the caller frees the model."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks.serve_consistency import (
+        TAIL, prefill_decode_logits, rel_gap)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Request, Server
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    W = cfg.sliding_window
+    prompts = SERVE_MODELS_PROMPTS if not W else \
+        (WINDOW_PROMPT,) + SERVE_MODELS_PROMPTS[1:]
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(cfg, reduced=False, batch=2, seq_cap=max(prompts) + 64,
+                 seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = srv.model
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, "
+          f"not the config's {param_count(cfg)}")
+    check(all(n % srv.attn_block == 0 for n in prompts),
+          "a prompt would take the pad path")
+    rng = np.random.default_rng(seed)
+    reqs = [Request(i, rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                    SERVE_MODELS_NEW) for i, n in enumerate(prompts)]
+    build.reset_launches()
+    done, dt, steps = srv.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = cfg.n_layers * len(reqs)
+    check(launches["flash_attention"] == want,
+          f"{arch}: flash_attention launched {launches['flash_attention']} "
+          f"times on the serve path, not {want} (layers x requests)")
+    check(all(len(r.out) == SERVE_MODELS_NEW and all(
+        0 <= t < cfg.vocab for t in r.out) for r in done),
+        f"{arch}: a generated token is out of range or a request is short")
+    pre = srv.timings["prefill_s"]
+    dec = srv.timings["decode_step_s"]
+    n_dec = sum(len(r.out) for r in done) - len(reqs)
+    # a decode step at B = 1 reads every weight but the embedding table
+    # (one row of it; the MoE runs every expert over its capacity slots,
+    # as the reference does) and the cache's valid keys and values
+    embed_bytes = model.embed.numel() * model.embed.element_size()
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    cached = min(prompts[0], W) if W else prompts[0]
+    read = param_bytes - embed_bytes + kv_row * cached
+    rec = {"arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": full.n_layers,
+           "cut": None if layers is None else
+           f"n_layers {full.n_layers} -> {layers}",
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "hd": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "moe": None if not cfg.moe else [cfg.moe.n_experts,
+                                            cfg.moe.top_k],
+           "window": W, "params": n_params, "param_bytes": param_bytes,
+           "init_s": init_s, "prompts": list(prompts),
+           "max_new": SERVE_MODELS_NEW, "run_s": dt, "decode_steps": steps,
+           "flash_launches": launches["flash_attention"],
+           "launches": launches,
+           "prefill_ms": [x * 1e3 for x in pre],
+           "prefill_tok_per_s": sum(prompts) / sum(pre),
+           "decode_ms_per_token": sum(dec) / n_dec * 1e3,
+           "decode_read_bytes": read,
+           "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3}
+
+    # MoE: the decode side replays the whole prefill's routes, so both
+    # sides compute one function (serve_consistency's docstring); the gap
+    # with each side routing for itself is recorded beside it, unheld
+    fixed = cfg.moe is not None
+    n = (WINDOW_PROMPT if W else SERVE_MODELS_PROMPTS[0]) + TAIL
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=n),
+                             device=model.device)[None]
+    l1, l2 = prefill_decode_logits(model, prompt, TAIL, srv.attn_block,
+                                   fixed_routes=fixed)
+    finite = bool(torch.isfinite(l1).all() and torch.isfinite(l2).all())
+    rel = rel_gap(l1, l2)
+    rec["consistency"] = {
+        "prompt": n, "prefilled": n - TAIL, "decoded": TAIL,
+        "fixed_routes": fixed,
+        "finite": finite, "max_abs_diff": float((l1 - l2).abs().max()),
+        "logit_abs_max": float(l1.abs().max()), "rel_l2_diff": rel,
+        "rel_l2_tol": SERVE_REL_TOL,
+        "argmax_equal": int(l1.argmax()) == int(l2.argmax())}
+    if fixed:
+        rec["consistency"]["own_routes_rel_l2_diff"] = rel_gap(
+            *prefill_decode_logits(model, prompt, TAIL, srv.attn_block))
+    check(finite, f"{arch}: non-finite logits")
+    check(rel <= SERVE_REL_TOL, f"{arch}: prefill and decode logits "
+                                f"differ: {rec['consistency']}")
+    if W:
+        check(n - TAIL > W and (n - TAIL) % W == 0,
+              f"{arch}: the check's prefill does not bind the window")
+        m = RING_OFFSET_PREFILL + TAIL
+        r1, r2 = prefill_decode_logits(model, prompt[:, :m], TAIL,
+                                       srv.attn_block, fixed_routes=fixed)
+        rec["ring_offset_gap"] = {
+            "prefilled": RING_OFFSET_PREFILL, "decoded": TAIL,
+            "rel_l2_diff": rel_gap(r1, r2),
+            "is": "the reference's ring-buffer fault, kept for parity "
+                  "(ROADMAP Queue 3): a prefill of S > W positions, S % W "
+                  "!= 0, then decode; recorded, not held to a limit"}
+    torch.cuda.synchronize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(),
+               free_at_peak=total - torch.cuda.max_memory_reserved(),
+               seconds=time.perf_counter() - t_all)
+    return rec
+
+
+def serve_models_phase(torch, seed: int) -> dict:
+    """Every config of SERVE_MODELS through ``serve_model``, each built,
+    served, measured and freed before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = []
+    for arch, layers in SERVE_MODELS:
+        recs.append(serve_model(torch, arch, layers, seed))
+        phase("serve_model", **recs[-1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"models": recs, "seconds": time.perf_counter() - t0,
+            "flash_launches": sum(r["flash_launches"] for r in recs)}
+
+
 # -------------------------------------------------------------------- train
 
 def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
@@ -3081,6 +3380,11 @@ def main(argv=None) -> int:
                           if not k.startswith("profile")})
         phase("serve_profile", **{k: v for k, v in serve.items()
                                   if k.startswith("profile")})
+        models = serve_models_phase(torch, args.seed)
+        record["serve_models"] = models
+        phase("serve_models", seconds=models["seconds"],
+              flash_launches=models["flash_launches"],
+              archs=[m["arch"] for m in models["models"]])
         trained = train_phase(torch, args.seed)
         record["train"] = trained
         phase("train", **{k: v for k, v in trained.items()
@@ -3095,9 +3399,9 @@ def main(argv=None) -> int:
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
                        + tiers + list(examples.values()))
                 for k in build.VCS_SOURCES}
-    # attention: the serve window's and the train window's
+    # attention: the serve windows' and the train window's
     launches["flash_attention"] = serve["flash_launches"] \
-        + trained["launches"]["flash_attention"]
+        + models["flash_launches"] + trained["launches"]["flash_attention"]
     launches["flash_attention_bwd"] = trained["launches"][
         "flash_attention_bwd"]
     replaces = {

@@ -15,16 +15,29 @@ with each of ``FAULTS`` planted in the decode's cache: on the card for
 qwen1.5-0.5b at full width and a 2048-token prompt in bf16 (the shape of
 ``chip_smoke.py``'s check), on the CPU for its reduced widths at 24 layers
 and a 256-token prompt in float32 and bf16.
+
+An MoE model does not give the same logits both ways, whatever the
+cache: the reference's capacity routing makes a token's FFN output depend
+on the other tokens of its chunk (a later token can push an earlier
+one's choice past capacity), decode never drops, and a routing choice
+that rounding flips changes a token's output wholesale. So for MoE
+configs ``prefill_decode_logits(..., fixed_routes=True)`` records every
+layer's routes in the whole prefill (L1) and replays them, position by
+position, in the shorter prefill and the decode steps (L2): both sides
+then compute one function, and the gap reads the attention and cache
+path alone, as it does for a dense model.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..configs import get_config
+from ..models import layers
 from ..models.lm import LM
 
 ARCH = "qwen1.5-0.5b"
@@ -33,11 +46,13 @@ SEEDS = 3
 
 
 def _lose_last_slot(cache):
-    pos = cache["len"] - 1
+    # the prefill's last position: its slot, or the ring's last after a
+    # prefill longer than a sliding window (the last W sit in 0..W-1)
+    slot = min(cache["len"], cache["slot0"]["k"].shape[2]) - 1
     for key, kv in cache.items():
         if key.startswith("slot"):
-            kv["k"][:, :, pos] = 0
-            kv["v"][:, :, pos] = 0
+            kv["k"][:, :, slot] = 0
+            kv["v"][:, :, slot] = 0
 
 
 # Faults planted in the cache of the shorter prefill before it is decoded:
@@ -50,19 +65,96 @@ FAULTS = {
 }
 
 
+@contextlib.contextmanager
+def _recorded_routes(store: list):
+    """Keep every ``layers.moe_route`` result, in call order."""
+    route = layers.moe_route
+
+    def record(router, x, **kw):
+        r = route(router, x, **kw)
+        store.append(r)
+        return r
+    layers.moe_route = record
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+@contextlib.contextmanager
+def _replayed_routes(routes, n_layers: int, first_pass: int):
+    """Serve ``layers.moe_route`` from ``routes`` (per layer: expert, keep
+    and gate over every position) for a prefill of ``first_pass``
+    positions and then one position per decode step: each call takes the
+    next positions of its layer. Slots are ranked again among the kept
+    choices (j-major, as the reference ranks them), and the capacity of
+    a chunk of ``sc`` tokens is the most kept choices of any expert in a
+    layer, or ``sc`` if fewer (a token sends an expert one choice at
+    most), so nothing more drops."""
+    route, capacity = layers.moe_route, layers.moe_capacity
+    cap = max(int(torch.bincount(e[k], minlength=1).max())
+              for e, k, _ in routes)
+    cur = {"layer": 0, "start": 0, "pos": 0, "end": first_pass}
+
+    def replay(router, x, *, top_k, capacity):
+        e, keep, gate = (t[:, cur["pos"]:cur["pos"] + x.shape[1]]
+                         for t in routes[cur["layer"]])
+        cur["pos"] += x.shape[1]
+        if cur["pos"] == cur["end"]:             # this layer's pass done
+            cur["layer"] += 1
+            if cur["layer"] == n_layers:         # next: one decode step
+                cur.update(layer=0, start=cur["end"], end=cur["end"] + 1)
+            cur["pos"] = cur["start"]
+        n_experts = router.shape[-1]
+        offset = torch.zeros((x.shape[0], n_experts), dtype=torch.int64,
+                             device=x.device)
+        slots = []
+        for j in range(top_k):
+            oh = torch.nn.functional.one_hot(e[..., j], n_experts) \
+                * keep[..., j, None]
+            slots.append(((torch.cumsum(oh, 1) - 1 + offset[:, None])
+                          * oh).sum(-1))
+            offset = offset + oh.sum(1)
+        return layers.Route(e, torch.stack(slots, -1), keep, gate,
+                            torch.zeros((), device=x.device))
+    layers.moe_route = replay
+    layers.moe_capacity = lambda sc, *a: -(-min(cap, sc) // 4) * 4
+    try:
+        yield
+    finally:
+        layers.moe_route, layers.moe_capacity = route, capacity
+
+
 def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
-                          attn_block: int = 32, plant=None):
+                          attn_block: int = 32, plant=None,
+                          fixed_routes: bool = False):
     """(L1, L2) float32 last logits of ``prompt`` (1, n): whole prefill,
     and prefill of n - tail positions plus ``tail`` decode steps, with
-    ``plant(cache)`` applied to that prefill's cache first when given."""
+    ``plant(cache)`` applied to that prefill's cache first when given.
+    ``fixed_routes`` (MoE models): L2 replays the routes of L1's prefill
+    (see the module's docstring)."""
     n = prompt.shape[1]
-    l1, _ = model.prefill(prompt, seq_cap=n, attn_block=attn_block)
-    l2, cache = model.prefill(prompt[:, :n - tail], seq_cap=n + 1,
-                              attn_block=attn_block)
-    if plant is not None:
-        plant(cache)
-    for i in range(n - tail, n):
-        l2, cache = model.decode_step(prompt[:, i:i + 1], cache)
+    routes: list = []
+    with _recorded_routes(routes) if fixed_routes \
+            else contextlib.nullcontext():
+        l1, _ = model.prefill(prompt, seq_cap=n, attn_block=attn_block)
+    replay = contextlib.nullcontext()
+    if fixed_routes:
+        # calls run layer by layer, each over its chunks in order
+        n_layers = len(model.layers)
+        per = len(routes) // n_layers
+        routes = [tuple(torch.cat([getattr(r, f) for r in
+                                   routes[i * per:(i + 1) * per]], dim=1)
+                        for f in ("expert", "keep", "gate"))
+                  for i in range(n_layers)]
+        replay = _replayed_routes(routes, n_layers, n - tail)
+    with replay:
+        l2, cache = model.prefill(prompt[:, :n - tail], seq_cap=n + 1,
+                                  attn_block=attn_block)
+        if plant is not None:
+            plant(cache)
+        for i in range(n - tail, n):
+            l2, cache = model.decode_step(prompt[:, i:i + 1], cache)
     return l1.float(), l2.float()
 
 

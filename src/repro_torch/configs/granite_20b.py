@@ -1,0 +1,13 @@
+"""granite-20b — dense code LM, llama-arch, MQA (GQA kv=1).
+[arXiv:2405.04324; hf]"""
+from .base import ArchConfig, register
+
+
+@register
+def granite_20b() -> ArchConfig:
+    return ArchConfig(
+        name="granite-20b", family="dense",
+        n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1,
+        d_ff=24576, vocab=49152,
+        source="arXiv:2405.04324; hf",
+    )

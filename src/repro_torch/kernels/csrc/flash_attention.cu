@@ -4,11 +4,13 @@
 // flash_attention_pallas (body _flash_kernel) together with the GQA head
 // repeat and transposes of its wrapper (repro/kernels/ops.py::attention).
 // Same function: scores scaled by 1/sqrt(hd) in fp32; keys at or beyond
-// Sk masked; top-left causal mask qpos >= kpos; masked scores are
-// NEG = -1e30 (not -inf); running max, denominator and numerator in fp32;
-// p rounded to bf16 before P.V; output acc / max(l, 1e-30). Key tiles that
-// lie wholly above the diagonal of a query tile are skipped, and rows at
-// or beyond Sq are never written.
+// Sk masked; top-left causal mask qpos >= kpos and, with a sliding window
+// W (causal only, as in repro/models/layers.py::block_causal_attention),
+// qpos - kpos < W; masked scores are NEG = -1e30 (not -inf); running max,
+// denominator and numerator in fp32; p rounded to bf16 before P.V; output
+// acc / max(l, 1e-30). Key tiles that lie wholly above the diagonal of a
+// query tile, or wholly below the window of its first row, are skipped,
+// and rows at or beyond Sq are never written.
 //
 // Layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), o like q, all contiguous
 // bf16 -- the model's own layout, so no transpose. Query head h reads KV
@@ -43,11 +45,23 @@
 //   Each consumer runs its tile's products and softmax in turn; with two
 //   consumers one's softmax overlaps the other's products.
 // - Masking only where needed: key tiles wholly below the diagonal of the
-//   warpgroup's rows (and inside Sk) skip the mask; the diagonal and the
-//   ragged last tile mask element by element. The scale is folded into
-//   exp2: p = exp2(s * scale * log2e - m), m kept in the log2 domain, a
-//   masked score being NEG * log2e, so a fully masked prefix still gives
-//   p = 1 until a real key rescales it, as in the reference.
+//   warpgroup's rows, inside Sk and (with a window) wholly inside the
+//   window of its last row skip the mask; the diagonal, the window's lower
+//   edge and the ragged last tile mask element by element. The scale is
+//   folded into exp2: p = exp2(s * scale * log2e - m), m kept in the log2
+//   domain, a masked score being NEG * log2e, so a fully masked prefix
+//   still gives p = 1 until a real key rescales it, as in the reference.
+// - The sliding window (a runtime int, 0 for none). The CTA's tile loop
+//   starts at the tile holding key q0 - W + 1, the first key of its first
+//   row's window: the kernel's form of the reference's pair skip. Rows
+//   further down may still meet tiles wholly below their own window;
+//   those scores are all NEG, so p = 1 there until the row's own window
+//   begins. Tiles run in ascending key order and every row with a key in
+//   its window meets it later in the loop (its diagonal at the latest),
+//   where alpha = exp2(NEG * log2e - m) = 0 rescales that prefix away: the
+//   reference's order gives the same guarantee. At W >= Sq no tile is
+//   skipped and no score of a written row changes mask, so the output is
+//   the unwindowed kernel's, bit for bit.
 // - LSE for the backward (optional; serving passes null): the epilogue
 //   also writes each row's natural-log sum of exponentials, (m + log2 l)
 //   * ln 2 with m and l as above, into lse (B, H, Sq) float32: the
@@ -254,18 +268,19 @@ __device__ __forceinline__ float quad_sum(float x) {
 // s[4j + e] is row r0 + 8 (e >> 1), key k0 + 8j + 2 tig + (e & 1). Turns
 // s into p (fp32, unrounded), updates m (log2 domain) and this thread's
 // share of l, and gives the factor alpha the output rows must take.
+// `win` is the window (INT_MAX for none); masked tiles only read it.
 template <bool kMask>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float scale_log2, int r0, int k0,
-                                             int sk, int causal) {
+                                             int sk, int causal, int win) {
   float mx[2] = {m[0], m[1]};
   if (kMask) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int r = r0 + ((i >> 1) & 1) * 8;
       const int c = k0 + (i >> 2) * 8 + (i & 1);
-      const bool keep = c < sk && (!causal || r >= c);
+      const bool keep = c < sk && (!causal || (r >= c && r - c < win));
       s[i] = keep ? s[i] * scale_log2 : kNegL2;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
@@ -314,7 +329,8 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int h, int kv, float scale_log2, int causal) {
+                 int sq, int sk, int h, int kv, float scale_log2, int causal,
+                 int window) {
   using C = Cfg<HD, NC>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -328,9 +344,12 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBM;
   const int head = blockIdx.x % h, b = blockIdx.x / h;
   const int kvh = head / (h / kv);
-  // Key tiles at or past k_end are masked for every row of this CTA.
+  // Key tiles at or past k_end are masked for every row of this CTA, and
+  // so are those before t0, wholly below the window of its first row.
   const int k_end = causal ? min(sk, q0 + C::kBM) : sk;
   const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int win = causal && window > 0 ? window : 0x7fffffff;
+  const int t0 = max(0, q0 - win + 1) / kBN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -352,9 +371,9 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
       for (int sl = 0; sl < C::kSlabs; ++sl)
         tma_load(s_q + sl * C::kBM * 128, &tq, bar_q, sl * 64, head, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % C::kStages;
-        const uint32_t round = t / C::kStages;
+      for (int t = t0; t < n_tiles; ++t) {
+        const int st = (t - t0) % C::kStages;
+        const uint32_t round = (t - t0) / C::kStages;
         mbar_wait(bar_empty + 8 * st, (round & 1) ^ 1);   // round 0 passes
         const uint32_t full = bar_full + 8 * st;
         mbar_expect_tx(full, 2 * C::kKVBytes);
@@ -373,10 +392,13 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % kWG) / 32;
     const int tig = lane & 3;
     const int r0 = q0 + 64 * c + 16 * warp + (lane >> 2);   // rows r0, r0+8
-    // Tiles before n_plain lie inside Sk and wholly at or below the
-    // diagonal of this warpgroup's first row: no mask.
+    // Tiles in [lo_plain, n_plain) lie inside Sk, wholly at or below the
+    // diagonal of this warpgroup's first row and wholly inside the window
+    // of its last row that is written: no mask.
     const int qmin = q0 + 64 * c;
     const int n_plain = (causal ? min(sk, qmin + 1) : sk) / kBN;
+    const int lo_key = min(qmin + 63, sq - 1) - win + 1;
+    const int lo_plain = lo_key > 0 ? (lo_key + kBN - 1) / kBN : 0;
 
     float s[64], acc[HD / 2];
     uint32_t p[32];
@@ -413,19 +435,20 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap tq,
     // Per tile: S_t = Q K_t^T, its softmax, O += P_t V_t. With two
     // consumers, one's softmax runs beside the other's products.
     float alpha[2];
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % C::kStages;
-      mbar_wait(bar_full + 8 * st, (t / C::kStages) & 1);
+    for (int t = t0; t < n_tiles; ++t) {
+      const int st = (t - t0) % C::kStages;
+      mbar_wait(bar_full + 8 * st, ((t - t0) / C::kStages) & 1);
       pin(s);
       wg_fence();
       issue_qk(st);
       wg_wait<0>();
       pin(s);
-      if (t >= n_plain)
+      if (t >= n_plain || t < lo_plain)
         softmax_tile<true>(s, m, l, alpha, scale_log2, r0, t * kBN + 2 * tig,
-                           sk, causal);
+                           sk, causal, win);
       else
-        softmax_tile<false>(s, m, l, alpha, scale_log2, r0, 0, sk, causal);
+        softmax_tile<false>(s, m, l, alpha, scale_log2, r0, 0, sk, causal,
+                            win);
       rescale_pack<HD>(s, acc, p, alpha);
       pin(acc);
       pin(p);
@@ -545,7 +568,7 @@ cudaError_t prepare(int device) {
 template <int HD, int NC, bool kLse>
 int launch(int device, const void* q, const void* k, const void* v, void* o,
            float* lse, int b, int sq, int sk, int h, int kv, int causal,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   using C = Cfg<HD, NC>;
   cudaError_t err = prepare<HD, NC, kLse>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -558,7 +581,7 @@ int launch(int device, const void* q, const void* k, const void* v, void* o,
   const dim3 grid(b * h, (sq + C::kBM - 1) / C::kBM);
   flash_fwd_kernel<HD, NC, kLse><<<grid, C::kThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kv,
-      scale_log2, causal);
+      scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,12 +589,12 @@ int launch(int device, const void* q, const void* k, const void* v, void* o,
 template <int HD, int NC>
 int pick(int device, const void* q, const void* k, const void* v, void* o,
          float* lse, int b, int sq, int sk, int h, int kv, int causal,
-         cudaStream_t stream) {
+         int window, cudaStream_t stream) {
   return lse != nullptr
              ? launch<HD, NC, true>(device, q, k, v, o, lse, b, sq, sk, h, kv,
-                                    causal, stream)
+                                    causal, window, stream)
              : launch<HD, NC, false>(device, q, k, v, o, lse, b, sq, sk, h,
-                                     kv, causal, stream);
+                                     kv, causal, window, stream);
 }
 
 template <int HD, int NC>
@@ -590,19 +613,24 @@ int describe(int* out) {
 
 int dispatch(int device, const void* q, const void* k, const void* v,
              void* o, void* lse_out, int b, int sq, int sk, int h, int kv,
-             int hd, int causal, int rows, void* stream) {
+             int hd, int causal, int window, int rows, void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   if (hd == 64 && rows == 128)
-    return pick<64, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
+    return pick<64, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                         window, s);
   if (hd == 64 && rows == 64)
-    return pick<64, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
+    return pick<64, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                         window, s);
   if (hd == 128 && rows == 128)
-    return pick<128, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
+    return pick<128, 2>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                         window, s);
   if (hd == 128 && rows == 64)
-    return pick<128, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal, s);
+    return pick<128, 1>(device, q, k, v, o, lse, b, sq, sk, h, kv, causal,
+                         window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -611,15 +639,16 @@ int dispatch(int device, const void* q, const void* k, const void* v,
 // q/o: (b, sq, h, hd) bf16; k/v: (b, sk, kv, hd) bf16; all contiguous and
 // 16-byte aligned; h % kv == 0; sq, sk >= 1; hd in {64, 128} (else
 // cudaErrorInvalidValue). lse: null, or (b, h, sq) float32 for the rows'
-// natural-log sums of exponentials.
+// natural-log sums of exponentials. window: the causal sliding window W
+// (query i sees keys i - W + 1 .. i), 0 for none; read only when causal.
 extern "C" int rt_flash_attention(int device, const void* q, const void* k,
                                   const void* v, void* o, void* lse, int b,
                                   int sq, int sk, int h, int kv, int hd,
-                                  int causal, void* stream) {
+                                  int causal, int window, void* stream) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   return dispatch(device, q, k, v, o, lse, b, sq, sk, h, kv, hd, causal,
-                  default_rows(device, b, sq, h), stream);
+                  window, default_rows(device, b, sq, h), stream);
 }
 
 // rt_flash_attention with `rows` (64 or 128) query rows per CTA in place
@@ -627,12 +656,12 @@ extern "C" int rt_flash_attention(int device, const void* q, const void* k,
 extern "C" int rt_flash_attention_rows(int device, const void* q,
                                        const void* k, const void* v, void* o,
                                        void* lse, int b, int sq, int sk, int h,
-                                       int kv, int hd, int causal, int rows,
-                                       void* stream) {
+                                       int kv, int hd, int causal, int window,
+                                       int rows, void* stream) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   return dispatch(device, q, k, v, o, lse, b, sq, sk, h, kv, hd, causal,
-                  rows, stream);
+                  window, rows, stream);
 }
 
 // The configuration rt_flash_attention launches for these sizes, into

@@ -22,8 +22,9 @@ HEAD_DIMS = (64, 128)
 CONFIG_FIELDS = ("block_m", "block_n", "stages", "threads", "regs",
                  "producer_regs", "consumer_regs", "smem_bytes",
                  "static_smem_bytes")
-# (device, q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal[, block_m], stream)
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+# (device, q, k, v, o, lse, B, Sq, Sk, H, KV, hd, causal, window[, block_m],
+#  stream)
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
 _FLASH = build.Launcher(NAME, "rt_flash_attention", _ARGS + [ctypes.c_void_p])
 _FLASH_ROWS = build.Launcher(NAME, "rt_flash_attention_rows",
                              _ARGS + [ctypes.c_int, ctypes.c_void_p])
@@ -56,7 +57,8 @@ def check_inputs(name: str, *tensors: torch.Tensor):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block: int = 256,
-                    block_m: Optional[int] = None, return_lse: bool = False):
+                    block_m: Optional[int] = None, return_lse: bool = False,
+                    window: Optional[int] = None):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) with H % KV == 0 -> (B,Sq,H,hd).
 
     On the card: bf16, contiguous, hd in :data:`HEAD_DIMS`; anything else
@@ -66,11 +68,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version's block size on the CPU, which changes only the order of
     float sums. ``return_lse`` also returns each row's natural-log sum of
     exponentials, (B,H,Sq) float32, which the backward reads
-    (:func:`ref.attention_lse` on the CPU)."""
+    (:func:`ref.attention_lse` on the CPU). ``window`` W (>= 1) is the
+    causal sliding window: query i sees keys i - W + 1 .. i; it is ignored
+    without ``causal``, as in the reference."""
     if block_m not in (None, 64, 128):
         raise ValueError(f"{NAME}: block_m {block_m} is not 64 or 128")
+    if window is not None and window < 1:
+        raise ValueError(f"{NAME}: window {window} is not >= 1")
     if q.device.type == "cpu":
-        out = ref.attention_lse(q, k, v, causal=causal, block=block)
+        out = ref.attention_lse(q, k, v, causal=causal, block=block,
+                                window=window)
         return out if return_lse else out[0]
     B, Sq, Sk, H, KV, hd = check_inputs(NAME, q, k, v)
     o = torch.empty_like(q)
@@ -79,7 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq and B:
         sizes = (q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), None if lse is None else lse.data_ptr(),
-                 B, Sq, Sk, H, KV, hd, int(causal))
+                 B, Sq, Sk, H, KV, hd, int(causal),
+                 min(int(window), 2**31 - 1)
+                 if causal and window is not None else 0)
         if block_m is None:
             _FLASH(*sizes)
         else:

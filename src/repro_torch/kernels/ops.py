@@ -14,6 +14,8 @@ and stay numpy int64, like oids.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -346,10 +348,17 @@ class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the flash kernel forward, which also
     keeps each row's log-sum-exp, and the backward kernel from it (on a
     CPU tensor their plain versions, ``ref.attention_lse`` and
-    ``ref.attention_bwd``). A build or launch error raises."""
+    ``ref.attention_bwd``). A build or launch error raises. The backward
+    has no sliding window yet, so a window raises ``NotImplementedError``
+    here rather than run another path."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, block: int):
+    def forward(ctx, q, k, v, causal: bool, block: int,
+                window: Optional[int] = None):
+        if causal and window is not None:
+            raise NotImplementedError(
+                "the gradient of sliding-window attention is not ported: "
+                "the backward kernel has no window (ROADMAP Queue 1)")
         o, lse = _flash_kernel(q, k, v, causal=causal, block=block,
                                return_lse=True)
         ctx.causal = causal
@@ -361,12 +370,13 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do.contiguous(),
                                        causal=ctx.causal)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, block_q: int = 256,
-              block_k: int = 256) -> torch.Tensor:
+              block_k: int = 256,
+              window: Optional[int] = None) -> torch.Tensor:
     """Attention of the model stack (counterpart of the reference's
     ``ops.attention``). q: (B,S,H,hd); k/v: (B,Sk,KV,hd), H % KV == 0.
 
@@ -375,11 +385,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version over ``block_q``-sized block pairs, as the reference's XLA
     path does. Where autograd records (a tensor that requires grad), the
     call goes through :class:`FlashAttention`, so its gradient is the
-    backward kernel's; without it the forward alone runs. ``block_k`` is
+    backward kernel's; without it the forward alone runs. A causal
+    ``window`` W restricts query i to keys i - W + 1 .. i, in the kernel on
+    the card (forward only: under autograd it raises). ``block_k`` is
     kept for the reference's signature: neither path reads it (the
     reference's XLA path does not either)."""
     del block_k
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, block_q)
-    return _flash_kernel(q, k, v, causal=causal, block=block_q)
+        return FlashAttention.apply(q, k, v, causal, block_q, window)
+    return _flash_kernel(q, k, v, causal=causal, block=block_q,
+                         window=window)

@@ -16,6 +16,7 @@ arithmetic runs in int64 masked to 32 bits.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -182,21 +183,27 @@ def attn_sv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, block: int = 1024) -> torch.Tensor:
+              causal: bool = True, block: int = 1024,
+              window: Optional[int] = None) -> torch.Tensor:
     """Online-softmax attention over block pairs: the algorithm of the
-    reference's ``block_causal_attention`` without a window.
+    reference's ``block_causal_attention``.
 
     q: (B,S,H,hd); k/v: (B,Sk,KV,hd), H % KV == 0. Causal masking is
     top-left (query i sees keys <= i); keys are padded to the block and
     masked. Block pairs run in qi-major order with float32 running max,
     denominator and numerator; block pairs above the diagonal are skipped.
+    A causal ``window`` W also masks keys with i - j >= W (query i sees
+    keys i - W + 1 .. i) and skips the block pairs wholly below it, as the
+    reference does; without ``causal`` the window is ignored, as there.
     Returns (B,S,H,hd) in q's dtype.
     """
-    return attention_lse(q, k, v, causal=causal, block=block)[0]
+    return attention_lse(q, k, v, causal=causal, block=block,
+                         window=window)[0]
 
 
 def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, block: int = 1024):
+                  causal: bool = True, block: int = 1024,
+                  window: Optional[int] = None):
     """:func:`attention` and the natural-log sum of exponentials of each
     query row's scaled, masked scores (the softmax's log-normalizer):
     returns (out (B,S,H,hd) in q's dtype, lse (B,H,S) float32). ``out``
@@ -211,6 +218,7 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     n_k = (Sk + pad_k) // block
+    windowed = causal and window is not None
     scale = 1.0 / math.sqrt(hd)
     row = torch.arange(block, device=q.device)
     out = torch.empty_like(q)
@@ -221,13 +229,18 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros((B, H, block), device=q.device)
         acc = torch.zeros((B, H, block, hd), device=q.device)
         for ki in range(min(qi + 1, n_k) if causal else n_k):
+            if windowed and qi * block - (ki * block + block - 1) >= window:
+                continue            # the pair lies wholly below the window
             ks = k[:, ki * block:(ki + 1) * block]
             vs = v[:, ki * block:(ki + 1) * block]
             s = attn_qk(qs, ks) * scale                     # (B,H,bq,bk)
             kpos = ki * block + row[None, :]
             mask = kpos < Sk
             if causal:
-                mask = mask & (qi * block + row[:, None] >= kpos)
+                qpos = qi * block + row[:, None]
+                mask = mask & (qpos >= kpos)
+                if windowed:
+                    mask = mask & (qpos - kpos < window)
             s = torch.where(mask, s, NEG)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_new)

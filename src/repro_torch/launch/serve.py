@@ -42,17 +42,20 @@ class Request:
 class Server:
     """Fixed-batch continuous-batching server (one cache per slot).
 
+    ``arch``: a config name or an ``ArchConfig`` (``reduced`` shrinks
+    either; pass ``reduced=False`` for a config already cut to size).
     ``params``: a state dict of :class:`LM` (e.g. from
     ``models.convert.params_from_numpy``) in place of the seeded weights.
     ``timings`` holds, after :meth:`run`, the host seconds of each prefill
     and of each lockstep decode step (each ends in a device-to-host read of
     the argmax, so it covers the device work)."""
 
-    def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
+    def __init__(self, arch, *, reduced: bool = True, batch: int = 4,
                  seq_cap: int = 256, attn_block: int = 32,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  seed: int = 0, device=None):
-        self.cfg = get_config(arch).reduced() if reduced else get_config(arch)
+        cfg = get_config(arch) if isinstance(arch, str) else arch
+        self.cfg = cfg.reduced() if reduced else cfg
         self.device = resolve_device(device)
         self.batch = batch
         self.seq_cap = seq_cap

@@ -1,18 +1,21 @@
-"""Transformer building blocks of the port (dense attention + gated MLP).
+"""Transformer building blocks of the port: attention (dense or in a
+sliding window), the gated MLP and the top-k MoE FFN.
 
 Counterpart of ``repro.models.layers``, with the reference's dtypes: the
 datapath stays in the model dtype (bf16), softmax state and the Q.K^T
 product run in float32, and ``p`` is cast to v's dtype before P.V.
 Prefill attention goes through ``kernels.ops.attention``: the flash
 kernel on the card, its plain block-pair version on the CPU. Decode
-attention is plain PyTorch, as the reference has no kernel for it.
+attention and the MoE FFN are plain PyTorch, as the reference computes
+them outside any kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.ref import NEG, attn_qk, attn_sv
@@ -45,12 +48,11 @@ def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, window: Optional[int] = None,
                            block: int = 1024,
                            causal: bool = True) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) -> (B,S,H,hd): self (causal) or
-    all-pairs (``causal=False``) attention through ``ops.attention``."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP Queue 1)")
-    return ops.attention(q, k, v, causal=causal, block_q=block)
+    """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) -> (B,S,H,hd): self (causal, in a
+    sliding ``window`` when given) or all-pairs (``causal=False``)
+    attention through ``ops.attention``."""
+    return ops.attention(q, k, v, causal=causal, block_q=block,
+                         window=window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -76,3 +78,98 @@ def gated_mlp(params: Dict[str, torch.Tensor],
     h = x @ params["w1"]
     g = x @ params["w3"]
     return (g * torch.sigmoid(g) * h) @ params["w2"]
+
+
+# ------------------------------------------------------------------- MoE
+
+class Route(NamedTuple):
+    """Where each token's ``k`` choices go, per batch row: expert, slot in
+    that expert's capacity, whether it fits (a choice past the capacity is
+    dropped), and its gate (renormalised over the top k, float32); all
+    (B, sc, k). ``aux`` is the load-balance loss (float32 scalar)."""
+    expert: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    gate: torch.Tensor
+    aux: torch.Tensor
+
+
+def moe_capacity(sc: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert and batch row for a chunk of ``sc`` tokens."""
+    return int(math.ceil(capacity_factor * sc * top_k / n_experts / 4) * 4)
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, *, top_k: int,
+              capacity: int) -> Route:
+    """The reference's routing of one chunk x (B, sc, d): router logits in
+    x's dtype then float32 softmax, top k (ties to the lower expert, as
+    ``lax.top_k``), renormalised gates, and slots from the j-major
+    position cumsum: the j-th choices of a batch row queue behind all of
+    its earlier choices (``offset``)."""
+    n_experts = router.shape[-1]
+    logits = (x @ router).float()
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)                       # (B,sc,E)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[..., :top_k], expert[..., :top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(expert[..., 0], n_experts).float().mean(dim=(0, 1))
+    aux = n_experts * torch.sum(me * ce)
+    offset = torch.zeros((x.shape[0], n_experts), dtype=torch.int64,
+                         device=x.device)
+    slots = []
+    for j in range(top_k):
+        oh = F.one_hot(expert[..., j], n_experts)              # (B,sc,E)
+        pos = torch.cumsum(oh, dim=1) - 1 + offset[:, None, :]
+        slots.append((pos * oh).sum(-1))                       # (B,sc)
+        offset = offset + oh.sum(dim=1)
+    slot = torch.stack(slots, dim=-1)
+    return Route(expert, slot, slot < capacity, gate, aux)
+
+
+def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+            n_experts: int, top_k: int, capacity_factor: float,
+            seq_chunk: int = 4096):
+    """Top-k MoE with per-batch-row capacity: the reference's ``moe_ffn``.
+
+    x: (B,S,d); params ``router`` (d,E), ``w1``/``w3`` (E,d,f), ``w2``
+    (E,f,d). The sequence runs in chunks of ``sc`` tokens (the largest
+    divisor of S up to ``seq_chunk``), each with C slots per expert and
+    batch row. Dispatch and combine gather and scatter by index where the
+    reference multiplies one-hot tensors: each kept choice puts its token
+    in its (expert, slot), every expert runs its gated MLP over all C
+    slots (empty ones hold zeros), and a token sums its kept choices'
+    outputs times their gates, cast to x's dtype as the reference casts
+    its combine tensor. Returns (out (B,S,d), aux), ``aux`` averaged over
+    the chunks."""
+    B, S, d = x.shape
+    sc = min(S, seq_chunk)
+    while S % sc:
+        sc -= 1
+    C = moe_capacity(sc, n_experts, top_k, capacity_factor)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    outs, auxs = [], []
+    for c0 in range(0, S, sc):
+        xc = x[:, c0:c0 + sc]
+        r = moe_route(params["router"], xc, top_k=top_k, capacity=C)
+        # flat (batch row, expert, slot) index; a dropped choice goes to
+        # one spare row past the end, which nothing reads
+        flat = torch.where(r.keep, (rows * n_experts + r.expert) * C
+                           + r.slot, B * n_experts * C).reshape(-1)
+        xe = xc.new_zeros((B * n_experts * C + 1, d))
+        xe[flat] = xc[:, :, None, :].expand(B, sc, top_k, d).reshape(-1, d)
+        xe = xe[:-1].view(B, n_experts, C, d)
+        h = torch.einsum("becd,edf->becf", xe, params["w1"])
+        g = torch.einsum("becd,edf->becf", xe, params["w3"])
+        ye = torch.einsum("becf,efd->becd", g * torch.sigmoid(g) * h,
+                          params["w2"])
+        ye = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))])
+        picked = ye[flat].view(B, sc, top_k, d).float()
+        w = torch.where(r.keep, r.gate, 0.0).to(x.dtype).float()
+        outs.append((picked * w[..., None]).sum(2).to(x.dtype))
+        auxs.append(r.aux)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    aux = auxs[0] if len(auxs) == 1 else torch.stack(auxs).mean()
+    return out, aux

@@ -96,12 +96,6 @@ def test_block_causal_attention_matches_the_reference(S, Sk, H, KV, block,
     _close(want, got, BF16_TOL if bf16 else F32_TOL)
 
 
-def test_block_causal_attention_refuses_a_window():
-    x = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError):
-        layers.block_causal_attention(x, x, x, window=4)
-
-
 @pytest.mark.parametrize("bf16", [False, True])
 def test_rms_norm_rope_and_mlp_match_the_reference(bf16):
     rng = np.random.default_rng(11)

@@ -1014,3 +1014,87 @@ def test_lint_statement_on_a_card_repo_equals_the_runner(cuda):
     res = execute(Repo(device=cuda), "LINT")
     assert res.kind == "lint" and res.data == findings
     assert not [f for f in findings if not f.suppressed]
+
+
+# (b, sq, sk, h, kv, hd, window): the window's lower edge inside and across
+# 128-key tiles, whole tiles below it skipped, and W = 1
+WINDOW_SHAPES = [
+    (1, 1000, 1000, 8, 2, 64, 300),      # W off the tile, ragged Sq
+    (2, 700, 700, 4, 4, 64, 129),        # W one past the tile, B > 1
+    (1, 1024, 1024, 8, 2, 128, 256),     # W a tile multiple, GQA at hd 128
+    (1, 600, 600, 6, 1, 128, 1),         # W = 1: each row sees itself
+    (1, 300, 500, 4, 2, 64, 77),         # Sq < Sk, top-left causal
+    (1, 2048, 2048, 32, 8, 128, 1000),   # mixtral's heads
+]
+
+
+@pytest.mark.parametrize("block_m", [None, 64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,window", WINDOW_SHAPES)
+def test_flash_attention_window_matches_plain(cuda, block_m, b, sq, sk, h,
+                                              kv, hd, window):
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + window)
+    got, lse = flash_attention(q, k, v, window=window, block_m=block_m,
+                               return_lse=True)
+    want, want_lse = ref.attention_lse(q, k, v, window=window, block=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) <= FLASH_REL_TOL
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    # serving's instance (no LSE) gives the same output
+    assert torch.equal(got, flash_attention(q, k, v, window=window,
+                                            block_m=block_m))
+    unwindowed = ref.attention(q, k, v, block=64).float()
+    assert float((got.float() - unwindowed).norm()
+                 / unwindowed.norm()) > FLASH_REL_TOL
+    assert build.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("b,sq,h,kv,hd", [(1, 1000, 8, 2, 64),
+                                          (2, 333, 4, 4, 128),
+                                          (1, 2048, 32, 8, 128)])
+def test_flash_attention_window_past_sq_changes_no_bit(cuda, b, sq, h, kv,
+                                                       hd):
+    q, k, v = _qkv(cuda, b, sq, sq, h, kv, hd)
+    for lse in (False, True):
+        plain = flash_attention(q, k, v, return_lse=lse)
+        for window in (sq, sq + 5, 2**40):
+            got = flash_attention(q, k, v, window=window, return_lse=lse)
+            for a, c in zip(got if lse else (got,), plain if lse
+                            else (plain,)):
+                assert torch.equal(a, c)
+
+
+def test_flash_attention_window_under_autograd_raises(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 1, 256, 256, 4, 4, 64))
+    with pytest.raises(NotImplementedError):
+        ops.attention(q, k, v, window=64)
+    assert build.LAUNCHES["flash_attention"] == 0
+
+
+def test_server_serves_moe_and_the_window_through_the_kernel(cuda):
+    """Reduced mixtral (MoE, window 16) with its head dim widened to 64
+    (the kernel's instances are hd 64 and 128): prompts longer than the
+    window prefill through the windowed kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              head_dim=64)
+    srv = Server(cfg, reduced=False, device=cuda, seq_cap=128,
+                 attn_block=16)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(2, cfg.vocab, size=n), 4)
+            for i, n in enumerate((32, 48, 16, 64))]
+    done, _, _ = srv.run(reqs)
+    assert build.LAUNCHES["flash_attention"] == cfg.n_layers * len(reqs)
+    assert all(len(r.out) == 4 and all(0 <= t < cfg.vocab for t in r.out)
+               for r in done)
+
+
+def test_serve_batch_example_on_the_card(cuda, capsys):
+    from repro_torch.examples import serve_batch
+    done = serve_batch.main([])
+    assert capsys.readouterr().out.startswith("served 10 requests / 240 ")
+    assert all(len(r.out) == 24 for r in done)
+    assert build.LAUNCHES["flash_attention"] == 2 * 10     # layers x reqs

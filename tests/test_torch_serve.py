@@ -22,13 +22,16 @@ from repro.models import lm as r_lm
 from repro_torch.benchmarks.serve_consistency import (FAULTS,
                                                       prefill_decode_logits,
                                                       rel_gap)
-from repro_torch.configs import MoECfg, all_arch_names, get_config
+from repro_torch.configs import all_arch_names, get_config
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.lm import LM
 from chip_smoke import SERVE_REL_TOL
 
 ARCH = "qwen1.5-0.5b"
+#: every architecture the port registers
+PORTED = ("deepseek-7b", "granite-20b", "internlm2-1.8b", "mixtral-8x7b",
+          "phi3.5-moe-42b-a6.6b", "qwen1.5-0.5b")
 PREFILL_TOL = 2e-4
 DECODE_TOL = 3e-3
 #: bf16 logits of the two packages differ by up to LOGIT_TOL / 2 on the
@@ -79,10 +82,11 @@ def f32_pair():
     return rcfg, jax.tree.map(jnp.asarray, tree), _port(tcfg, tree)
 
 
-def test_configs_match_the_reference():
-    assert all_arch_names() == [ARCH]
+@pytest.mark.parametrize("arch", PORTED)
+def test_configs_match_the_reference(arch):
+    assert all_arch_names() == list(PORTED)
     for reduced in (False, True):
-        want, got = r_get_config(ARCH), get_config(ARCH)
+        want, got = r_get_config(arch), get_config(arch)
         if reduced:
             want, got = want.reduced(), got.reduced()
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -257,8 +261,9 @@ def test_lm_and_server_need_the_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("change", [{"slots": ("mamba",)},
-                                    {"moe": MoECfg(n_experts=4)},
-                                    {"sliding_window": 16},
+                                    {"slots": ("rwkv",)},
+                                    {"cross_len": 8},
+                                    {"learned_pos": True},
                                     {"encoder_layers": 2}])
 def test_other_architectures_raise(change):
     _, tcfg = _cfgs("bfloat16")
