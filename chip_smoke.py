@@ -42,7 +42,14 @@ Phases, one line each:
                 (bit-equal to the unwindowed kernel), both instances
                 (serving's and the LSE one) against the plain version,
                 beside SDPA with a boolean band mask, bound by the
-                in-window pairs
+                in-window pairs; and the backward with the window at
+                mixtral's training layer (8,192 tokens, W 4,096; the
+                plain version KV head by KV head), at hd 64 with W off
+                the tile and at W = Sq (the unwindowed kernel's bits),
+                and unwindowed MQA at granite-20b's (4 x 2,048, 48 query
+                heads on one KV head; dk and dv, sums over 48 heads, held
+                by rel-L2 and the plain bf16 path's error), beside SDPA's
+                backward (with a band mask under the window)
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
@@ -155,13 +162,28 @@ Phases, one line each:
                 tokens/s, model-FLOP share, the busy share of a profiled
                 step, peak memory, checkpoint seconds, and the launches
                 of both attention kernels in the phase's window
+     train_models — internlm2-1.8b (all 24 layers), deepseek-7b (16 of
+                30), granite-20b (6 of 52; MQA), phi3.5-moe-42b-a6.6b and
+                mixtral-8x7b (3 of 32 each; MoE, mixtral's 4,096-token
+                window binding at 8,192 tokens) at their published
+                widths: each its own pinned corpus on a card engine, 4
+                steps of train_step(remat=True) (the backward kernel,
+                windowed for mixtral, and AdamW), one profiled step, then
+                freed; finite losses, launches (forward twice a layer
+                under remat), step ms, tokens/s, model-FLOP share with
+                active parameters, peak memory; then the card-vs-CPU step
+                with remat for each MoE config at one layer (its matrices
+                at the 32-layer scale; mixtral's window cut to 128) with
+                the card's routes replayed on the CPU, each side's own
+                routing recorded unheld
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
 tiers, both modes, and the examples; flash from both serving phases and
-training, its backward from training). The full record goes to
+both training phases, its backward from both training phases, with the
+windowed launches apart). The full record goes to
 ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -255,7 +277,39 @@ RING_OFFSET_PREFILL = 6144
 # Flash backward shapes: the training step's (qwen1.5-0.5b at B 4 x 2048)
 # and the forward table's (b) and (c).
 BWD_SHAPES = ((4, 2048, 2048, 16, 16, 64, True),) + FLASH_SHAPES[1:]
+# Windowed backward shapes: (B, Sq, Sk, H, KV, hd, W), all causal: (w1)
+# mixtral-8x7b's training layer, 8,192 tokens in its 4,096-token window;
+# (w2) hd 64 with W off the 128-key tile; (w3) W = Sq, which must give the
+# unwindowed kernel's bits. And (m), unwindowed MQA at granite-20b's
+# training layer (48 query heads on one KV head).
+BWD_WINDOW_SHAPES = ((1, 8192, 8192, 32, 8, 128, 4096),
+                     (1, 4096, 4096, 16, 16, 64, 1000),
+                     (1, 2048, 2048, 16, 8, 128, 2048))
+BWD_MQA_SHAPE = (4, 2048, 2048, 48, 1, 128, True)
+# The other training layers of train_models, unwindowed at 4 x 2048, hd
+# 128: (t1) internlm2-1.8b's GQA (H 16, KV 8), (t2) deepseek-7b's MHA (H =
+# KV = 32), (t3) phi3.5-moe's GQA (H 32, KV 8)
+BWD_TRAIN_SHAPES = ((4, 2048, 2048, 16, 8, 128, True),
+                    (4, 2048, 2048, 32, 32, 128, True),
+                    (4, 2048, 2048, 32, 8, 128, True))
+# every row of the backward's table, (B, Sq, Sk, H, KV, hd, causal[, W]):
+# each shape that the train and train_models phases run the backward at
+BWD_ROWS = BWD_SHAPES + tuple(s[:6] + (True,) + s[6:]
+                              for s in BWD_WINDOW_SHAPES) \
+    + (BWD_MQA_SHAPE,) + BWD_TRAIN_SHAPES
 BWD_TILE = 128              # keys per CTA tile of the kernel
+# dk and dv of a KV head sum the bf16-rounded P and dS of its G query
+# heads over every row: their elementwise error grows with G. Up to this
+# G they are held elementwise at FLASH_TOL like dq; above it (granite's
+# MQA, G = 48: 0.047 and 0.074 at (m) on the H100, while their rel-L2
+# read 2.4e-3, as at every other row) by BWD_REL_TOL and by a max error
+# no larger than the plain bf16 path's (autograd through ref.attention in
+# bf16) against the same float32 backward
+BWD_GROUP_ELEMENTWISE = 8
+# the plain backward runs KV head by KV head above this many bytes of
+# float32 scores: at (w1) it would hold four (B, KV, G, 8192, 8192)
+# float32 tensors, 34 GB, at once
+PLAIN_BWD_BYTES = 4 << 30
 # dq, dk, dv against the plain version (float32 on the same bf16 inputs):
 # atol = rtol = FLASH_TOL and ||kernel - plain|| / ||plain|| at most this.
 # The kernel rounds P and dS to bf16 before their products and its outputs
@@ -278,6 +332,24 @@ TRAIN_CHECK = (1, 256)      # batch, tokens of the card-vs-CPU step
 # apart, on the H100 (PERF.md, PR 19); the check reports that floor.
 TRAIN_LOSS_TOL = 2e-3
 TRAIN_GNORM_TOL = 5e-2
+# The configs serve_models serves, trained at their published widths: (arch,
+# layers kept (None: all), batch, tokens). 12 bytes a parameter (bf16
+# weights and gradients, float32 AdamW moments) must fit one 80 GB card
+# beside remat's activations, AdamW's float32 temporaries of the largest
+# leaf and the float32 logits: deepseek-7b keeps 16 of 30 layers (~49 GB
+# of state), granite-20b 6 of 52 (~45 GB), phi3.5-moe 3 of 32 (~50 GB)
+# and mixtral-8x7b 3 of 32 (~55 GB); mixtral takes one 8,192-token row,
+# so its 4,096-token window binds.
+TRAIN_MODELS = (("internlm2-1.8b", None, 4, 2048),
+                ("deepseek-7b", 16, 4, 2048),
+                ("granite-20b", 6, 4, 2048),
+                ("phi3.5-moe-42b-a6.6b", 3, 4, 2048),
+                ("mixtral-8x7b", 3, 1, 8192))
+TRAIN_MODELS_STEPS = 4
+TRAIN_MODELS_SAMPLES = 64   # samples of each config's pinned corpus
+# mixtral's window in its card-vs-CPU step, cut so that it binds at
+# TRAIN_CHECK's 256 tokens
+TRAIN_CHECK_WINDOW = 128
 # searchsorted launches of the main path, grouped by query count: the
 # 1-query zone windows of core/table.py, small, Δ-sized and table-sized
 SEARCH_GROUPS = (("1 query", 1, 1), ("2-1023 queries", 2, 1023),
@@ -766,16 +838,67 @@ def bwd_bytes(b, sq, sk, h, kv, hd) -> int:
     return 2 * (4 * b * sq * h * hd + 4 * b * sk * kv * hd) + 4 * b * h * sq
 
 
-def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
-    """The flash backward against its plain version at ``shapes``: dq, dk
-    and dv within FLASH_TOL and BWD_REL_TOL, the forward's LSE within
-    LSE_TOL, two launches bitwise equal, a planted mask fault shown to
-    exceed BWD_REL_TOL, the kernel's event and device time, TFLOP/s, its
-    bound (2.5 x the forward's tensor FLOPs), the plain version's time,
-    SDPA's backward through autograd on the same inputs, and the launch
-    configuration. ``forward_lse`` times the forward that the training
-    step runs before it (the LSE stored) beside its bound and SDPA's
-    forward."""
+def plain_bwd(torch, q, k, v, o, lse, do, causal, window=None):
+    """ref.attention_bwd, KV head by KV head when its float32 scores would
+    pass PLAIN_BWD_BYTES (each KV head's query heads, lse rows and key
+    columns alone: the heads do not mix)."""
+    from repro_torch.kernels import ref
+    b, sq, h, _ = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if 4 * b * h * sq * sk <= PLAIN_BWD_BYTES:
+        return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    g = h // kv
+    parts = [ref.attention_bwd(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        o[:, :, j * g:(j + 1) * g], lse[:, j * g:(j + 1) * g].contiguous(),
+        do[:, :, j * g:(j + 1) * g], causal=causal, window=window)
+        for j in range(kv)]
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
+def plain_bf16_grads(torch, q, k, v, do, causal=True, window=None):
+    """dq, dk, dv of the plain bf16 path: autograd through ref.attention
+    on the bf16 inputs (P and each product rounded to bf16 where it
+    rounds them)."""
+    from repro_torch.kernels import ref
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ref.attention(*x, causal=causal, block=256, window=window)
+    return torch.autograd.grad(out, x, do)
+
+
+def group_close(torch, got, want, causal=True, window=None, q=None, k=None,
+                v=None, do=None) -> dict:
+    """dk and dv (``got[1:]``) against ``want`` for a group above
+    BWD_GROUP_ELEMENTWISE: each within BWD_REL_TOL and no further from
+    ``want`` at its worst element than the plain bf16 path is."""
+    plain = plain_bf16_grads(torch, q, k, v, do, causal, window)
+    out = {}
+    for n, x, p, wt in zip(("dk", "dv"), got[1:], plain[1:], want[1:]):
+        err = float((x.float() - wt).abs().max())
+        p_err = float((p.float() - wt).abs().max())
+        rel = float((x.float() - wt).norm() / wt.norm())
+        out[n] = {"max_abs_err": err, "plain_bf16_max_abs_err": p_err,
+                  "rel_l2_err": rel,
+                  "close": err <= p_err and rel <= BWD_REL_TOL}
+    return out
+
+
+def bwd_phase(torch, seed: int, shapes=BWD_ROWS) -> list:
+    """The flash backward against its plain version at ``shapes`` (B, Sq,
+    Sk, H, KV, hd, causal[, window]): dq, dk and dv within FLASH_TOL and
+    BWD_REL_TOL, the forward's LSE within LSE_TOL, two launches bitwise
+    equal, a planted mask fault (the causal mask, the window, or the key
+    tail lost) shown to exceed BWD_REL_TOL, at W >= Sq the unwindowed
+    kernel's bits, the kernel's event and device time, TFLOP/s, its bound
+    (2.5 x the forward's tensor FLOPs over the unmasked pairs), the plain
+    version's time (KV head by KV head where its scores would not fit:
+    ``plain_by_kv_head``), SDPA's backward through autograd on the same
+    inputs (under a window with a boolean band mask, K and V repeated to
+    H heads), and the launch configuration. ``forward_lse`` times the
+    forward that the training step runs before it (the LSE stored)
+    beside its bound and SDPA's forward. Above BWD_GROUP_ELEMENTWISE
+    query heads a KV head, dk and dv are held by ``group_close``."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (config,
@@ -789,33 +912,51 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
     def rel(got, want):
         return float((got.float() - want).norm() / want.norm())
 
-    for b, sq, sk, h, kv, hd, causal in shapes:
+    for shape in shapes:
+        b, sq, sk, h, kv, hd, causal, *win = shape
+        w = win[0] if win else None
         q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
         k = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
         v = torch.randn((b, sk, kv, hd), generator=g, device=dev).bfloat16()
         do = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
-        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True,
+                                 window=w)
         lse_err = float((lse - ref.attention_lse(
-            q, k, v, causal=causal, block=256)[1]).abs().max())
+            q, k, v, causal=causal, block=256, window=w)[1]).abs().max())
 
         def run():
-            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=w)
         before = build.LAUNCHES["flash_attention_bwd"]
         got, again = run(), run()
         launched = build.LAUNCHES["flash_attention_bwd"] - before
-        want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = plain_bwd(torch, q, k, v, o, lse, do, causal, w)
+        by_kv_head = 4 * b * h * sq * sk > PLAIN_BWD_BYTES
         torch.cuda.synchronize()
         same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
-        errs = {n: {"max_abs_err": float((x.float() - w).abs().max()),
-                    "rel_l2_err": rel(x, w),
-                    "close": bool(torch.allclose(x.float(), w,
+        bits = None
+        if w is not None and w >= sq:
+            bits = all(torch.equal(x, y) for x, y in zip(
+                got, flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=causal)))
+        errs = {n: {"max_abs_err": float((x.float() - wt).abs().max()),
+                    "rel_l2_err": rel(x, wt),
+                    "close": bool(torch.allclose(x.float(), wt,
                                                  atol=FLASH_TOL,
                                                  rtol=FLASH_TOL))}
-                for n, x, w in zip(("dq", "dk", "dv"), got, want)}
-        # the planted fault: a lost causal mask, or (all pairs) the
-        # zero-filled key tail of the kernel's last tile left unmasked
-        if causal:
-            faulty = ref.attention_bwd(q, k, v, o, lse, do, causal=False)
+                for n, x, wt in zip(("dq", "dk", "dv"), got, want)}
+        if h // kv > BWD_GROUP_ELEMENTWISE:
+            for n, e in group_close(torch, got, want, causal, w, q, k, v,
+                                    do).items():
+                errs[n].update(e, elementwise_close=errs[n]["close"])
+        # the planted fault: a lost window, a lost causal mask, or (all
+        # pairs) the zero-filled key tail of the kernel's last tile left
+        # unmasked
+        if w is not None and w < sq:
+            faulty = plain_bwd(torch, q, k, v, o, lse, do, causal)
+            fault = "window lost"
+        elif causal:
+            faulty = plain_bwd(torch, q, k, v, o, lse, do, False)
             fault = "causal mask lost"
         else:
             pad = (0, 0, 0, 0, 0, -sk % BWD_TILE)
@@ -828,70 +969,98 @@ def bwd_phase(torch, seed: int, shapes=BWD_SHAPES) -> list:
         check(fault_rel > BWD_REL_TOL, f"a planted mask fault ({fault}: "
               f"{fault_rel}) would pass BWD_REL_TOL")
         ok = (same_bits and lse_err <= LSE_TOL and launched == 2
+              and bits is not False
               and all(e["close"] and e["rel_l2_err"] <= BWD_REL_TOL
                       for e in errs.values())
               and all(bool(torch.isfinite(x).all()) for x in got))
-        flops = 10.0 * b * h * hd * attention_pairs(sq, sk, causal)
+        pairs = window_pairs(sq, sk, w) if w is not None \
+            else attention_pairs(sq, sk, causal)
+        flops = 10.0 * b * h * hd * pairs
         nbytes = bwd_bytes(b, sq, sk, h, kv, hd)
         b_ms, b_by = bound(nbytes, 0, flops)
         ms = cuda_ms(torch, run, 20)
         dev_ms = per_launch_ms(torch, run, "attn_bwd", 10)
-        # SDPA's backward through autograd on the same inputs
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        # SDPA's backward through autograd on the same inputs: GQA in
+        # place, or under a window a boolean band mask with K and V
+        # repeated to H heads (SDPA takes no window)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        if w is None:
+            kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (k, v))
+            kw = dict(is_causal=causal, enable_gqa=True)
+        else:
+            kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                      .detach().requires_grad_() for x in (k, v))
+            i = torch.arange(sq, device=dev)[:, None]
+            j = torch.arange(sk, device=dev)[None, :]
+            kw = dict(attn_mask=(i >= j) & (i - j < w))
+        out = sdpa(qt, kt, vt, **kw)
         dot = do.transpose(1, 2)
 
         def lib():
             return torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
-        lib_err = max(float((x.transpose(1, 2).float() - w).abs().max())
-                      for x, w in zip(lib(), want))
+        lib_g = lib()
+        if w is not None:       # the repeated heads' gradients, summed
+            lib_g = (lib_g[0],) + tuple(
+                x.reshape(b, kv, h // kv, sk, hd).sum(2) for x in lib_g[1:])
+        lib_err = max(float((x.transpose(1, 2).float() - wt).abs().max())
+                      for x, wt in zip(lib_g, want))
+        del lib_g
 
         def fwd():
-            return flash_attention(q, k, v, causal=causal, return_lse=True)
+            return flash_attention(q, k, v, causal=causal, return_lse=True,
+                                   window=w)
 
         def lib_fwd():
             with torch.no_grad():
-                return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                return sdpa(qt, kt, vt, **kw)
         # q, k, v read and o written (bf16), the LSE written (float32);
         # S and P.V: 4 FLOPs a pair and hd
         f_ms, f_by = bound(2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
-                           + 4 * b * h * sq, 0,
-                           4.0 * b * h * hd * attention_pairs(sq, sk, causal))
+                           + 4 * b * h * sq, 0, 4.0 * b * h * hd * pairs)
         forward_lse = {"ms": cuda_ms(torch, fwd, 20),
                        "device_ms": per_launch_ms(torch, fwd, "flash_fwd",
                                                   10),
                        "plain_ms": cuda_ms(torch, lambda: ref.attention_lse(
-                           q, k, v, causal=causal, block=256), 3),
+                           q, k, v, causal=causal, block=256, window=w), 3),
                        "bound_ms": f_ms, "bound_by": f_by,
                        "library_ms": cuda_ms(torch, lib_fwd, 20),
                        "library_device_ms": per_launch_ms(torch, lib_fwd,
                                                           "", 10)}
         rows.append({
-            "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"],
+            "shape": [b, sq, sk, h, kv, hd, "causal" if causal else "all"]
+            + ([f"window {w}"] if w is not None else []),
             "ok": ok, "tol": FLASH_TOL, "rel_tol": BWD_REL_TOL,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "grads": errs, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
             "bitwise_deterministic": same_bits,
+            "bit_equal_unwindowed": bits,
             "planted_fault": fault, "planted_fault_rel_l2": fault_rel,
             "library_max_abs_err": lib_err,
+            "library_is": "scaled_dot_product_attention's backward through "
+                          "autograd" + ("" if w is None else
+                                        ", a boolean band mask, K and V "
+                                        "repeated to H heads"),
             "ms": ms, "tflops": flops / ms / 1e9, "device_ms": dev_ms,
             "device_tflops": flops / dev_ms / 1e9 if dev_ms else None,
-            "plain_ms": cuda_ms(torch, lambda: ref.attention_bwd(
-                q, k, v, o, lse, do, causal=causal), 3),
+            "plain_ms": cuda_ms(torch, lambda: plain_bwd(
+                torch, q, k, v, o, lse, do, causal, w), 3),
+            "plain_by_kv_head": by_kv_head,
             "library_ms": cuda_ms(torch, lib, 20),
             "library_device_ms": per_launch_ms(torch, lib, "", 10),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops, "config": config(hd, dev),
+            "pairs": pairs, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / dev_ms if dev_ms else None,
+            "bytes": nbytes, "flops": flops, "config": config(hd, dev),
             "forward_lse": forward_lse})
         if not ok:
-            bad.append((rows[-1]["shape"], errs, lse_err, same_bits))
+            bad.append((rows[-1]["shape"], errs, lse_err, same_bits, bits))
         del q, k, v, do, o, lse, got, again, want, qt, kt, vt, out
         torch.cuda.empty_cache()
     check(not bad, f"flash_attention_bwd differs from its plain version "
                    f"beyond {FLASH_TOL} abs or {BWD_REL_TOL} rel-L2, or its "
-                   f"LSE beyond {LSE_TOL}, or two launches differ: {bad}")
+                   f"LSE beyond {LSE_TOL}, or two launches differ, or at "
+                   f"W >= Sq it leaves the unwindowed kernel's bits: {bad}")
     return rows
 
 
@@ -2616,18 +2785,16 @@ def serve_phase(torch, seed: int) -> dict:
 
 
 def param_count(cfg) -> int:
-    """Parameters of ``cfg`` from its fields (the reference's
-    ``init_params`` shapes): per layer two norms, Q/K/V/O (and QKV biases)
-    and a gated MLP, or a router and E gated experts; embed, head and the
-    final norm."""
-    d, hd, H, KV, f = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.d_ff)
-    attn = d * H * hd + 2 * d * KV * hd + H * hd * d
-    if cfg.qkv_bias:
-        attn += H * hd + 2 * KV * hd
-    ffn = (d * cfg.moe.n_experts + cfg.moe.n_experts * 3 * d * f
-           if cfg.moe else 3 * d * f)
-    return cfg.n_layers * (2 * d + attn + ffn) + 2 * cfg.vocab * d + d
+    """Parameters of ``cfg`` (the reference's ``init_params`` shapes): the
+    config's ``n_params()`` (the reference's formula: Q/K/V/O, the gated
+    MLP or E gated experts, embed and head) and the leaves that formula
+    leaves out: per layer two norms, the QKV biases and the MoE router;
+    the final norm."""
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    small = 2 * d + (H * hd + 2 * KV * hd if cfg.qkv_bias else 0)
+    routers = sum(d * cfg.moe.n_experts for f in cfg.ffn_kinds()
+                  if f == "moe") * cfg.n_periods
+    return int(cfg.n_params()) + cfg.n_layers * small + routers + d
 
 
 def serve_model(torch, arch: str, layers, seed: int) -> dict:
@@ -2774,22 +2941,46 @@ def serve_models_phase(torch, seed: int) -> dict:
 # -------------------------------------------------------------------- train
 
 def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 N T for the dense work, plus
-    attention's, 3.5 x its forward (the backward is 2.5 x)."""
-    fwd = 4.0 * batch * cfg.n_heads * cfg.hd * attention_pairs(seq, seq, True)
+    """Model FLOPs of one training step: 6 N T for the dense work (N the
+    parameters a token meets: an MoE's active ones), plus attention's over
+    its unmasked pairs (under a sliding window, those inside it), 3.5 x
+    its forward (the backward is 2.5 x). A remat step's recomputed
+    forward is not model work and is not counted."""
+    W = cfg.sliding_window
+    pairs = window_pairs(seq, seq, W) if W else \
+        attention_pairs(seq, seq, True)
+    fwd = 4.0 * batch * cfg.n_heads * cfg.hd * pairs
     return 6.0 * n_params * batch * seq + 3.5 * fwd * cfg.n_layers
 
 
-def card_vs_cpu_step(torch, cfg, seed: int) -> dict:
-    """One full-width loss and gradient on the card and on the CPU's plain
-    path, from the same bf16 weights and a TRAIN_CHECK-sized batch:
-    the loss and the global gradient norm, each within its tolerance.
-    The same step on the CPU in float32 (the same weights, upcast) gives
-    the bf16 noise floor the tolerance is read against."""
+def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
+    """One full-width loss and gradient (``loss_fn(..., remat=remat)`` and
+    its backward, the work of ``train_step`` before AdamW) on the card and
+    on the CPU's plain path, from the same bf16 weights and a
+    TRAIN_CHECK-sized batch: the loss and the global gradient norm, each
+    within its tolerance. The same step on the CPU in float32 (the same
+    weights, upcast) gives the bf16 noise floor the tolerance is read
+    against. An MoE config's card step records its routes and the CPU
+    steps replay them (``models.routes``), so both sides compute one
+    function; the CPU's bf16 step with its own routing is recorded
+    beside it (``own_routes``), unheld, and so are the choices that the
+    card's remat recompute routed differently from its forward
+    (``recompute_flips``, 0 expected). Each model is drawn on its own
+    from a CPU generator of one seed, so the weights are the same only if
+    the init does not depend on the device. A config cut in depth keeps
+    the published depth's init scale: each model's layer matrices are
+    taken to 1/sqrt(published periods), as the published model's first
+    layers are drawn (a one-layer cut would draw them at 1, where bf16
+    rounding moved phi3.5-moe's gradient norm by a third against
+    float32)."""
+    import contextlib
     import dataclasses
 
     import numpy as np
 
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import routes
     from repro_torch.models.lm import LM, loss_fn
     from repro_torch.optim import global_norm
 
@@ -2798,29 +2989,61 @@ def card_vs_cpu_step(torch, cfg, seed: int) -> dict:
     toks = rng.integers(2, cfg.vocab, size=(b, n + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1]),
              "targets": torch.as_tensor(toks[:, 1:])}
-    cpu = LM(cfg, device="cpu",
-             generator=torch.Generator().manual_seed(seed + 7))
-    card = LM(cfg, device="cuda",
-              generator=torch.Generator().manual_seed(seed + 7))
-    # weights drawn in float32 and rounded to bf16, then held in float32
-    cpu32 = LM(dataclasses.replace(cfg, dtype="float32"), device="cpu",
+    log = routes.RouteLog(n)
+    moe = cfg.moe is not None
+    published = get_config(cfg.name).n_periods
+    rescale = math.sqrt(cfg.n_periods / published)
+
+    def model(dtype, device):
+        # weights drawn in float32 and rounded to bf16, then held in dtype
+        m = LM(dataclasses.replace(cfg, dtype=dtype), device=device,
                generator=torch.Generator().manual_seed(seed + 7))
-    check(all(torch.equal(a.cpu(), b_) and torch.equal(b_.float(), c)
-              for a, b_, c in zip(card.parameters(), cpu.parameters(),
-                                  cpu32.parameters())),
+        if published != cfg.n_periods:
+            with torch.no_grad():
+                for name, p in m.named_parameters():
+                    if (name.startswith("layers.") and p.dim() >= 2
+                            and not name.endswith(".router")):
+                        p.copy_((p.float() * rescale).bfloat16())
+        return m
+    t_draw = time.perf_counter()
+    card, cpu = model("bfloat16", "cuda"), model("bfloat16", "cpu")
+    draw_s = time.perf_counter() - t_draw
+    check(all(torch.equal(a.cpu(), c) for a, c in zip(card.parameters(),
+                                                      cpu.parameters())),
           "the card and CPU models do not hold the same weights")
     out = {}
-    for name, model in (("card", card), ("cpu", cpu), ("cpu_f32", cpu32)):
-        model.requires_grad_()
+    for name, ctx in (("card", routes.recorded(log)),
+                      ("cpu", routes.replayed(log)),
+                      ("cpu_f32", routes.replayed(log)),
+                      ("own_routes", contextlib.nullcontext())):
+        if name == "own_routes" and not moe:
+            continue
+        m = {"card": card, "cpu": cpu, "own_routes": cpu}.get(name)
+        if m is None:
+            t_draw = time.perf_counter()
+            m = model("float32", "cpu")
+            draw_s += time.perf_counter() - t_draw
+            check(all(torch.equal(c.float(), f) for c, f in
+                      zip(cpu.parameters(), m.parameters())),
+                  "the float32 model does not hold the bf16 weights")
+        for p in m.parameters():
+            p.grad = None
+        m.requires_grad_()
+        build.reset_launches()
         t0 = time.perf_counter()
-        loss = loss_fn(model, {k: v.to(model.device)
-                               for k, v in batch.items()})
-        loss.backward()
-        gnorm = global_norm(p.grad for p in model.parameters())
+        with ctx if moe else contextlib.nullcontext():
+            loss = loss_fn(m, {k: v.to(m.device) for k, v in batch.items()},
+                           remat=remat)
+            loss.backward()
+        gnorm = global_norm(p.grad for p in m.parameters())
         out[name] = {"loss": loss.item(), "grad_norm": gnorm.item(),
                      "seconds": time.perf_counter() - t0}
-        del model
-    del card, cpu, cpu32
+        if name == "card":
+            out["launches"] = dict(build.LAUNCHES)
+        if name == "cpu_f32":
+            del m
+            gc.collect()
+    del card, cpu
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2832,13 +3055,25 @@ def card_vs_cpu_step(torch, cfg, seed: int) -> dict:
     out["bf16_floor"] = {k: {"card_vs_f32": rel(a, f, k),
                              "cpu_bf16_vs_f32": rel(c, f, k)}
                          for k in ("loss", "grad_norm")}
-    out.update(batch=b, tokens=n, loss_tol=TRAIN_LOSS_TOL,
-               grad_norm_tol=TRAIN_GNORM_TOL)
+    if moe:
+        own = out["own_routes"]
+        out["own_routes"].update(
+            loss_rel_diff=rel(a, own, "loss"),
+            grad_norm_rel_diff=rel(a, own, "grad_norm"),
+            held=False)
+        out["replayed_chunks"] = len(log.choices)
+        out["recompute_flips"] = log.recompute_flips if remat else None
+    out.update(batch=b, tokens=n, remat=remat, routes_replayed=moe,
+               draw_seconds=draw_s,
+               init_scale_periods=published,
+               loss_tol=TRAIN_LOSS_TOL, grad_norm_tol=TRAIN_GNORM_TOL)
     check(all(math.isfinite(x[k]) for x in (a, c)
               for k in ("loss", "grad_norm")), f"non-finite check: {out}")
     check(out["loss_rel_diff"] <= TRAIN_LOSS_TOL
           and out["grad_norm_rel_diff"] <= TRAIN_GNORM_TOL,
           f"the card's step differs from the CPU's: {out}")
+    check(not moe or not remat or log.recompute_flips == 0,
+          f"the card's remat recompute routed differently: {out}")
     return out
 
 
@@ -3019,6 +3254,159 @@ def train_phase(torch, seed: int) -> dict:
     rec["card_vs_cpu"] = card_vs_cpu_step(torch, cfg, seed)
     rec["phase_s"] = time.perf_counter() - t_phase
     return rec
+
+
+def train_model(torch, arch: str, layers, batch: int, seq: int,
+                seed: int) -> dict:
+    """One config at its published widths (depth cut to ``layers`` where
+    given) through the training path: its own versioned token corpus,
+    pinned, batches from the pipeline on the card, TRAIN_MODELS_STEPS
+    steps of ``train.train_step(..., remat=True)`` (loss, backward through
+    the flash kernels, AdamW), then one profiled step. Returns its
+    record; the caller frees the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import Engine
+    from repro_torch.data import (BatchPipeline, PinnedDataset, PipelineCfg,
+                                  create_token_table, synth_corpus)
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWCfg, init_opt_state
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(device="cuda")
+    create_token_table(engine, "corpus")
+    synth_corpus(engine, "corpus", n_samples=TRAIN_MODELS_SAMPLES,
+                 sample_len=seq + 1, vocab=cfg.vocab, seed=seed)
+    pin = engine.create_snapshot("train-pin", "corpus")
+    pipe = BatchPipeline(PinnedDataset(engine, pin),
+                         PipelineCfg(seq_len=seq, global_batch=batch))
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator("cuda").manual_seed(seed))
+    model.requires_grad_()
+    live = dict(model.named_parameters())
+    opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=TRAIN_MODELS_STEPS)
+    opt = init_opt_state(live, opt_cfg)
+    decay = train.decay_names(live)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in live.values())
+    check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, "
+          f"not the config's {param_count(cfg)}")
+    # the parameters a token meets: an MoE's experts count top_k of E
+    n_active = n_params - int(cfg.n_params() - cfg.n_params_active())
+    build.reset_launches()
+    losses, step_ms, gnorms = [], [], []
+    for step in range(1, TRAIN_MODELS_STEPS + 1):
+        t0 = time.perf_counter()
+        data = pipe.tensors_at(step, "cuda")
+        opt, metrics = train.train_step(model, data, opt, opt_cfg, decay,
+                                        seq, remat=True)
+        losses.append(float(metrics["loss"]))      # syncs the step's work
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = dict(build.LAUNCHES)
+    steady = sorted(step_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    flops = train_flops(n_active, cfg, batch, seq)
+    want = cfg.n_layers * TRAIN_MODELS_STEPS
+    check(launches["flash_attention"] == 2 * want
+          and launches["flash_attention_bwd"] == want,
+          f"{arch}: attention kernels launched {launches}, not {2 * want} "
+          f"forwards (remat runs each twice) and {want} backwards")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{arch}: a loss or gradient norm is not finite: {losses} "
+          f"{gnorms}")
+    peak = torch.cuda.max_memory_allocated()
+    data = pipe.tensors_at(TRAIN_MODELS_STEPS + 1, "cuda")
+    prof = device_profile(torch, lambda: train.train_step(
+        model, data, opt, opt_cfg, decay, seq, remat=True),
+        focus="attn_bwd")
+    W = cfg.sliding_window
+    rec = {"arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": full.n_layers,
+           "cut": None if layers is None else
+           f"n_layers {full.n_layers} -> {layers}",
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "hd": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "moe": None if not cfg.moe else [cfg.moe.n_experts,
+                                            cfg.moe.top_k],
+           "window": W, "batch": batch, "seq_len": seq,
+           "window_binds": bool(W and W < seq),
+           "corpus_samples": TRAIN_MODELS_SAMPLES, "pin": "train-pin",
+           "corpus_s": corpus_s, "init_s": init_s,
+           "params": n_params, "active_params": n_active,
+           "state_bytes": sum(p.numel() * (p.element_size() + 8)
+                              for p in live.values()),
+           "steps": TRAIN_MODELS_STEPS, "remat": True, "losses": losses,
+           "grad_norms": gnorms, "step_ms": step_ms,
+           "step_ms_median": median_ms,
+           "tokens_per_s": batch * seq / (median_ms / 1e3),
+           "model_flops": flops,
+           "model_flop_share": flops / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+           "launches": launches,
+           "window_bwd_launches": launches["flash_attention_bwd"]
+           if W and W < seq else 0,
+           "max_memory_allocated": peak,
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "profile_step": prof}
+    del model, live, opt, data, pipe, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_all
+    return rec
+
+
+def train_models_phase(torch, seed: int) -> dict:
+    """Every config of TRAIN_MODELS through ``train_model``, each trained
+    and freed before the next; then the card-vs-CPU step, with remat and
+    the card's routes replayed on the CPU, for each MoE config at one
+    layer (mixtral's window cut to TRAIN_CHECK_WINDOW so that it binds at
+    TRAIN_CHECK tokens)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs, checks = [], {}
+    for arch, layers, batch, seq in TRAIN_MODELS:
+        recs.append(train_model(torch, arch, layers, batch, seq, seed))
+        phase("train_model", **{k: v for k, v in recs[-1].items()
+                                if k != "profile_step"},
+              profile_step={k: v for k, v in recs[-1]["profile_step"].items()
+                            if k != "top_kernels"},
+              top_kernels=recs[-1]["profile_step"]["top_kernels"][:5])
+    for arch, layers, _, _ in TRAIN_MODELS:
+        cfg = get_config(arch)
+        if cfg.moe is None:
+            continue
+        cut = {"n_layers": 1}
+        if cfg.sliding_window:
+            cut["sliding_window"] = TRAIN_CHECK_WINDOW
+        checks[arch] = card_vs_cpu_step(
+            torch, dataclasses.replace(cfg, **cut), seed, remat=True)
+        checks[arch]["cut"] = {k: [getattr(cfg, k), v]
+                               for k, v in cut.items()}
+        phase("train_model_check", arch=arch, **checks[arch])
+    return {"models": recs, "card_vs_cpu": checks,
+            "seconds": time.perf_counter() - t0,
+            "flash_launches": sum(r["launches"]["flash_attention"]
+                                  for r in recs),
+            "bwd_launches": sum(r["launches"]["flash_attention_bwd"]
+                                for r in recs),
+            "window_bwd_launches": sum(r["window_bwd_launches"]
+                                       for r in recs)}
 
 
 # --------------------------------------------------------------------- main
@@ -3390,6 +3778,11 @@ def main(argv=None) -> int:
         phase("train", **{k: v for k, v in trained.items()
                           if k != "profile_step"})
         phase("train_profile", profile_step=trained["profile_step"])
+        models_trained = train_models_phase(torch, args.seed)
+        record["train_models"] = models_trained
+        phase("train_models", **{k: v for k, v in models_trained.items()
+                                 if k not in ("models", "card_vs_cpu")},
+              archs=[m["arch"] for m in models_trained["models"]])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -3399,11 +3792,12 @@ def main(argv=None) -> int:
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
                        + tiers + list(examples.values()))
                 for k in build.VCS_SOURCES}
-    # attention: the serve windows' and the train window's
+    # attention: the serve windows' and the train windows'
     launches["flash_attention"] = serve["flash_launches"] \
-        + models["flash_launches"] + trained["launches"]["flash_attention"]
+        + models["flash_launches"] + trained["launches"]["flash_attention"] \
+        + models_trained["flash_launches"]
     launches["flash_attention_bwd"] = trained["launches"][
-        "flash_attention_bwd"]
+        "flash_attention_bwd"] + models_trained["bwd_launches"]
     replaces = {
         "rowhash": "src/repro/kernels/rowhash.py:43",
         "searchsorted": "src/repro/kernels/searchsorted.py:48",
@@ -3424,6 +3818,10 @@ def main(argv=None) -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": e["library_ms"]})
+        if name == "flash_attention_bwd":
+            # of those, the launches with a sliding window that binds
+            line[-1]["window_launches"] = models_trained[
+                "window_bwd_launches"]
     record["kernel_line"] = line
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

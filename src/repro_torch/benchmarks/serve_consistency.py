@@ -23,7 +23,8 @@ one's choice past capacity), decode never drops, and a routing choice
 that rounding flips changes a token's output wholesale. So for MoE
 configs ``prefill_decode_logits(..., fixed_routes=True)`` records every
 layer's routes in the whole prefill (L1) and replays them, position by
-position, in the shorter prefill and the decode steps (L2): both sides
+position, in the shorter prefill and the decode steps (L2), through
+``models.routes.calls`` and ``models.routes.served``: both sides
 then compute one function, and the gap reads the attention and cache
 path alone, as it does for a dense model.
 """
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..models import layers
+from ..models import routes as route_hooks
 from ..models.lm import LM
 
 ARCH = "qwen1.5-0.5b"
@@ -65,66 +66,6 @@ FAULTS = {
 }
 
 
-@contextlib.contextmanager
-def _recorded_routes(store: list):
-    """Keep every ``layers.moe_route`` result, in call order."""
-    route = layers.moe_route
-
-    def record(router, x, **kw):
-        r = route(router, x, **kw)
-        store.append(r)
-        return r
-    layers.moe_route = record
-    try:
-        yield
-    finally:
-        layers.moe_route = route
-
-
-@contextlib.contextmanager
-def _replayed_routes(routes, n_layers: int, first_pass: int):
-    """Serve ``layers.moe_route`` from ``routes`` (per layer: expert, keep
-    and gate over every position) for a prefill of ``first_pass``
-    positions and then one position per decode step: each call takes the
-    next positions of its layer. Slots are ranked again among the kept
-    choices (j-major, as the reference ranks them), and the capacity of
-    a chunk of ``sc`` tokens is the most kept choices of any expert in a
-    layer, or ``sc`` if fewer (a token sends an expert one choice at
-    most), so nothing more drops."""
-    route, capacity = layers.moe_route, layers.moe_capacity
-    cap = max(int(torch.bincount(e[k], minlength=1).max())
-              for e, k, _ in routes)
-    cur = {"layer": 0, "start": 0, "pos": 0, "end": first_pass}
-
-    def replay(router, x, *, top_k, capacity):
-        e, keep, gate = (t[:, cur["pos"]:cur["pos"] + x.shape[1]]
-                         for t in routes[cur["layer"]])
-        cur["pos"] += x.shape[1]
-        if cur["pos"] == cur["end"]:             # this layer's pass done
-            cur["layer"] += 1
-            if cur["layer"] == n_layers:         # next: one decode step
-                cur.update(layer=0, start=cur["end"], end=cur["end"] + 1)
-            cur["pos"] = cur["start"]
-        n_experts = router.shape[-1]
-        offset = torch.zeros((x.shape[0], n_experts), dtype=torch.int64,
-                             device=x.device)
-        slots = []
-        for j in range(top_k):
-            oh = torch.nn.functional.one_hot(e[..., j], n_experts) \
-                * keep[..., j, None]
-            slots.append(((torch.cumsum(oh, 1) - 1 + offset[:, None])
-                          * oh).sum(-1))
-            offset = offset + oh.sum(1)
-        return layers.Route(e, torch.stack(slots, -1), keep, gate,
-                            torch.zeros((), device=x.device))
-    layers.moe_route = replay
-    layers.moe_capacity = lambda sc, *a: -(-min(cap, sc) // 4) * 4
-    try:
-        yield
-    finally:
-        layers.moe_route, layers.moe_capacity = route, capacity
-
-
 def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
                           attn_block: int = 32, plant=None,
                           fixed_routes: bool = False):
@@ -135,7 +76,7 @@ def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
     (see the module's docstring)."""
     n = prompt.shape[1]
     routes: list = []
-    with _recorded_routes(routes) if fixed_routes \
+    with route_hooks.calls(routes) if fixed_routes \
             else contextlib.nullcontext():
         l1, _ = model.prefill(prompt, seq_cap=n, attn_block=attn_block)
     replay = contextlib.nullcontext()
@@ -147,7 +88,7 @@ def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
                                    routes[i * per:(i + 1) * per]], dim=1)
                         for f in ("expert", "keep", "gate"))
                   for i in range(n_layers)]
-        replay = _replayed_routes(routes, n_layers, n - tail)
+        replay = route_hooks.served(routes, n_layers, n - tail)
     with replay:
         l2, cache = model.prefill(prompt[:, :n - tail], seq_cap=n + 1,
                                   attn_block=attn_block)

@@ -1,9 +1,9 @@
 """Architecture configs of the model stack, as plain data.
 
-The port's copy of ``repro.configs.base`` (the subset the serving path
-reads): the same fields, defaults and ``reduced()`` shrink, so a config
-name selects the same architecture in both packages. Registered configs
-are listed in ``configs/__init__.py``.
+The port's copy of ``repro.configs.base`` (the subset the serving and
+training paths read): the same fields, defaults, ``reduced()`` shrink and
+parameter counts, so a config name selects the same architecture in both
+packages. Registered configs are listed in ``configs/__init__.py``.
 """
 from __future__ import annotations
 
@@ -88,6 +88,43 @@ class ArchConfig:
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    def n_params(self) -> float:
+        """Approximate parameter count (for 6ND roofline math): the
+        reference's formula, which leaves out norms, QKV biases and the
+        MoE router."""
+        d, hd = self.d_model, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        mlp = 3 * d * self.d_ff     # gated
+        total = 0.0
+        for s, f in zip(self.slot_kinds(), self.ffn_kinds()):
+            if s in ("attn", "cross"):
+                total += attn
+            elif s == "mamba":
+                di = self.ssm.expand * d
+                total += 2 * d * di + di * d + di * (2 * self.ssm.d_state + 2)
+            elif s == "rwkv":
+                total += 4 * d * d + d * d  # r,k,v,g,o (+ small decay mlps)
+            if f == "moe":
+                total += self.moe.n_experts * 3 * d * self.d_ff
+            else:
+                total += mlp
+        total *= self.n_periods
+        if self.is_encdec:  # encoder stack: self-attn + mlp per layer
+            total += self.encoder_layers * (attn + 3 * d * self.d_ff)
+        total += 2 * self.vocab * d  # embed + lm head
+        return float(total)
+
+    def n_params_active(self) -> float:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.n_params()
+        moe_total = sum(self.moe.n_experts * 3 * self.d_model * self.d_ff
+                        for f in self.ffn_kinds() if f == "moe")
+        moe_total *= self.n_periods
+        active_moe = moe_total * self.moe.top_k / self.moe.n_experts
+        return self.n_params() - moe_total + active_moe
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -7,7 +7,8 @@
 // natural-log sum of exponentials lse. Same function as the plain
 // version (kernels/ref.py::attention_bwd): scores scaled by 1/sqrt(hd) in
 // fp32, the forward's mask (keys at or beyond Sk, top-left causal
-// qpos >= kpos), P = exp(S - lse), D = rowsum(dO * O), dV = P^T dO,
+// qpos >= kpos and, with a sliding window W, qpos - kpos < W),
+// P = exp(S - lse), D = rowsum(dO * O), dV = P^T dO,
 // dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q * scale; dK and dV
 // of a KV head sum over its H / KV query heads.
 //
@@ -34,11 +35,13 @@
 //   through a ring of kStages stages, each guarded by a full (TMA bytes)
 //   and an empty (consumer warps) mbarrier. The CTA loops over the
 //   group's query heads and, for each, over the query tiles from the
-//   diagonal on; the group sum of dK and dV stays in registers.
+//   diagonal on (under a window, up to the last tile whose rows reach a
+//   key of the tile); the group sum of dK and dV stays in registers.
 //   Warpgroups 1-2 are consumers, each owning 64 keys. Per query tile a
 //   consumer runs five wgmma products: S^T = K Q^T and dP^T = V dO^T
 //   (A and B from shared memory, K-major, m64n64); P^T = exp2(S^T * scale
-//   * log2e - lse * log2e), masked only on diagonal and ragged-key tiles;
+//   * log2e - lse * log2e), masked only on diagonal, ragged-key and
+//   (with a window) the window's lower-edge tiles;
 //   dS^T = P^T * (dP^T - D); dV += P^T dO and dK += dS^T Q (A the bf16
 //   repack of the fp32 accumulator in registers, B MN-major); dS^T goes to
 //   a swizzled shared tile (double-buffered), and after a barrier of both
@@ -68,6 +71,23 @@
 //   holds 32 of them: at most about a quarter of the mean, paid once.
 //   All pairs, every key tile waits on the next one's part of each query
 //   tile, so a group's CTAs run staggered by one reduce each.
+// - The sliding window (a runtime int, 0 for none; it needs causal, as in
+//   the forward). Key tile kt walks query tiles qt_first .. qt_last, the
+//   last being the one that holds row k0 + kBN - 2 + W, the last row that
+//   sees the tile's last key (so every query tile with a row that sees a
+//   key of this tile). dQ's order does not change: the highest key tile
+//   that reaches query tile qt is still its diagonal tile, which lies
+//   inside every row's window (each row sees itself), so turn 0 is still
+//   the one TMA store and dq_acc needs no zeroing; the key tiles that
+//   reach qt form one band (qt_first and qt_last both grow with kt), so
+//   the key tiles between kt and the diagonal all add a part before kt,
+//   and wait_turn counts the same parts. The deadlock argument is
+//   unchanged: a tile still waits only on higher key tiles of its own
+//   (batch, KV head). At W >= Sq no pair lies outside the window: the
+//   same tiles run in the same order down the same masked paths, and the
+//   result is the unwindowed kernel's, bit for bit. Query rows that see
+//   no key (rows at or past Sk + W - 1, when Sq > Sk) take no part; the
+//   wrapper zeroes their dq.
 // - attn_bwd_convert: dq = bf16(dq_acc * scale), back to (B, Sq, H, hd).
 //
 // Every sum is fp32; P and dS are rounded to bf16 where they are a
@@ -467,7 +487,7 @@ attn_bwd_main(__grid_constant__ const CUtensorMap tq,
               const float* __restrict__ rowstats,
               int* __restrict__ counters, __nv_bfloat16* __restrict__ dk,
               __nv_bfloat16* __restrict__ dv, int b_all, int sq, int sk,
-              int h, int kv, float scale, int causal) {
+              int h, int kv, float scale, int causal, int window) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -502,9 +522,15 @@ attn_bwd_main(__grid_constant__ const CUtensorMap tq,
   const int k0 = kt * kBN;
   const int group = h / kv;
   // causal: query tiles wholly above the diagonal (every row < k0) see no
-  // key of this tile
+  // key of this tile; under a window W (INT_MAX for none) neither do those
+  // wholly below the window of its last key: row k0 + kBN - 1 + W - 1 is
+  // the last that sees one
+  const int win = causal && window > 0 ? window : 0x7fffffff;
   const int qt_first = causal ? min(k0 / kBM, nqt) : 0;
-  const int n_q = nqt - qt_first;         // query tiles per head
+  const int qt_last = static_cast<int>(
+      min(static_cast<int64_t>(nqt - 1),
+          (static_cast<int64_t>(k0) + kBN - 2 + win) / kBM));
+  const int n_q = max(0, qt_last - qt_first + 1);   // query tiles per head
   const int n_iter = group * n_q;
 
   const int wg = threadIdx.x / kWG;
@@ -542,7 +568,9 @@ attn_bwd_main(__grid_constant__ const CUtensorMap tq,
       // ---- dQ writers, one warp per dQ buffer (iterations i = buf mod
       // kDQBufs): each adds its parts into dq_acc when their turn comes
       // (descending key tile: `turn` higher key tiles reach the query tile
-      // and add first; the first one stores), then bumps the counter
+      // and add first; the first one stores), then bumps the counter. Under
+      // a window the key tiles that reach the query tile are still a band
+      // that ends at its diagonal tile, so the turn is the same
       const int buf = warp - 1;
       if (buf < n_iter) named_arrive(kBarDQEmpty + buf, kDQSync);
       for (int i = buf; i < n_iter; i += C::kDQBufs) {
@@ -638,7 +666,10 @@ attn_bwd_main(__grid_constant__ const CUtensorMap tq,
       // P^T = exp2(S^T * scale * log2e - lse * log2e), masked, and dS^T =
       // P^T * (dP^T - D), in place: s[4j + e] is key krow + 8 (e >> 1),
       // query q0 + 8j + 2 tig + (e & 1)
-      const bool masked = (causal && q0 < kc0 + 63) || kc0 + 64 > sk;
+      // and the window's lower edge: the tile's last row below Sq lies W
+      // or more past this consumer's first key
+      const bool masked = (causal && q0 < kc0 + 63) || kc0 + 64 > sk ||
+                          min(q0 + kBM, sq) - 1 - kc0 >= win;
       const float* lse_t = lse_s + st * kBM;
       const float* d_t = d_s + st * kBM;
 #pragma unroll
@@ -652,7 +683,8 @@ attn_bwd_main(__grid_constant__ const CUtensorMap tq,
           if (masked) {
             const int key = k0 + krow + 8 * (e >> 1);
             const int qr = q0 + 8 * j + 2 * tig + (e & 1);
-            if (key >= sk || (causal && qr < key)) p = 0.f;
+            if (key >= sk || (causal && qr < key) || qr - key >= win)
+              p = 0.f;
           }
           s[x] = p;
           dp[x] = p * (dp[x] - ((e & 1) ? dd.y : dd.x));
@@ -854,7 +886,7 @@ template <int HD>
 int launch(int device, const void* q, const void* k, const void* v,
            const void* o, const void* lse, const void* d_o, void* dq,
            void* dk, void* dv, void* rowstats, void* dq_acc, void* counters,
-           int b, int sq, int sk, int h, int kv, int causal,
+           int b, int sq, int sk, int h, int kv, int causal, int window,
            cudaStream_t stream) {
   using bf = __nv_bfloat16;
   cudaError_t err = prepare<HD>(device);
@@ -883,7 +915,7 @@ int launch(int device, const void* q, const void* k, const void* v,
       tq, tk, tv, tdo, tacc, static_cast<const float*>(rowstats),
       static_cast<int*>(counters),
       static_cast<bf*>(dk), static_cast<bf*>(dv), b, sq, sk, h, kv, scale,
-      causal);
+      causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n4 = static_cast<int64_t>(b) * sq * h * HD / 4;
@@ -916,9 +948,11 @@ int describe(int* out) {
 // lse: (b, h, sq) fp32; scratch: rowstats (2, b, h, sqp) fp32 with sqp =
 // 64 * ceil(sq / 64), dq_acc (b, h, sqp, hd) fp32, counters (b * h *
 // ceil(sq / 64) + 1) int32, none of it zeroed; all contiguous and 16-byte
-// aligned; h % kv == 0; sq, sk >= 1; hd in {64, 128} (else
+// aligned; h % kv == 0; sq, sk >= 1; hd in {64, 128}; window >= 0, the
+// causal sliding window W (0 for none; ignored without causal) (else
 // cudaErrorInvalidValue). Three launches on `stream`: D (which zeroes the
-// counters), the main kernel, the dq conversion.
+// counters), the main kernel, the dq conversion. Under a window, the dq
+// rows that see no key (at or past sk + W - 1) are left undefined.
 extern "C" int rt_flash_attention_bwd(int device, const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* lse, const void* d_o,
@@ -926,18 +960,19 @@ extern "C" int rt_flash_attention_bwd(int device, const void* q, const void* k,
                                       void* rowstats, void* dq_acc,
                                       void* counters, int b, int sq, int sk,
                                       int h, int kv, int hd, int causal,
-                                      void* stream) {
+                                      int window, void* stream) {
   if (device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(device, q, k, v, o, lse, d_o, dq, dk, dv, rowstats,
-                      dq_acc, counters, b, sq, sk, h, kv, causal, s);
+                      dq_acc, counters, b, sq, sk, h, kv, causal, window, s);
   if (hd == 128)
     return launch<128>(device, q, k, v, o, lse, d_o, dq, dk, dv, rowstats,
-                       dq_acc, counters, b, sq, sk, h, kv, causal, s);
+                       dq_acc, counters, b, sq, sk, h, kv, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

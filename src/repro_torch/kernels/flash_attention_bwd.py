@@ -10,6 +10,7 @@ tensor runs the plain version, :func:`ref.attention_bwd`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,15 +29,16 @@ TILE_ORDER = ("by a global atomic counter: (batch, KV head), then key tile "
 #: query rows per tile of the main kernel (rowstats pads Sq to it)
 BLOCK_M = 64
 # (device, q, k, v, o, lse, do, dq, dk, dv, rowstats, dq_acc, counters, B,
-#  Sq, Sk, H, KV, hd, causal, stream)
+#  Sq, Sk, H, KV, hd, causal, window, stream)
 _BWD = build.Launcher(NAME, "rt_flash_attention_bwd",
                       [ctypes.c_int] + [ctypes.c_void_p] * 12
-                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True):
+                        *, causal: bool = True,
+                        window: Optional[int] = None):
     """Gradients (dq, dk, dv) of attention with respect to q (B,Sq,H,hd)
     and k, v (B,Sk,KV,hd), given the forward's output ``o``, its
     ``lse`` (B,H,Sq) float32 (``flash_attention(..., return_lse=True)``)
@@ -47,9 +49,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous float32; anything else raises ``ValueError``. Its result
     does not depend on the launch: dq's parts are summed in a fixed order.
     The scratch (row statistics, an fp32 dq accumulator, the counters) is
-    allocated here and needs no zeroing."""
+    allocated here and needs no zeroing. ``window`` W (>= 1) is the
+    forward's causal sliding window (ignored without ``causal``); a query
+    row that sees no key under it (past Sk + W - 1) gets dq = 0."""
+    if window is not None and window < 1:
+        raise ValueError(f"{NAME}: window {window} is not >= 1")
     if q.device.type == "cpu":
-        dq, dk, dv = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        dq, dk, dv = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     B, Sq, Sk, H, KV, hd = check_inputs(NAME, q, k, v, o, do)
     build.check_cuda(lse, torch.float32, 3, f"{NAME} lse")
@@ -57,6 +64,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{NAME}: lse {tuple(lse.shape)} is not (B, H, Sq) "
                          f"= {(B, H, Sq)} on q's device")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    win = min(int(window), 2**31 - 1) if causal and window is not None \
+        else 0
     if Sq and B:
         n_qt = -(-Sq // BLOCK_M)
         if B * H * n_qt * BLOCK_M >= 2**31:
@@ -76,7 +85,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), rowstats.data_ptr(),
              dq_acc.data_ptr(), counters.data_ptr(), B, Sq, Sk, H, KV, hd,
-             int(causal))
+             int(causal), win)
+        if win and Sq > Sk + win - 1:
+            dq[:, Sk + win - 1:] = 0     # rows that see no key
     else:
         dk.zero_()
         dv.zero_()

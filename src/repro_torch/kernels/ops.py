@@ -348,20 +348,15 @@ class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the flash kernel forward, which also
     keeps each row's log-sum-exp, and the backward kernel from it (on a
     CPU tensor their plain versions, ``ref.attention_lse`` and
-    ``ref.attention_bwd``). A build or launch error raises. The backward
-    has no sliding window yet, so a window raises ``NotImplementedError``
-    here rather than run another path."""
+    ``ref.attention_bwd``), both with the causal sliding window when one
+    is given. A build or launch error raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, block: int,
                 window: Optional[int] = None):
-        if causal and window is not None:
-            raise NotImplementedError(
-                "the gradient of sliding-window attention is not ported: "
-                "the backward kernel has no window (ROADMAP Queue 1)")
         o, lse = _flash_kernel(q, k, v, causal=causal, block=block,
-                               return_lse=True)
-        ctx.causal = causal
+                               return_lse=True, window=window)
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -369,7 +364,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do.contiguous(),
-                                       causal=ctx.causal)
+                                       causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -386,8 +381,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     path does. Where autograd records (a tensor that requires grad), the
     call goes through :class:`FlashAttention`, so its gradient is the
     backward kernel's; without it the forward alone runs. A causal
-    ``window`` W restricts query i to keys i - W + 1 .. i, in the kernel on
-    the card (forward only: under autograd it raises). ``block_k`` is
+    ``window`` W restricts query i to keys i - W + 1 .. i, in both kernels
+    on the card and both plain versions on the CPU. ``block_k`` is
     kept for the reference's signature: neither path reads it (the
     reference's XLA path does not either)."""
     del block_k

@@ -258,16 +258,19 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                  causal: bool = True):
+                  causal: bool = True, window: Optional[int] = None):
     """Gradients of :func:`attention` with respect to q, k and v: the
     textbook recompute backward, all in float32.
 
     With scores S = q.k^T * scale (masked as the forward masks them:
-    top-left causal, or all pairs) and the forward's ``lse`` (B,H,Sq):
-    D = rowsum(dO * O), P = exp(S - lse), dV = P^T.dO,
-    dS = P * (dO.V^T - D), dQ = dS.K * scale, dK = dS^T.Q * scale. dK and
-    dV of a KV head sum over its H / KV query heads. Returns (dq, dk, dv)
-    float32, shaped like q, k and v."""
+    top-left causal, within the sliding ``window`` W when given, which is
+    ignored without ``causal``; or all pairs) and the forward's ``lse``
+    (B,H,Sq): D = rowsum(dO * O), P = exp(S - lse) (0 where masked),
+    dV = P^T.dO, dS = P * (dO.V^T - D), dQ = dS.K * scale,
+    dK = dS^T.Q * scale. dK and dV of a KV head sum over its H / KV query
+    heads. A query row that sees no key (only under a window, past
+    Sk + W - 1) gets dQ = 0. Returns (dq, dk, dv) float32, shaped like q,
+    k and v."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -276,11 +279,14 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.float().reshape(B, Sq, KV, G, hd)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
-    if causal:
-        keep = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
-        s = torch.where(keep, s, NEG)
     p = torch.exp(s - lse.float().reshape(B, KV, G, Sq)[..., None])
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        keep = qpos >= kpos
+        if window is not None:
+            keep = keep & (qpos - kpos < window)
+        p = torch.where(keep, p, 0.0)
     d = (dof * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)  # (B,Sq,KV,G)
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)

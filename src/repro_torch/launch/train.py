@@ -78,13 +78,17 @@ def probe_norm(cfg: ArchConfig, params: Dict[str, torch.Tensor]):
 
 
 def train_step(model: LM, batch: Dict[str, torch.Tensor], opt: OptState,
-               opt_cfg: AdamWCfg, decay, attn_block: int):
+               opt_cfg: AdamWCfg, decay, attn_block: int,
+               remat: bool = False):
     """Loss, gradients and one AdamW step (parameters updated in place).
-    Returns (opt, metrics) with the loss as a tensor."""
+    Returns (opt, metrics) with the loss as a tensor. ``remat``
+    recomputes each period's activations in the backward, as the
+    reference's sharded step (``make_train_step``) does; ``train_loop``
+    runs without it, as the reference's does."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    loss = loss_fn(model, batch, attn_block=attn_block)
+    loss = loss_fn(model, batch, attn_block=attn_block, remat=remat)
     loss.backward()
     grads = {n: p.grad for n, p in params.items()}
     _, opt, metrics = apply_updates(params, grads, opt, opt_cfg, decay=decay)

@@ -101,18 +101,26 @@ def moe_capacity(sc: int, n_experts: int, top_k: int,
 
 
 def moe_route(router: torch.Tensor, x: torch.Tensor, *, top_k: int,
-              capacity: int) -> Route:
+              capacity: int,
+              expert: Optional[torch.Tensor] = None) -> Route:
     """The reference's routing of one chunk x (B, sc, d): router logits in
     x's dtype then float32 softmax, top k (ties to the lower expert, as
     ``lax.top_k``), renormalised gates, and slots from the j-major
     position cumsum: the j-th choices of a batch row queue behind all of
-    its earlier choices (``offset``)."""
+    its earlier choices (``offset``). ``expert`` (B, sc, k), when given,
+    replaces the top k: the gates are then those experts' probabilities,
+    renormalised, and slots and aux follow from them (a replay of another
+    run's choices, with this run's gradients: ``models.routes``)."""
     n_experts = router.shape[-1]
     logits = (x @ router).float()
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = e / e.sum(-1, keepdim=True)                       # (B,sc,E)
-    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = gate[..., :top_k], expert[..., :top_k]
+    if expert is None:
+        gate, expert = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        gate, expert = gate[..., :top_k], expert[..., :top_k]
+    else:
+        gate = torch.gather(probs, -1, expert)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert[..., 0], n_experts).float().mean(dim=(0, 1))

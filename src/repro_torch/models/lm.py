@@ -10,8 +10,8 @@ reference's parameter tree.
 
 Entry points (the reference's, as methods):
   LM(cfg, device=None, generator=None)   -> weights drawn from a seed
-  forward(tokens)                        -> logits (B, S, V)
-  loss_fn(model, batch)                  -> scalar loss (a function)
+  forward(tokens, remat=False)           -> logits (B, S, V)
+  loss_fn(model, batch, remat=False)     -> scalar loss (a function)
   init_cache(B, seq_cap)                 -> zero decode cache
   prefill(tokens, seq_cap=...)           -> (last_logits (B, V), cache)
   decode_step(token, cache)              -> (logits (B, V), cache)
@@ -44,6 +44,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -173,17 +174,14 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _trunk(self, tokens: torch.Tensor, attn_block: int,
-               kv_out: Optional[list] = None):
-        """Embed, every layer over the full sequence, final norm. Returns
-        the hidden states and the sum of the MoE layers' aux losses
-        (float32, 0 without MoE)."""
+    def _period(self, x: torch.Tensor, aux: torch.Tensor, layers,
+                positions: torch.Tensor, attn_block: int,
+                kv_out: Optional[list] = None):
+        """One period's ``layers`` over the full sequence (the body of the
+        reference's ``period``): returns x and aux with its layers added."""
         cfg = self.cfg
-        B, S = tokens.shape
-        x = self.embed[tokens].to(self.dtype)
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        aux = torch.zeros((), dtype=F32, device=x.device)
-        for layer in self.layers:
+        B, S, _ = x.shape
+        for layer in layers:
             h = rms_norm(x, layer.ln1, cfg.norm_eps)
             q, k, v = layer.qkv(h)
             if cfg.rope:
@@ -198,14 +196,39 @@ class LM(nn.Module):
             x = x + y
             if a_loss is not None:
                 aux = aux + a_loss
+        return x, aux
+
+    def _trunk(self, tokens: torch.Tensor, attn_block: int,
+               kv_out: Optional[list] = None, remat: bool = False):
+        """Embed, every period over the full sequence, final norm. Returns
+        the hidden states and the sum of the MoE layers' aux losses
+        (float32, 0 without MoE). ``remat`` keeps only each period's
+        input and recomputes its layers in the backward, as the
+        reference's ``jax.checkpoint(period)``."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens].to(self.dtype)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        for p0 in range(0, len(self.layers), cfg.period):
+            layers = self.layers[p0:p0 + cfg.period]
+            if remat:
+                x, aux = checkpoint(self._period, x, aux, layers, positions,
+                                    attn_block, use_reentrant=False)
+            else:
+                x, aux = self._period(x, aux, layers, positions, attn_block,
+                                      kv_out)
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def forward(self, tokens: torch.Tensor, *, attn_block: int = 1024,
-                return_aux: bool = False):
+                return_aux: bool = False, remat: bool = False):
         """tokens (B, S) integer -> logits (B, S, V); with ``return_aux``
         (logits, aux), ``aux`` the MoE load-balance loss summed over the
-        layers (float32 scalar), as the reference's ``forward`` returns."""
-        x, aux = self._trunk(tokens, attn_block)
+        layers (float32 scalar), as the reference's ``forward`` returns.
+        ``remat`` recomputes each period's layers in the backward instead
+        of keeping their activations (the reference's ``remat``): the
+        same loss and gradients, bit for bit, for less memory."""
+        x, aux = self._trunk(tokens, attn_block, remat=remat)
         logits = x @ self.lm_head
         return (logits, aux) if return_aux else logits
 
@@ -281,15 +304,17 @@ class LM(nn.Module):
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
-            attn_block: int = 1024, aux_coef: float = 0.01) -> torch.Tensor:
+            attn_block: int = 1024, aux_coef: float = 0.01,
+            remat: bool = False) -> torch.Tensor:
     """Causal LM loss, the reference's ``loss_fn``: next-token cross
     entropy over float32 logits, averaged over the targets >= 0 (a target
     < 0 is masked), plus ``aux_coef`` times the MoE load-balance loss
     (0 for dense configs). ``batch`` holds ``tokens`` and ``targets``,
-    (B, S) integer tensors on the model's device."""
+    (B, S) integer tensors on the model's device. ``remat`` as in
+    :meth:`LM.forward`."""
     targets = batch["targets"]
     logits, aux = model(batch["tokens"], attn_block=attn_block,
-                        return_aux=True)
+                        return_aux=True, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,

@@ -37,8 +37,10 @@ from repro_torch.kernels.probe import probe
 from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
-from chip_smoke import (BWD_REL_TOL, BWD_SHAPES, EXAMPLES, FLASH_REL_TOL,
-                        GOLDEN, GOLDEN_APPLY, LSE_TOL, finish, run_example)
+from chip_smoke import (BWD_MQA_SHAPE, BWD_REL_TOL, BWD_SHAPES,
+                        BWD_WINDOW_SHAPES, EXAMPLES, FLASH_REL_TOL, GOLDEN,
+                        GOLDEN_APPLY, LSE_TOL, TRAIN_GNORM_TOL,
+                        TRAIN_LOSS_TOL, finish, run_example)
 
 pytestmark = pytest.mark.card
 
@@ -1066,11 +1068,125 @@ def test_flash_attention_window_past_sq_changes_no_bit(cuda, b, sq, h, kv,
                 assert torch.equal(a, c)
 
 
-def test_flash_attention_window_under_autograd_raises(cuda):
-    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 1, 256, 256, 4, 4, 64))
-    with pytest.raises(NotImplementedError):
-        ops.attention(q, k, v, window=64)
-    assert build.LAUNCHES["flash_attention"] == 0
+def test_flash_attention_window_under_autograd_runs_both_kernels(cuda):
+    # the forward with its LSE and the windowed backward kernel, held to
+    # the float32 backward of the same bf16 inputs
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 1, 600, 600, 4, 2, 64,
+                                                  seed=9))
+    qf, kf, vf = (x.detach().float() for x in (q, k, v))
+    o, lse = ref.attention_lse(qf, kf, vf, window=100)
+    for seed in DO_SEEDS[:4]:
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                         .manual_seed(seed), device=cuda).bfloat16()
+        got = torch.autograd.grad(ops.attention(q, k, v, window=100),
+                                  (q, k, v), do)
+        _bwd_close(got, ref.attention_bwd(qf, kf, vf, o, lse, do.float(),
+                                          window=100))
+    assert build.LAUNCHES["flash_attention"] == 4
+    assert build.LAUNCHES["flash_attention_bwd"] == 4
+
+
+# (b, sq, sk, h, kv, hd, window) of the windowed backward: the window's
+# lower edge off both tiles, on the 128-key and on the 64-row tile, W = 1,
+# Sq < Sk and Sq > Sk (rows past Sk + W - 1 see no key: no key tile
+# reaches their query tiles), and chip_smoke's (w2), (w3) and (w1) cut to
+# 4,096 tokens and W 2,048 (the float32 backward at 8,192 needs 34 GB)
+BWD_WINDOW_CASES = [
+    (2, 300, 300, 4, 2, 64, 100),
+    (1, 700, 700, 8, 2, 128, 128),
+    (1, 513, 513, 4, 4, 64, 64),
+    (1, 1024, 1024, 8, 8, 64, 129),
+    (1, 600, 600, 6, 1, 128, 1),
+    (1, 300, 500, 4, 2, 64, 77),
+    (2, 500, 200, 4, 2, 64, 90),
+    BWD_WINDOW_SHAPES[1],
+    BWD_WINDOW_SHAPES[2],
+    (1, 4096, 4096, 32, 8, 128, 2048),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,window", BWD_WINDOW_CASES)
+def test_flash_attention_bwd_window_matches_float32(cuda, b, sq, sk, h, kv,
+                                                    hd, window):
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + window)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    of, lsef = ref.attention_lse(qf, kf, vf, window=window)
+    for seed in (0, 1, 2):
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                         .manual_seed(seed), device=cuda).bfloat16()
+        got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        again = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert all(bool(torch.isfinite(x).all()) for x in got)
+        _bwd_close(got, ref.attention_bwd(qf, kf, vf, of, lsef, do.float(),
+                                          window=window))
+        # and against the plain version on the kernel's own forward
+        _bwd_close(got, ref.attention_bwd(q, k, v, o, lse, do,
+                                          window=window))
+    if sq > sk + window - 1:       # rows that see no key: dq = 0
+        assert not got[0][:, sk + window - 1:].any()
+    assert build.LAUNCHES["flash_attention_bwd"] == 6
+
+
+@pytest.mark.parametrize("b,sq,h,kv,hd", [(1, 1000, 8, 2, 64),
+                                          (2, 333, 4, 4, 128),
+                                          (1, 2048, 16, 8, 128)])   # (w3)
+def test_flash_attention_bwd_window_past_sq_changes_no_bit(cuda, b, sq, h,
+                                                           kv, hd):
+    q, k, v = _qkv(cuda, b, sq, sq, h, kv, hd, seed=sq)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(5), device=cuda).bfloat16()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    plain = flash_attention_bwd(q, k, v, o, lse, do)
+    for window in (sq, sq + 5, 2**40):
+        got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        assert all(torch.equal(x, y) for x, y in zip(got, plain))
+
+
+@pytest.mark.parametrize("b,sq,h,hd", [
+    (2, 1024, 48, 128), (1, 700, 12, 64),
+    tuple(BWD_MQA_SHAPE[i] for i in (0, 1, 3, 5)),      # chip_smoke's (m)
+])
+def test_flash_attention_bwd_mqa_matches_float32(cuda, b, sq, h, hd):
+    # One KV head: each CTA sums dK and dV over every query head. dq is
+    # held as every row's is; dk and dv, sums over more than
+    # BWD_GROUP_ELEMENTWISE heads, by chip_smoke's group_close: rel-L2
+    # within BWD_REL_TOL and no worse at their worst element than the
+    # plain bf16 path.
+    from chip_smoke import BWD_GROUP_ELEMENTWISE, group_close
+    assert h > BWD_GROUP_ELEMENTWISE
+    q, k, v = _qkv(cuda, b, sq, sq, h, 1, hd, seed=h)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    of, lsef = ref.attention_lse(qf, kf, vf)
+    for seed in (0, 1):
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                         .manual_seed(seed), device=cuda).bfloat16()
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = ref.attention_bwd(qf, kf, vf, of, lsef, do.float())
+        _bwd_close(got[:1], want[:1])
+        held = group_close(torch, got, want, q=q, k=k, v=v, do=do)
+        assert all(e["close"] for e in held.values()), held
+    assert build.LAUNCHES["flash_attention_bwd"] == 2
+
+
+def test_remat_train_step_of_full_width_mixtral_matches_the_cpu(cuda):
+    """The loss and gradients of train_step(remat=True) for one
+    full-width mixtral-8x7b layer (window cut to 128, so it binds at 256
+    tokens; its matrices at the 32-layer model's scale) on the card, held
+    to the same step on the CPU with the card's routes replayed there, as
+    chip_smoke's card-vs-CPU check holds it."""
+    from chip_smoke import card_vs_cpu_step
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1,
+                              sliding_window=128)
+    rec = card_vs_cpu_step(torch, cfg, 0, remat=True)
+    assert rec["recompute_flips"] == 0
+    assert rec["loss_rel_diff"] <= TRAIN_LOSS_TOL
+    assert rec["grad_norm_rel_diff"] <= TRAIN_GNORM_TOL
+    assert rec["launches"]["flash_attention_bwd"] == 1
 
 
 def test_server_serves_moe_and_the_window_through_the_kernel(cuda):

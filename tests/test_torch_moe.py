@@ -314,15 +314,15 @@ def test_fixed_routes_replay_the_prefill_routes_exactly():
     """While routes are replayed, the shorter prefill and each decode step
     get the whole prefill's expert, keep and gate at their positions,
     layer by layer."""
-    from repro_torch.benchmarks import serve_consistency as sc
+    from repro_torch.models import routes as hooks
     model = _wide_moe("phi3.5-moe-42b-a6.6b", 3)
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
         2, 512, 80))[None]
     whole, served = [], []
-    with sc._recorded_routes(whole):
+    with hooks.calls(whole):
         model.prefill(prompt, seq_cap=80)
     routes = [(r.expert, r.keep, r.gate) for r in whole]
-    with sc._replayed_routes(routes, 3, 72), sc._recorded_routes(served):
+    with hooks.served(routes, 3, 72), hooks.calls(served):
         _, cache = model.prefill(prompt[:, :72], seq_cap=81)
         for i in range(72, 80):
             _, cache = model.decode_step(prompt[:, i:i + 1], cache)

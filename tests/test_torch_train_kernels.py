@@ -12,7 +12,11 @@ the diagonal on, and adds its part of each query tile's dQ in the
 kernel's fixed order (descending key tile, the first part stored), at
 the tile seams. A second check replays the kernel's index arithmetic
 alone: a program only ever waits on programs with smaller ids, and each
-of them adds a part to the query tile waited for.
+of them adds a part to the query tile waited for. Both run with the
+sliding window too (a program walks the query tiles up to the last whose
+rows see one of its keys), and a third check holds the kernel's
+tile-level mask test: a tile that skips the element mask needs none,
+and at W >= Sq the window changes no tile's path.
 
 Tolerances: float32 throughout. The plain versions against ``jax.vjp``
 at rtol = atol = 1e-5 (the same math, sums in another order: the largest
@@ -32,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BWD_REL_TOL, BWD_SHAPES
+from chip_smoke import BWD_REL_TOL, BWD_SHAPES, BWD_WINDOW_SHAPES
 from repro.models.layers import block_causal_attention
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
@@ -131,12 +135,16 @@ def tile_of(tile_id, kv, n_kt):
     return tile_id // n_kt // kv, tile_id // n_kt % kv, kt
 
 
-def query_tiles(kt, n_qt, causal, first_shift=0):
+def query_tiles(kt, n_qt, causal, first_shift=0, window=None):
     """The query tiles key tile ``kt`` walks per head: from the diagonal
     on (causal; ``first_shift`` moves the start, a planted fault), else
-    all."""
+    all; under a causal ``window`` W up to the tile of row
+    kt * TILE + TILE - 2 + W, the last that sees the tile's last key."""
     first = min(kt * TILE // Q_TILE + first_shift, n_qt) if causal else 0
-    return range(first, n_qt)
+    last = n_qt - 1
+    if causal and window is not None:
+        last = min(last, (kt * TILE + TILE - 2 + window) // Q_TILE)
+    return range(first, last + 1)
 
 
 def turn_of(qt, kt, n_kt, causal):
@@ -152,7 +160,8 @@ def _bf16(x):
         .bfloat16().float().numpy()
 
 
-def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
+def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False,
+               window=None):
     """The backward kernel's schedule in numpy (float32): the D pass, then
     one program per (batch, KV head, key tile) in tile-id order that sums
     its keys' dK and dV over the group's query heads and the query tiles
@@ -160,7 +169,8 @@ def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
     the accumulator in its turn (the first part stored). ``rounded``
     rounds P and dS to bf16 where the kernel takes them as an operand;
     ``first_shift`` moves the first query tile of each program (a planted
-    fault). Returns (dq, dk, dv, the (query tile, key tile) pairs visited
+    fault); ``window`` is the causal sliding window. Returns (dq, dk, dv,
+    the (query tile, key tile) pairs visited
     once per head, each query tile's key tiles in the order they added,
     whether every part came in the turn the kernel computes for it)."""
     B, Sq, H, hd = q.shape
@@ -191,7 +201,7 @@ def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
         kr = k0 + np.arange(TILE)[:, None]
         for j in range(G):
             h = kvh * G + j
-            for qt in query_tiles(kt, n_qt, causal, first_shift):
+            for qt in query_tiles(kt, n_qt, causal, first_shift, window):
                 q0 = qt * Q_TILE
                 visited.append((qt, kt))
                 qs = rows(q, b, q0, Sq, h, Q_TILE)
@@ -203,6 +213,8 @@ def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
                 d_t[:n] = dsum[b, q0:q0 + n, h]
                 qr = q0 + np.arange(Q_TILE)[None, :]
                 keep = (kr < Sk) & (qr >= kr) if causal else (kr < Sk)
+                if causal and window is not None:
+                    keep &= qr - kr < window
                 pt = np.where(keep, np.exp(kt_rows @ qs.T * scale - lse_t), 0)
                 dst = pt * (vt_rows @ dos.T - d_t)
                 dv_acc += rnd(pt) @ dos
@@ -225,11 +237,11 @@ def replay_bwd(q, k, v, o, lse, do, causal, first_shift=0, rounded=False):
     return dq, dk, dv, visited, order, in_turn
 
 
-def _pairs(sq, sk, causal):
+def _pairs(sq, sk, causal, window=None):
     """The (query tile, key tile) pairs the kernel visits per head."""
     n_qt, n_kt = -(-sq // Q_TILE), -(-sk // TILE)
     return [(i, j) for j in range(n_kt)
-            for i in query_tiles(j, n_qt, causal)]
+            for i in query_tiles(j, n_qt, causal, window=window)]
 
 
 @pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 2 * TILE + 3])
@@ -292,7 +304,7 @@ def test_replay_rounded_where_the_kernel_rounds_is_within_the_card_bound(
         assert 1e-4 < rel <= BWD_REL_TOL
 
 
-def _schedule_checks(B, sq, sk, h, kv, causal):
+def _schedule_checks(B, sq, sk, h, kv, causal, window=None):
     """Replay the main kernel's index arithmetic: every (program, head,
     query tile) with a turn waits only on programs of smaller id, and
     exactly ``turn`` of them add a part of that query tile before it."""
@@ -302,7 +314,7 @@ def _schedule_checks(B, sq, sk, h, kv, causal):
     for tile_id in range(B * kv * n_kt):
         b, kvh, kt = tile_of(tile_id, kv, n_kt)
         for j in range(G):
-            for qt in query_tiles(kt, n_qt, causal):
+            for qt in query_tiles(kt, n_qt, causal, window=window):
                 adders.setdefault((b, kvh * G + j, qt), []).append(
                     (tile_id, kt))
     assert len(adders) == B * h * n_qt       # every query tile gets a part
@@ -355,3 +367,124 @@ def test_chip_smoke_pads_the_planted_fault_to_the_backward_tile():
     # the all-pairs shape has a ragged key tile, so its fault is real
     assert any(not causal and sk % TILE
                for _, _, sk, *_, causal in BWD_SHAPES)
+
+
+def _trained_layers():
+    import chip_smoke
+    return [(chip_smoke.TRAIN_ARCH, chip_smoke.TRAIN_BATCH,
+             chip_smoke.TRAIN_SEQ)] + [
+        (arch, b, s) for arch, _, b, s in chip_smoke.TRAIN_MODELS]
+
+
+@pytest.mark.parametrize("arch,b,s", _trained_layers())
+def test_chip_smoke_holds_the_backward_at_every_trained_shape(arch, b, s):
+    """chip_smoke's bwd phase holds the kernel against its plain version
+    at each shape that its train and train_models phases run it at:
+    (B, S, S, H, KV, hd, causal[, W]) of every config they train."""
+    from chip_smoke import BWD_ROWS
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True)
+    if cfg.sliding_window and cfg.sliding_window < s:
+        shape += (cfg.sliding_window,)
+    assert shape in BWD_ROWS
+
+
+# ------------------------------------------------------------ the window
+
+# (Sq, Sk, H, KV, W): W below, on and off both tiles, W = 1, Sq < Sk, and
+# Sq > Sk, where rows past Sk + W - 1 see no key and no program reaches
+# their query tiles (their dq stays 0, as the plain version's)
+WINDOW_CASES = [
+    (2 * TILE + 3, 2 * TILE + 3, 4, 2, 40),
+    (3 * TILE, 3 * TILE, 2, 2, TILE),
+    (2 * TILE + 9, 2 * TILE + 9, 4, 1, Q_TILE + 1),
+    (TILE + 5, TILE + 5, 2, 1, 1),
+    (TILE + 7, 2 * TILE, 4, 2, 70),
+    (3 * TILE, TILE, 2, 2, 30),
+]
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,window", WINDOW_CASES)
+def test_windowed_replay_matches_plain_and_jax_vjp(sq, sk, h, kv, window):
+    q, k, v, do = _inputs(sq + window, 1, sq, sk, h, kv)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    o, lse = ref.attention_lse(*t[:3], window=window)
+    want = ref.attention_bwd(*t[:3], o, lse, t[3], window=window)
+    # rows that see no key have an lse of about -1e30 (the forward's
+    # masked scores): exp overflows there before the mask zeroes it, as
+    # exp2 does in the kernel
+    with np.errstate(over="ignore"):
+        dq, dk, dv, visited, order, in_turn = replay_bwd(
+            q, k, v, o.numpy(), lse.numpy(), do, True, window=window)
+    assert in_turn
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got, w.numpy(), rtol=TOL, atol=TOL)
+    pairs = _pairs(sq, sk, True, window)
+    assert sorted(set(visited)) == sorted(pairs)
+    # the window drops whole tile pairs below it: fewer than unwindowed
+    # unless it spans the sequence
+    assert len(pairs) < len(_pairs(sq, sk, True)) or window + TILE >= sq
+    # every query tile's key tiles: one band that ends at its diagonal,
+    # added in descending order
+    for (_, _, qt), kts in order.items():
+        assert kts == list(range(kts[0], kts[0] - len(kts), -1))
+        assert kts[0] == min(-(-sk // TILE) - 1, (qt * Q_TILE + Q_TILE - 1)
+                             // TILE)
+    if sq <= sk:
+        @jax.jit
+        def forward_and_vjp(a, b, c, d):
+            out, vjp = jax.vjp(lambda x, y, z: block_causal_attention(
+                x, y, z, window=window), a, b, c)
+            return out, vjp(d)
+        _, jgrads = forward_and_vjp(*(jnp.asarray(x) for x in (q, k, v, do)))
+        for got, w in zip((dq, dk, dv), jgrads):
+            np.testing.assert_allclose(got, np.asarray(w), rtol=TOL, atol=TOL)
+    else:
+        assert not dq[:, sk + window - 1:].any()
+
+
+@pytest.mark.parametrize("shape", [
+    *(s[:6] + (s[6],) for s in BWD_WINDOW_SHAPES),   # (B, Sq, Sk, H, KV, hd, W)
+    (2, 333, 333, 4, 2, 64, 100),
+    (1, 700, 700, 4, 4, 64, 1),
+    (1, 100, 700, 8, 1, 128, 64),
+    (1, 1024, 1024, 8, 8, 64, 129),
+])
+def test_windowed_tile_order_waits_only_on_smaller_ids(shape):
+    B, sq, sk, h, kv, _, window = shape
+    _schedule_checks(B, sq, sk, h, kv, True, window)
+
+
+def _masked(q0, kc0, sq, sk, win):
+    """The backward kernel's tile-level mask test for the 64 query rows at
+    q0 and one consumer's 64 keys at kc0 (causal; ``win`` INT_MAX for no
+    window)."""
+    return (q0 < kc0 + 63 or kc0 + 64 > sk
+            or min(q0 + Q_TILE, sq) - 1 - kc0 >= win)
+
+
+@pytest.mark.parametrize("sq,sk,window", [
+    (1000, 1000, 300), (700, 700, 129), (1024, 1024, 256), (600, 600, 1),
+    (300, 500, 77), (513, 513, 64), (2048, 2048, 2048), (4096, 4096, 1000)])
+def test_tiles_that_skip_the_mask_need_none(sq, sk, window):
+    """Every (query tile, consumer) the kernel runs without the element
+    mask has every pair of its rows below Sq inside Sk, on or below the
+    diagonal and inside the window; at W >= Sq the window's test changes
+    no tile's path."""
+    n_qt, n_kt = -(-sq // Q_TILE), -(-sk // TILE)
+    unmasked = 0
+    for kt in range(n_kt):
+        for qt in query_tiles(kt, n_qt, True, window=window):
+            for c in range(TILE // 64):
+                q0, kc0 = qt * Q_TILE, kt * TILE + 64 * c
+                masked = _masked(q0, kc0, sq, sk, window)
+                if window >= sq:
+                    assert masked == _masked(q0, kc0, sq, sk, 2**31 - 1)
+                if masked:
+                    continue
+                unmasked += 1
+                qr = np.arange(q0, min(q0 + Q_TILE, sq))[:, None]
+                kr = np.arange(kc0, kc0 + 64)[None, :]
+                assert ((kr < sk) & (qr >= kr) & (qr - kr < window)).all()
+    assert unmasked > 0 or window < 2 * Q_TILE
