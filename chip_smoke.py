@@ -42,7 +42,8 @@ Phases, one line each:
                 (bit-equal to the unwindowed kernel), both instances
                 (serving's and the LSE one) against the plain version,
                 beside SDPA with a boolean band mask, bound by the
-                in-window pairs; and the backward with the window at
+                in-window pairs; jamba's attention layer (GQA 64:8, hd
+                128) at 2,048 and 1,024 tokens; and the backward with the window at
                 mixtral's training layer (8,192 tokens, W 4,096; the
                 plain version KV head by KV head), at hd 64 with W off
                 the tile and at W = Sq (the unwindowed kernel's bits),
@@ -148,7 +149,25 @@ Phases, one line each:
                 positions, and its ring fault measured at 6,144),
                 parameters, peak and free memory, prefill tokens/s,
                 decode ms a token beside its weight-read bound
-  7. train    — qwen1.5-0.5b at full width (random weights from seed 0):
+     serve_ssm — rwkv6-7b (all 32 layers: recurrent, no attention) and
+                jamba-1.5-large-398b cut to the stack's first 5 layers
+                (four mamba layers and the attention layer, two MoE
+                FFNs of 16 experts) at their published widths, the cut's
+                matrices at the published depth's init scale, served as
+                serve_models serves: flash launches = attention layers x
+                requests (0 and 2); rwkv6-7b also serves 1,024 and
+                32,768 tokens one request at a time, and its state's
+                bytes must be equal after both; the consistency check
+                at 2,048 + 32 (jamba with the prefill's routes replayed)
+                and at the first decoded position, where the recurrent
+                state zeroed and the conv/shift state one token stale
+                must each exceed the tolerance (recorded at 2,048 + 32
+                too, where the state has decayed past them); parameters
+                from the state dict beside param_count and the config's
+                formula, the state's bytes, decode ms a token beside
+                its bound (weights, valid KV and the state read and
+                written once)
+  7. train    —qwen1.5-0.5b at full width (random weights from seed 0):
                 a corpus of 4,096 samples x 2,049 tokens in a token table
                 on the card engine, pinned; train_loop at 2,048 tokens x
                 batch 4 for 12 steps, a checkpoint every 4 steps and a
@@ -181,8 +200,8 @@ It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
-tiers, both modes, and the examples; flash from both serving phases and
-both training phases, its backward from both training phases, with the
+tiers, both modes, and the examples; flash from the three serving
+phases and both training phases, its backward from both training phases, with the
 windowed launches apart). The full record goes to
 ``build/chip_smoke.json``.
 """
@@ -229,6 +248,10 @@ BF16_FLOPS_PER_S = 989.4e12
 FLASH_SHAPES = ((1, 2048, 2048, 16, 16, 64, True),
                 (1, 4096, 4096, 16, 8, 128, True),
                 (2, 1024, 1500, 16, 16, 64, False))
+# jamba-1.5-large-398b's attention layer at serve_ssm's prompts: GQA 64:8
+# at hd 128 (no rotary positions, which the kernel never sees)
+FLASH_JAMBA_SHAPES = ((1, 2048, 2048, 64, 8, 128, True),
+                      (1, 1024, 1024, 64, 8, 128, True))
 FLASH_BLOCK_N = 128         # keys per K/V tile of the kernel
 FLASH_TOL = 2e-2            # atol = rtol, bf16 against the plain version
 # and ||kernel - plain|| / ||plain|| at most this: two bf16 roundings of the
@@ -265,6 +288,19 @@ FLASH_WINDOW_SHAPES = ((1, 8192, 8192, 32, 8, 128, 4096),
 SERVE_MODELS = (("deepseek-7b", None), ("internlm2-1.8b", None),
                 ("granite-20b", None), ("phi3.5-moe-42b-a6.6b", 24),
                 ("mixtral-8x7b", 20))
+# The state-space and hybrid configs, served alike, each with its layer
+# matrices at the published depth's init scale: rwkv6-7b whole (32
+# layers), jamba-1.5-large-398b cut to the stack's first 5 layers (slots
+# 0-4: four mamba layers and the attention layer, FFNs mlp/moe/mlp/moe/
+# mlp; one published period of 8 holds ~45 B parameters, 90 GB in bf16)
+SERVE_SSM_MODELS = (("rwkv6-7b", None), ("jamba-1.5-large-398b", 5))
+# a config without attention also serves these prompts one at a time:
+# its state is O(1), so its bytes and decode time do not grow with them
+SSM_SOLO_PROMPTS = (1024, 32768)
+# the first-step check's prompt: 2,016, 2,015 and 2,014 positions (the
+# whole prefill, the prefill before the decoded one, the stale fault's)
+# run chunks of 63, 31 and 53, where 2,049 would run 683 chunks of 3
+FIRST_STEP_PROMPT = 2016
 SERVE_MODELS_PROMPTS = (2048, 1024)   # prompt tokens of the requests
 SERVE_MODELS_NEW = 8                  # new tokens of each request
 # mixtral also serves a prompt longer than its window, and its consistency
@@ -624,7 +660,8 @@ def kernel_phase(torch, seed: int) -> dict:
         del args
     torch.cuda.synchronize()
     results["flash_attention"] = flash_phase(torch, seed) \
-        + flash_window_phase(torch, seed)
+        + flash_window_phase(torch, seed) \
+        + flash_phase(torch, seed, FLASH_JAMBA_SHAPES)
     results["flash_attention_bwd"] = bwd_phase(torch, seed)
     return results
 
@@ -2785,45 +2822,87 @@ def serve_phase(torch, seed: int) -> dict:
 
 
 def param_count(cfg) -> int:
-    """Parameters of ``cfg`` (the reference's ``init_params`` shapes): the
-    config's ``n_params()`` (the reference's formula: Q/K/V/O, the gated
-    MLP or E gated experts, embed and head) and the leaves that formula
-    leaves out: per layer two norms, the QKV biases and the MoE router;
-    the final norm."""
+    """Parameters of ``cfg``, leaf by leaf as the reference's
+    ``init_params`` makes them: per layer two norms, the mixer's leaves
+    (attention's Q/K/V/O and QKV biases; mamba's w_in, w_bcdt, w_out,
+    conv, a_log, dt_bias and d_skip; rwkv's five mu, six d x d matrices,
+    dec_bias, u and ln_x) and the FFN's (the gated MLP, or the router and
+    E gated experts); then embed, head and the final norm. The config's
+    ``n_params()`` is the reference's approximation: it leaves out the
+    norms, biases and routers, rwkv's w_dec, and counts mamba's w_bcdt as
+    di (2 ds + 2)."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    small = 2 * d + (H * hd + 2 * KV * hd if cfg.qkv_bias else 0)
-    routers = sum(d * cfg.moe.n_experts for f in cfg.ffn_kinds()
-                  if f == "moe") * cfg.n_periods
-    return int(cfg.n_params()) + cfg.n_layers * small + routers + d
+    mixer = {"attn": 2 * d * H * hd + 2 * d * KV * hd
+             + (H * hd + 2 * KV * hd if cfg.qkv_bias else 0)}
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        di = s.expand * d
+        nh = di // s.head_dim
+        mixer["mamba"] = 3 * d * di + d * (2 * s.d_state + nh) \
+            + s.d_conv * di + 3 * nh
+        # mu_*, the six matrices, then dec_bias, u (H x hd) and ln_x
+        mixer["rwkv"] = 5 * d + 6 * d * d + 3 * d
+    ffn = {"mlp": 3 * d * cfg.d_ff}
+    if cfg.moe is not None:
+        ffn["moe"] = d * cfg.moe.n_experts \
+            + 3 * cfg.moe.n_experts * d * cfg.d_ff
+    per_period = sum(2 * d + mixer[k] + ffn[f]
+                     for k, f in zip(cfg.slot_kinds(), cfg.ffn_kinds()))
+    return per_period * cfg.n_periods + 2 * cfg.vocab * d + d
 
 
-def serve_model(torch, arch: str, layers, seed: int) -> dict:
-    """One config at its published widths (depth cut to ``layers`` where
-    given) through the serving path: built from the seed, two requests
-    through ``Server`` (prefill on the flash kernel, a few decode steps),
-    then the prefill-vs-decode consistency check. Returns its record;
-    the caller frees the model."""
-    import dataclasses
+def cache_bytes(cache, ssm_only: bool = False) -> int:
+    """Bytes of a decode cache's tensors: every slot's, or with
+    ``ssm_only`` those of the state-space slots (a tuple of states)."""
+    total = 0
+    for key, entry in cache.items():
+        if not key.startswith("slot"):
+            continue
+        if ssm_only and not isinstance(entry, tuple):
+            continue
+        parts = entry.values() if isinstance(entry, dict) else entry
+        total += sum(t.numel() * t.element_size() for t in parts)
+    return total
 
+
+def serve_model(torch, arch: str, layers, seed: int,
+                published_scale: bool = False) -> dict:
+    """One config at its published widths (depth cut to the stack's first
+    ``layers`` where given; ``published_scale``: the cut's layer matrices
+    at the published depth's init scale) through the serving path: built
+    from the seed, two requests through ``Server`` (prefill on the flash
+    kernel for its attention layers, a few decode steps), then the
+    prefill-vs-decode consistency check. A config with state-space slots
+    also serves SSM_SOLO_PROMPTS one request at a time (their decode ms
+    a token and the state's bytes after each prefill, equal whatever the
+    prompt length for a config without attention), and holds the check
+    at the first decoded position too, with ``ssm_faults`` planted there
+    (each must exceed the tolerance) and at TAIL (recorded). Returns its
+    record; the caller frees the model."""
     import numpy as np
 
     from repro_torch.benchmarks.serve_consistency import (
-        TAIL, prefill_decode_logits, rel_gap)
-    from repro_torch.configs import get_config
+        TAIL, prefill_decode_logits, rel_gap, ssm_faults)
+    from repro_torch.configs import first_layers, get_config
     from repro_torch.kernels import build
     from repro_torch.launch.serve import Request, Server
 
     full = get_config(arch)
-    cfg = full if layers is None else dataclasses.replace(full,
-                                                          n_layers=layers)
+    cfg = full if layers is None else first_layers(full, layers)
     W = cfg.sliding_window
+    kinds = cfg.slot_kinds()
+    n_attn = kinds.count("attn") * cfg.n_periods
+    has_ssm = n_attn < cfg.n_layers
+    solo = SSM_SOLO_PROMPTS if has_ssm and not n_attn else ()
     prompts = SERVE_MODELS_PROMPTS if not W else \
         (WINDOW_PROMPT,) + SERVE_MODELS_PROMPTS[1:]
     t_all = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    srv = Server(cfg, reduced=False, batch=2, seq_cap=max(prompts) + 64,
-                 seed=seed)
+    srv = Server(cfg, reduced=False, batch=2,
+                 seq_cap=max(prompts + solo) + 64, seed=seed)
+    if published_scale:
+        published_init_scale(torch, srv.model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model = srv.model
@@ -2832,19 +2911,29 @@ def serve_model(torch, arch: str, layers, seed: int) -> dict:
                       for p in model.parameters())
     check(n_params == param_count(cfg), f"{arch}: {n_params} parameters, "
           f"not the config's {param_count(cfg)}")
-    check(all(n % srv.attn_block == 0 for n in prompts),
+    check(all(n % srv.attn_block == 0 for n in prompts + solo),
           "a prompt would take the pad path")
     rng = np.random.default_rng(seed)
     reqs = [Request(i, rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                     SERVE_MODELS_NEW) for i, n in enumerate(prompts)]
+    # the bytes of each prefill's cache, and of its recurrent states
+    prefill_one, cached = srv._prefill_one, []
+
+    def prefill_recorded(req):
+        logits, cache = prefill_one(req)
+        cached.append((len(req.prompt), cache_bytes(cache),
+                       cache_bytes(cache, ssm_only=True)))
+        return logits, cache
+    srv._prefill_one = prefill_recorded
     build.reset_launches()
     done, dt, steps = srv.run(reqs)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    want = cfg.n_layers * len(reqs)
-    check(launches["flash_attention"] == want,
-          f"{arch}: flash_attention launched {launches['flash_attention']} "
-          f"times on the serve path, not {want} (layers x requests)")
+    flash = launches.get("flash_attention", 0)
+    want = n_attn * len(reqs)
+    check(flash == want,
+          f"{arch}: flash_attention launched {flash} times on the serve "
+          f"path, not {want} (attention layers x requests)")
     check(all(len(r.out) == SERVE_MODELS_NEW and all(
         0 <= t < cfg.vocab for t in r.out) for r in done),
         f"{arch}: a generated token is out of range or a request is short")
@@ -2853,29 +2942,74 @@ def serve_model(torch, arch: str, layers, seed: int) -> dict:
     n_dec = sum(len(r.out) for r in done) - len(reqs)
     # a decode step at B = 1 reads every weight but the embedding table
     # (one row of it; the MoE runs every expert over its capacity slots,
-    # as the reference does) and the cache's valid keys and values
+    # as the reference does) and the cache's valid keys and values, and
+    # reads and writes the recurrent state
     embed_bytes = model.embed.numel() * model.embed.element_size()
-    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
-    cached = min(prompts[0], W) if W else prompts[0]
-    read = param_bytes - embed_bytes + kv_row * cached
+    kv_row = 2 * n_attn * cfg.n_kv_heads * cfg.hd * 2
+    cached_pos = min(prompts[0], W) if W else prompts[0]
+    state_bytes = cached[0][2]
+    read = param_bytes - embed_bytes + kv_row * cached_pos + 2 * state_bytes
     rec = {"arch": arch, "n_layers": cfg.n_layers,
            "published_layers": full.n_layers,
            "cut": None if layers is None else
-           f"n_layers {full.n_layers} -> {layers}",
+           f"n_layers {full.n_layers} -> {layers}"
+           + (f", period {full.period} -> {cfg.period} (slots "
+              f"{list(kinds)}, ffn {list(cfg.ffn_kinds())})"
+              if cfg.period != full.period else ""),
+           "init_scale_periods": full.n_periods if published_scale
+           else cfg.n_periods,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "hd": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
            "moe": None if not cfg.moe else [cfg.moe.n_experts,
                                             cfg.moe.top_k],
-           "window": W, "params": n_params, "param_bytes": param_bytes,
+           "ssm": None if not has_ssm else {
+               "slots": sorted(set(kinds) - {"attn"}),
+               "d_state": cfg.ssm.d_state, "head_dim": cfg.ssm.head_dim,
+               "d_conv": cfg.ssm.d_conv, "expand": cfg.ssm.expand},
+           "attention_layers": n_attn,
+           "window": W, "params": n_params,
+           "param_count": param_count(cfg),
+           "n_params_formula": int(cfg.n_params()),
+           "param_bytes": param_bytes,
            "init_s": init_s, "prompts": list(prompts),
            "max_new": SERVE_MODELS_NEW, "run_s": dt, "decode_steps": steps,
-           "flash_launches": launches["flash_attention"],
+           "flash_launches": flash,
            "launches": launches,
            "prefill_ms": [x * 1e3 for x in pre],
            "prefill_tok_per_s": sum(prompts) / sum(pre),
            "decode_ms_per_token": sum(dec) / n_dec * 1e3,
+           "state_bytes": state_bytes,
+           "cache_bytes": cached[0][1],
            "decode_read_bytes": read,
            "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3}
+
+    # one request at a time: decode ms a token after a short and a long
+    # prefill, and the state's bytes after each
+    solo_rec = []
+    for n in solo:
+        cached.clear()
+        req = Request(len(solo_rec), rng.integers(
+            2, cfg.vocab, size=n).astype(np.int32), SERVE_MODELS_NEW)
+        build.reset_launches()
+        srv.run([req])
+        torch.cuda.synchronize()
+        dec = srv.timings["decode_step_s"]
+        solo_rec.append({
+            "prompt": n, "prefill_ms": srv.timings["prefill_s"][0] * 1e3,
+            "prefill_tok_per_s": n / srv.timings["prefill_s"][0],
+            "decode_ms_per_token": sum(dec) / len(dec) * 1e3,
+            "decode_step_ms": [x * 1e3 for x in dec],
+            "decode_ms_median": sorted(dec)[len(dec) // 2] * 1e3,
+            "cache_bytes": cached[0][1], "state_bytes": cached[0][2],
+            "launches": dict(build.LAUNCHES),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        check(len(req.out) == SERVE_MODELS_NEW,
+              f"{arch}: the {n}-token request is short")
+    if solo:
+        rec["solo"] = solo_rec
+        check(len({e["cache_bytes"] for e in solo_rec}) == 1,
+              f"{arch}: the state's bytes depend on the prompt's length: "
+              f"{solo_rec}")
 
     # MoE: the decode side replays the whole prefill's routes, so both
     # sides compute one function (serve_consistency's docstring); the gap
@@ -2884,10 +3018,14 @@ def serve_model(torch, arch: str, layers, seed: int) -> dict:
     n = (WINDOW_PROMPT if W else SERVE_MODELS_PROMPTS[0]) + TAIL
     prompt = torch.as_tensor(rng.integers(2, cfg.vocab, size=n),
                              device=model.device)[None]
-    l1, l2 = prefill_decode_logits(model, prompt, TAIL, srv.attn_block,
-                                   fixed_routes=fixed)
+
+    def gap(tail, plant=None, own=False, length=n):
+        l1, l2 = prefill_decode_logits(model, prompt[:, :length], tail,
+                                       srv.attn_block, plant=plant,
+                                       fixed_routes=fixed and not own)
+        return l1, l2, rel_gap(l1, l2)
+    l1, l2, rel = gap(TAIL)
     finite = bool(torch.isfinite(l1).all() and torch.isfinite(l2).all())
-    rel = rel_gap(l1, l2)
     rec["consistency"] = {
         "prompt": n, "prefilled": n - TAIL, "decoded": TAIL,
         "fixed_routes": fixed,
@@ -2896,11 +3034,46 @@ def serve_model(torch, arch: str, layers, seed: int) -> dict:
         "rel_l2_tol": SERVE_REL_TOL,
         "argmax_equal": int(l1.argmax()) == int(l2.argmax())}
     if fixed:
-        rec["consistency"]["own_routes_rel_l2_diff"] = rel_gap(
-            *prefill_decode_logits(model, prompt, TAIL, srv.attn_block))
+        rec["consistency"]["own_routes_rel_l2_diff"] = gap(TAIL,
+                                                           own=True)[2]
     check(finite, f"{arch}: non-finite logits")
     check(rel <= SERVE_REL_TOL, f"{arch}: prefill and decode logits "
                                 f"differ: {rec['consistency']}")
+    if has_ssm:
+        # where the time goes: a prefill of the first prompt's length and
+        # 8 decode steps after it, under the profiler
+        n0 = SERVE_MODELS_PROMPTS[0]
+        rec["profile_prefill"] = device_profile(
+            torch, lambda: model.prefill(prompt[:, :n0], seq_cap=n,
+                                         attn_block=srv.attn_block))
+        cache = model.prefill(prompt[:, :n0], seq_cap=n,
+                              attn_block=srv.attn_block)[1]
+
+        def decode8():
+            c = cache
+            for i in range(n0, n0 + 8):
+                _, c = model.decode_step(prompt[:, i:i + 1], c)
+        rec["profile_decode_8"] = device_profile(torch, decode8)
+        del cache
+        # a recurrent state forgets a fault as it decays, so the faults
+        # are held where the decode starts: one position decoded
+        m = FIRST_STEP_PROMPT
+        first = gap(1, length=m)[2]
+        faults = {"first_step": {}, "at_tail": {}}
+        for tail, key, length in ((1, "first_step", m),
+                                  (TAIL, "at_tail", n)):
+            for name, plant in ssm_faults(model, prompt, length - tail,
+                                          srv.attn_block).items():
+                faults[key][name] = gap(tail, plant, length=length)[2]
+        rec["consistency"].update(
+            first_step_prompt=m, first_step_rel_l2_diff=first,
+            ssm_faults=faults,
+            ssm_faults_held="first_step > tol; at_tail recorded, unheld")
+        check(first <= SERVE_REL_TOL, f"{arch}: prefill and decode logits "
+              f"differ at the first decoded position: {first}")
+        check(all(g > SERVE_REL_TOL for g in faults["first_step"].values()),
+              f"{arch}: a planted state fault stays within the "
+              f"tolerance: {faults}")
     if W:
         check(n - TAIL > W and (n - TAIL) % W == 0,
               f"{arch}: the check's prefill does not bind the window")
@@ -2922,16 +3095,19 @@ def serve_model(torch, arch: str, layers, seed: int) -> dict:
     return rec
 
 
-def serve_models_phase(torch, seed: int) -> dict:
-    """Every config of SERVE_MODELS through ``serve_model``, each built,
+def serve_models_phase(torch, seed: int, models=SERVE_MODELS,
+                       published_scale: bool = False,
+                       name: str = "serve_model") -> dict:
+    """Every config of ``models`` through ``serve_model``, each built,
     served, measured and freed before the next."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     recs = []
-    for arch, layers in SERVE_MODELS:
-        recs.append(serve_model(torch, arch, layers, seed))
-        phase("serve_model", **recs[-1])
+    for arch, layers in models:
+        recs.append(serve_model(torch, arch, layers, seed,
+                                published_scale))
+        phase(name, **recs[-1])
         gc.collect()
         torch.cuda.empty_cache()
     return {"models": recs, "seconds": time.perf_counter() - t0,
@@ -2951,6 +3127,33 @@ def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
         attention_pairs(seq, seq, True)
     fwd = 4.0 * batch * cfg.n_heads * cfg.hd * pairs
     return 6.0 * n_params * batch * seq + 3.5 * fwd * cfg.n_layers
+
+
+#: layer matrices whose init scale is fixed, not 1/sqrt(periods)
+FIXED_SCALE = (".router", ".conv", ".w_dec")
+
+
+def published_init_scale(torch, model) -> None:
+    """Take a depth-cut model's layer matrices to the published depth's
+    init scale, in place: ``LM`` draws them at 1/sqrt(the cut's periods),
+    the published model's first layers are drawn at 1/sqrt(its own)
+    (a one-layer cut would draw them at 1). The matrices with a fixed
+    scale (``FIXED_SCALE``) keep it. Each is scaled in float32 and
+    rounded to bf16, in slices, so that a 9.7 B-parameter expert stack
+    needs no float32 copy of its own."""
+    from repro_torch.configs import get_config
+
+    cfg = model.cfg
+    published = get_config(cfg.name).n_periods
+    if published == cfg.n_periods:
+        return
+    rescale = math.sqrt(cfg.n_periods / published)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if (name.startswith("layers.") and p.dim() >= 2
+                    and not name.endswith(FIXED_SCALE)):
+                for part in p.view(-1).split(1 << 26):
+                    part.copy_((part.float() * rescale).bfloat16())
 
 
 def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
@@ -2992,18 +3195,12 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     log = routes.RouteLog(n)
     moe = cfg.moe is not None
     published = get_config(cfg.name).n_periods
-    rescale = math.sqrt(cfg.n_periods / published)
 
     def model(dtype, device):
         # weights drawn in float32 and rounded to bf16, then held in dtype
         m = LM(dataclasses.replace(cfg, dtype=dtype), device=device,
                generator=torch.Generator().manual_seed(seed + 7))
-        if published != cfg.n_periods:
-            with torch.no_grad():
-                for name, p in m.named_parameters():
-                    if (name.startswith("layers.") and p.dim() >= 2
-                            and not name.endswith(".router")):
-                        p.copy_((p.float() * rescale).bfloat16())
+        published_init_scale(torch, m)
         return m
     t_draw = time.perf_counter()
     card, cpu = model("bfloat16", "cuda"), model("bfloat16", "cpu")
@@ -3773,6 +3970,13 @@ def main(argv=None) -> int:
         phase("serve_models", seconds=models["seconds"],
               flash_launches=models["flash_launches"],
               archs=[m["arch"] for m in models["models"]])
+        ssm = serve_models_phase(torch, args.seed, SERVE_SSM_MODELS,
+                                 published_scale=True,
+                                 name="serve_ssm_model")
+        record["serve_ssm"] = ssm
+        phase("serve_ssm", seconds=ssm["seconds"],
+              flash_launches=ssm["flash_launches"],
+              archs=[m["arch"] for m in ssm["models"]])
         trained = train_phase(torch, args.seed)
         record["train"] = trained
         phase("train", **{k: v for k, v in trained.items()
@@ -3792,9 +3996,11 @@ def main(argv=None) -> int:
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
                        + tiers + list(examples.values()))
                 for k in build.VCS_SOURCES}
-    # attention: the serve windows' and the train windows'
+    # attention: the serve windows' (jamba's attention layer among them)
+    # and the train windows'
     launches["flash_attention"] = serve["flash_launches"] \
-        + models["flash_launches"] + trained["launches"]["flash_attention"] \
+        + models["flash_launches"] + ssm["flash_launches"] \
+        + trained["launches"]["flash_attention"] \
         + models_trained["flash_launches"]
     launches["flash_attention_bwd"] = trained["launches"][
         "flash_attention_bwd"] + models_trained["bwd_launches"]

@@ -26,7 +26,18 @@ layer's routes in the whole prefill (L1) and replays them, position by
 position, in the shorter prefill and the decode steps (L2), through
 ``models.routes.calls`` and ``models.routes.served``: both sides
 then compute one function, and the gap reads the attention and cache
-path alone, as it does for a dense model.
+path alone, as it does for a dense model. Only the MoE layers route, so
+the recorded routings split over those (jamba: one layer in two).
+
+A state-space slot (mamba, rwkv) keeps a recurrent state that ignores
+``len``, so ``FAULTS``' ``ahead`` and ``behind`` cannot touch it and
+``lost_slot`` touches attention slots only; ``ssm_faults`` plants in
+the state itself (zeroed, or the conv/shift state one token stale). A
+recurrent state forgets: with random weights rwkv6's decay sits at its
+clamp, exp(-0.25) = 0.78 a position, and mamba's near exp(-0.3), so a
+fault planted TAIL positions before the compared logits has faded (to
+0.78^32 = 3.5e-4 of its size); ``chip_smoke.py`` holds these faults one
+decoded position after the prefill.
 """
 from __future__ import annotations
 
@@ -46,14 +57,22 @@ TAIL = 32
 SEEDS = 3
 
 
+def _attn_slots(cache):
+    return [kv for key, kv in cache.items()
+            if key.startswith("slot") and isinstance(kv, dict)]
+
+
 def _lose_last_slot(cache):
     # the prefill's last position: its slot, or the ring's last after a
-    # prefill longer than a sliding window (the last W sit in 0..W-1)
-    slot = min(cache["len"], cache["slot0"]["k"].shape[2]) - 1
-    for key, kv in cache.items():
-        if key.startswith("slot"):
-            kv["k"][:, :, slot] = 0
-            kv["v"][:, :, slot] = 0
+    # prefill longer than a sliding window (the last W sit in 0..W-1);
+    # attention slots only (a state-space slot holds no positions)
+    kvs = _attn_slots(cache)
+    if not kvs:
+        return
+    slot = min(cache["len"], kvs[0]["k"].shape[2]) - 1
+    for kv in kvs:
+        kv["k"][:, :, slot] = 0
+        kv["v"][:, :, slot] = 0
 
 
 # Faults planted in the cache of the shorter prefill before it is decoded:
@@ -64,6 +83,43 @@ FAULTS = {
     "behind": lambda cache: cache.update(len=cache["len"] - 1),
     "lost_slot": _lose_last_slot,
 }
+
+
+def _ssm_states(cache):
+    return {key: st for key, st in cache.items()
+            if key.startswith("slot") and isinstance(st, tuple)}
+
+
+def zero_states(cache):
+    """Every state-space layer's recurrent state (mamba's ssm, rwkv's wkv)
+    zeroed: the decode starts as if nothing had been prefilled."""
+    for _, state in _ssm_states(cache).values():
+        state.zero_()
+
+
+def stale_shift(model: LM, prefix: torch.Tensor, attn_block: int = 32):
+    """A plant for a cache of ``prefix.shape[1] + 1`` prefilled positions:
+    every state-space layer's conv/shift state one token stale, as a
+    prefill of ``prefix`` (one position fewer) leaves it; the recurrent
+    states are kept. The prefix's prefill runs here, before any route
+    replay starts."""
+    _, older = model.prefill(prefix, seq_cap=prefix.shape[1],
+                             attn_block=attn_block)
+
+    def plant(cache):
+        for key, (shift, _) in _ssm_states(cache).items():
+            shift.copy_(older[key][0])
+    return plant
+
+
+def ssm_faults(model: LM, prompt: torch.Tensor, prefilled: int,
+               attn_block: int = 32):
+    """Faults that a state-space slot's cache can hold, for a prefill of
+    ``prefilled`` positions of ``prompt``. ``FAULTS``' ``ahead`` and
+    ``behind`` move only ``len``, which a recurrent state never reads."""
+    return {"state_zeroed": zero_states,
+            "stale_shift": stale_shift(model, prompt[:, :prefilled - 1],
+                                       attn_block)}
 
 
 def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
@@ -81,8 +137,8 @@ def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
         l1, _ = model.prefill(prompt, seq_cap=n, attn_block=attn_block)
     replay = contextlib.nullcontext()
     if fixed_routes:
-        # calls run layer by layer, each over its chunks in order
-        n_layers = len(model.layers)
+        # calls run MoE layer by MoE layer, each over its chunks in order
+        n_layers = sum(layer.moe is not None for layer in model.layers)
         per = len(routes) // n_layers
         routes = [tuple(torch.cat([getattr(r, f) for r in
                                    routes[i * per:(i + 1) * per]], dim=1)

@@ -2,9 +2,10 @@
 seeded numpy generator (``paper_vcs``), and the architecture registry of
 the model stack (one module per architecture the port serves)."""
 from .base import (ArchConfig, MoECfg, SSMCfg, all_arch_names,  # noqa: F401
-                   get_config)
+                   first_layers, get_config)
 
 from . import (deepseek_7b, granite_20b, internlm2_1_8b,  # noqa: F401,E402
-               mixtral_8x7b, phi3_5_moe_42b, qwen1_5_0_5b)
+               jamba_1_5_large_398b, mixtral_8x7b, phi3_5_moe_42b,
+               qwen1_5_0_5b, rwkv6_7b)
 
 ALL = True  # marker: all configs registered

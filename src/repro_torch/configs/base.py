@@ -150,6 +150,21 @@ class ArchConfig:
         return dataclasses.replace(self, **scale)
 
 
+def first_layers(cfg: ArchConfig, n: int) -> ArchConfig:
+    """``cfg`` cut to the first ``n`` layers of its stack, at its widths:
+    whole periods, or the first ``n`` slots of one period (the period
+    then shrinks to ``n``). The weights' init scale follows the cut's
+    periods, not the published ones."""
+    if n % cfg.period == 0:
+        return dataclasses.replace(cfg, n_layers=n)
+    if n > cfg.period:
+        raise ValueError(f"{cfg.name}: {n} layers are neither whole "
+                         f"periods of {cfg.period} nor part of one")
+    return dataclasses.replace(cfg, n_layers=n, period=n,
+                               slots=cfg.slot_kinds()[:n],
+                               ffn_slots=cfg.ffn_kinds()[:n])
+
+
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 

@@ -1,5 +1,7 @@
 """Batched serving with continuous batching: reduced mixtral, with its MoE
-FFN and its sliding window (the port of ``examples/serve_batch.py``).
+FFN and its sliding window (the port of ``examples/serve_batch.py``), or
+another reduced config (``--arch``: rwkv6-7b's recurrent layers,
+jamba-1.5-large-398b's mamba, attention and MoE layers).
 
 Ten requests of 8-31 prompt tokens and 24 new tokens each through a
 4-slot server; prompts are padded to the 16-token attention block, so
@@ -8,6 +10,7 @@ reduced config's head dim is widened from 16 to 64, the smallest the
 flash kernel is built for, so the same model runs on both devices.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_batch --device cpu
+  ... --arch rwkv6-7b --device cpu
 
 Without ``--device`` it runs on the card.
 """
@@ -28,8 +31,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' to run on the CPU")
+    ap.add_argument("--arch", default=ARCH)
     args = ap.parse_args(argv)
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), head_dim=64)
+    cfg = dataclasses.replace(get_config(args.arch).reduced(), head_dim=64)
     srv = Server(cfg, reduced=False, batch=4, seq_cap=128, attn_block=16,
                  device=args.device)
     rng = np.random.default_rng(0)

@@ -1,15 +1,20 @@
 """Batched serving: a continuous-batching decode loop.
 
-Counterpart of ``repro.launch.serve``. Prefills requests into per-slot KV
-caches, then decodes in lockstep; a slot whose request finishes is
+Counterpart of ``repro.launch.serve``. Prefills requests into per-slot
+caches (KV for attention layers, the recurrent state for mamba and rwkv
+layers), then decodes in lockstep; a slot whose request finishes is
 immediately refilled from the queue (continuous batching). Prefill
 attention runs the flash kernel on the card.
 
-Usage, on the card at the published widths (the reduced configs' head
-dim 16 has no kernel instance; they run through the API with
-``Server(arch, device="cpu")``):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+Usage, on the card at the published widths (``--layers`` cuts the depth
+to the stack's first layers: jamba-1.5-large-398b does not fit one card
+whole, ``--layers 5`` does):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --requests 8 --max-new 32
+  ... --arch jamba-1.5-large-398b --layers 5
+and on the CPU at the reduced widths (``--device cpu``: the reduced
+configs' head dim 16 has no kernel instance, so the card takes the
+published widths only).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..configs import get_config
+from ..configs import first_layers, get_config
 from ..device import resolve_device
 from ..models.lm import LM
 
@@ -73,7 +78,9 @@ class Server:
         toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                device=self.device)[None]
         # The reference pads with token 0 and returns the logits of the
-        # last (pad) position; parity keeps that (ROADMAP Queue 3).
+        # last (pad) position; parity keeps that (ROADMAP Queue 3). A
+        # mamba or rwkv layer's state then holds the pad tokens too, and
+        # decode continues from it: the reference's fault, kept as well.
         pad = (-toks.shape[1]) % self.attn_block
         if pad:
             toks = F.pad(toks, (0, pad))
@@ -127,8 +134,19 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the stack's first N layers only")
+    ap.add_argument("--device", default=None,
+                    help="default: the card at the published widths; "
+                         "'cpu' for the reduced widths on the CPU")
     args = ap.parse_args(argv)
-    srv = Server(args.arch, reduced=False, batch=args.batch)
+    on_cpu = args.device is not None and \
+        torch.device(args.device).type == "cpu"
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if on_cpu else cfg
+    if args.layers is not None:
+        cfg = first_layers(cfg, args.layers)
+    srv = Server(cfg, reduced=False, batch=args.batch, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(2, srv.cfg.vocab, size=16).astype(np.int32),
                     args.max_new) for i in range(args.requests)]

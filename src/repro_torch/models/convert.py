@@ -7,7 +7,9 @@ block leaf is split into per-layer tensors (layer ``p * period + i`` is
 period ``p``, slot ``i``). Values are carried bit for bit. Every leaf a
 slot holds is carried by name, so the MoE's ``router`` (P, d, E) and
 ``moe_w1``/``moe_w3``/``moe_w2`` (P, E, d, d_ff) / (P, E, d_ff, d) go
-both ways as the dense leaves do.
+both ways as the dense leaves do, and so do a mamba or rwkv slot's
+leaves, each in its own dtype (the float32 ones stay float32 beside
+bf16 matrices).
 
 The way back, :func:`stack_tree` (tensors) and :func:`params_to_numpy`,
 rebuilds the reference's stacked tree from any dict keyed like the state

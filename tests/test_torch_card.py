@@ -1214,3 +1214,113 @@ def test_serve_batch_example_on_the_card(cuda, capsys):
     assert capsys.readouterr().out.startswith("served 10 requests / 240 ")
     assert all(len(r.out) == 24 for r in done)
     assert build.LAUNCHES["flash_attention"] == 2 * 10     # layers x reqs
+
+
+# ------------------------------------------------- state-space serving
+
+def _ssm_params(kind, dtype, device, seed=0):
+    """A mixer's leaves at reduced widths (d 64), bf16 or float32 but for
+    the leaves the reference keeps in float32."""
+    g = torch.Generator().manual_seed(seed)
+    d, di, nh, ds = 64, 128, 8, 4
+    if kind == "mamba":
+        shapes = {"w_in": (d, 2 * di), "w_bcdt": (d, 2 * ds + nh),
+                  "w_out": (di, d), "conv": (4, di), "a_log": (nh,),
+                  "dt_bias": (nh,), "d_skip": (nh,)}
+    else:
+        shapes = {n: (d,) for n in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w",
+                                    "dec_bias", "ln_x")}
+        shapes.update({n: (d, d) for n in ("w_r", "w_k", "w_v", "w_g",
+                                           "w_dec", "w_o")})
+        shapes["u"] = (4, 16)
+    f32 = {"a_log", "dt_bias", "d_skip", "dec_bias", "u"}
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=g) / (8 if len(shape) > 1 else 2)
+        if name == "dt_bias":
+            t = t - 1.0
+        out[name] = t.to(device, torch.float32 if name in f32
+                         else getattr(torch, dtype))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["mamba", "rwkv"])
+def test_ssm_mixers_on_the_card_match_the_cpu(cuda, kind, dtype):
+    """The chunked mixer over 100 positions (chunks of 50) and a decode
+    step from its state, on the card and on the CPU: float32 within 1e-4
+    of the largest value, bf16 within 2e-2 (test_torch_ssm's bounds)."""
+    from repro_torch.models import ssm
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _ssm_params(kind, dtype, dev)
+        x = torch.randn((2, 101, 64), generator=torch.Generator()
+                        .manual_seed(1)).to(dev, getattr(torch, dtype))
+        if kind == "mamba":
+            kw = {"d_state": 4, "head_dim": 16, "d_conv": 4}
+            y, st = ssm.mamba_mix(p, x[:, :100], **kw)
+            y1, st1 = ssm.mamba_decode(p, x[:, 100:], st, **kw)
+        else:
+            y, st = ssm.rwkv6_mix(p, x[:, :100], head_dim=16)
+            y1, st1 = ssm.rwkv6_decode(p, x[:, 100:], st, head_dim=16)
+        outs.append([t.float().cpu() for t in (y, y1) + tuple(st1)])
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_reduced_ssm_lms_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced configs in bf16 (jamba cut to its first 5 layers, the
+    card's cut, its head dim widened to 64 for the kernel): the card's
+    prefill logits (jamba's attention on the flash kernel) and two
+    decode steps against the CPU's plain path, by relative L2, with the
+    same cache layout."""
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config(arch).reduced()
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(first_layers(cfg, 5), head_dim=64)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab, (1, 96)))
+    logits = []
+    for dev in (cuda, torch.device("cpu")):
+        model = LM(cfg, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+        build.reset_launches()
+        out, cache = model.prefill(toks.to(dev), seq_cap=128, attn_block=32)
+        steps = [out]
+        for t in (5, 7):
+            out, cache = model.decode_step(torch.tensor([[t]], device=dev),
+                                           cache)
+            steps.append(out)
+        logits.append([s.float().cpu() for s in steps])
+        if dev.type == "cuda":
+            assert build.LAUNCHES.get("flash_attention", 0) == \
+                cfg.slot_kinds().count("attn")
+            layout = {k: [tuple(t.shape) for t in
+                          (v.values() if isinstance(v, dict) else v)]
+                      for k, v in cache.items() if k != "len"}
+        else:
+            assert layout == {k: [tuple(t.shape) for t in
+                                  (v.values() if isinstance(v, dict)
+                                   else v)]
+                              for k, v in cache.items() if k != "len"}
+    for got, want in zip(*logits):
+        assert float((got - want).norm() / want.norm()) <= 5e-2
+
+
+def test_serve_cli_serves_the_ssm_configs_on_the_card(cuda, capsys):
+    """rwkv6-7b's first 2 layers and jamba's first 5 at their published
+    widths through the CLI: no kernel for rwkv, the flash kernel once a
+    request for jamba's one attention layer."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "rwkv6-7b", "--layers", "2", "--requests", "2",
+                "--max-new", "3", "--batch", "2"])
+    assert capsys.readouterr().out.startswith("served 2 requests")
+    assert build.LAUNCHES.get("flash_attention", 0) == 0
+    serve.main(["--arch", "jamba-1.5-large-398b", "--layers", "5",
+                "--requests", "2", "--max-new", "3", "--batch", "2"])
+    assert capsys.readouterr().out.startswith("served 2 requests")
+    assert build.LAUNCHES["flash_attention"] == 2

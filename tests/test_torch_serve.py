@@ -30,8 +30,9 @@ from chip_smoke import SERVE_REL_TOL
 
 ARCH = "qwen1.5-0.5b"
 #: every architecture the port registers
-PORTED = ("deepseek-7b", "granite-20b", "internlm2-1.8b", "mixtral-8x7b",
-          "phi3.5-moe-42b-a6.6b", "qwen1.5-0.5b")
+PORTED = ("deepseek-7b", "granite-20b", "internlm2-1.8b",
+          "jamba-1.5-large-398b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+          "qwen1.5-0.5b", "rwkv6-7b")
 PREFILL_TOL = 2e-4
 DECODE_TOL = 3e-3
 #: bf16 logits of the two packages differ by up to LOGIT_TOL / 2 on the
@@ -260,8 +261,8 @@ def test_lm_and_server_need_the_card_unless_asked_for_the_cpu():
     assert serve.Server(ARCH, device="cpu").model.device.type == "cpu"
 
 
-@pytest.mark.parametrize("change", [{"slots": ("mamba",)},
-                                    {"slots": ("rwkv",)},
+@pytest.mark.parametrize("change", [{"slots": ("cross",)},
+                                    {"slots": ("hyena",)},
                                     {"cross_len": 8},
                                     {"learned_pos": True},
                                     {"encoder_layers": 2}])
