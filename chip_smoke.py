@@ -324,10 +324,13 @@ BWD_WINDOW_SHAPES = ((1, 8192, 8192, 32, 8, 128, 4096),
 BWD_MQA_SHAPE = (4, 2048, 2048, 48, 1, 128, True)
 # The other training layers of train_models, unwindowed at 4 x 2048, hd
 # 128: (t1) internlm2-1.8b's GQA (H 16, KV 8), (t2) deepseek-7b's MHA (H =
-# KV = 32), (t3) phi3.5-moe's GQA (H 32, KV 8)
+# KV = 32), (t3) phi3.5-moe's GQA (H 32, KV 8), (j) jamba-1.5-large's
+# GQA 64:8 without rotary positions (a group of 8: 4 x 8 x 16 = 512 CTAs,
+# each walking 8 query heads)
 BWD_TRAIN_SHAPES = ((4, 2048, 2048, 16, 8, 128, True),
                     (4, 2048, 2048, 32, 32, 128, True),
-                    (4, 2048, 2048, 32, 8, 128, True))
+                    (4, 2048, 2048, 32, 8, 128, True),
+                    (4, 2048, 2048, 64, 8, 128, True))
 # every row of the backward's table, (B, Sq, Sk, H, KV, hd, causal[, W]):
 # each shape that the train and train_models phases run the backward at
 BWD_ROWS = BWD_SHAPES + tuple(s[:6] + (True,) + s[6:]
@@ -368,6 +371,13 @@ TRAIN_CHECK = (1, 256)      # batch, tokens of the card-vs-CPU step
 # apart, on the H100 (PERF.md, PR 19); the check reports that floor.
 TRAIN_LOSS_TOL = 2e-3
 TRAIN_GNORM_TOL = 5e-2
+#: and leaf by leaf: each bf16 gradient's distance from float32's, the
+#: card's at most this many times the CPU's (both bf16 paths round the
+#: same weights: the card's and the CPU's read 0.96-1.10 times each
+#: other on the 354 leaves of the five configs' checks), with the median
+#: leaf's norm within TRAIN_GNORM_TOL of the CPU's. One leaf can carry
+#: nearly all of the global norm: rwkv's ``u``, zero at its init
+TRAIN_LEAF_ERR_RATIO = 2.0
 # The configs serve_models serves, trained at their published widths: (arch,
 # layers kept (None: all), batch, tokens). 12 bytes a parameter (bf16
 # weights and gradients, float32 AdamW moments) must fit one 80 GB card
@@ -375,12 +385,20 @@ TRAIN_GNORM_TOL = 5e-2
 # leaf and the float32 logits: deepseek-7b keeps 16 of 30 layers (~49 GB
 # of state), granite-20b 6 of 52 (~45 GB), phi3.5-moe 3 of 32 (~50 GB)
 # and mixtral-8x7b 3 of 32 (~55 GB); mixtral takes one 8,192-token row,
-# so its 4,096-token window binds.
+# so its 4,096-token window binds. The state-space and hybrid configs
+# (their layer matrices at the published depth's init scale): rwkv6-7b
+# keeps 16 of 32 layers (4.97 B parameters, ~60 GB of state), and jamba
+# the slots 0, 2 and 4 of its first period (a tuple: slots, not a
+# count): mamba, mamba and attention, each with its MLP, its first five
+# layers less the two MoE layers, whose 16 experts hold 9.66 B
+# parameters (116 GB of state) each (3.85 B, ~46 GB).
 TRAIN_MODELS = (("internlm2-1.8b", None, 4, 2048),
                 ("deepseek-7b", 16, 4, 2048),
                 ("granite-20b", 6, 4, 2048),
                 ("phi3.5-moe-42b-a6.6b", 3, 4, 2048),
-                ("mixtral-8x7b", 3, 1, 8192))
+                ("mixtral-8x7b", 3, 1, 8192),
+                ("rwkv6-7b", 16, 4, 2048),
+                ("jamba-1.5-large-398b", (0, 2, 4), 4, 2048))
 TRAIN_MODELS_STEPS = 4
 TRAIN_MODELS_SAMPLES = 64   # samples of each config's pinned corpus
 # mixtral's window in its card-vs-CPU step, cut so that it binds at
@@ -576,8 +594,10 @@ def kernel_row(torch, name, shape, out_k, out_p, t_k, t_p, t_lib, nbytes,
 
 def rowhash_row(torch, r: int, c: int, g) -> dict:
     """rowhash on ``r`` rows of ``c`` random lanes: EXACT against the plain
-    version, timed, and bound by each lane read once and the four
-    signature words written once."""
+    version, timed by CUDA events (``ms``, the call's host cost included)
+    and by the profiler's device time of the kernel alone (``device_ms``,
+    with ``device_bound_share``, the bound over it), and bound by each
+    lane read once and the four signature words written once."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rowhash import signatures
 
@@ -586,11 +606,19 @@ def rowhash_row(torch, r: int, c: int, g) -> dict:
     # per lane: one multiply shared by the chains, then per chain one
     # add, xor, fmix32 (2 mul, 3 shift, 3 xor) and one multiply-add
     nops = r * (c * (2 + 4 * 10) + 4 * 9 + 4)
-    return kernel_row(torch, "rowhash", [r, c], signatures(lanes),
-                      ref.signatures(lanes),
-                      cuda_ms(torch, lambda: signatures(lanes), 20),
-                      cuda_ms(torch, lambda: ref.signatures(lanes), 3),
-                      None, r * c * 4 + r * 16, nops)
+    dev_ms = per_launch_ms(torch, lambda: signatures(lanes),
+                           "rowhash_kernel")
+    traces = DEVICE_READINGS[-1]["traces"]
+    row = kernel_row(torch, "rowhash", [r, c], signatures(lanes),
+                     ref.signatures(lanes),
+                     cuda_ms(torch, lambda: signatures(lanes), 20),
+                     cuda_ms(torch, lambda: ref.signatures(lanes), 3),
+                     None, r * c * 4 + r * 16, nops)
+    row["device_ms"] = dev_ms
+    row["device_traces"] = traces
+    row["device_bound_share"] = row["bound_ms"] / dev_ms if dev_ms \
+        else None
+    return row
 
 
 def kernel_phase(torch, seed: int) -> dict:
@@ -1132,11 +1160,14 @@ def device_profile(torch, fn, focus: str = "flash_fwd") -> dict:
     """Device busy time under ``fn`` from a torch.profiler trace: the sum
     of kernel time on the card over the host wall time of the window
     (one stream, so kernels do not overlap), with the largest kernels and
-    the time and count of the kernels whose name holds ``focus``."""
+    the time and count of the kernels whose name holds ``focus`` (None:
+    no focus, its fields None). The trace holds the card's activity only:
+    tracing the host's operators as well stretched a host-bound window
+    (rwkv6-7b's training step from 3.3 to 5.4 s, which lowers its busy
+    share) and took ~50 s to assemble its ~450k events."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1150,25 +1181,48 @@ def device_profile(torch, fn, focus: str = "flash_fwd") -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = sorted(kern, key=dev_us, reverse=True)[:8]
-    mine = [e for e in kern if focus in e.key]
+    mine = [e for e in kern if focus is not None and focus in e.key]
     copies = [e for e in kern if "DtoH" in e.key]
     return {"wall_s": wall,
             "dtoh_copies": sum(e.count for e in copies),
             "focus": focus,
-            "focus_ms": sum(dev_us(e) for e in mine) / 1e3,
-            "focus_count": sum(e.count for e in mine),
+            "focus_ms": None if focus is None
+            else sum(dev_us(e) for e in mine) / 1e3,
+            "focus_count": None if focus is None
+            else sum(e.count for e in mine),
             "device_busy_s": busy if kern else None,
             "busy_share": busy / wall if kern else None,
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                              "count": e.count} for e in top]}
 
 
+#: every per_launch_ms reading: its focus, its calls, the focus kernels'
+#: launches in one call, the traces it took and whether one was complete
+DEVICE_READINGS = []
+
+
 def per_launch_ms(torch, fn, focus: str, iters: int = 20):
     """Device ms of one call of ``fn`` from a trace of ``iters`` calls:
-    the kernels whose name holds ``focus`` (every kernel for "")."""
-    prof = device_profile(torch, lambda: [fn() for _ in range(iters)],
-                          focus=focus)
-    return prof["focus_ms"] / iters if prof["focus_count"] else None
+    the kernels whose name holds ``focus`` (every kernel for ""). A trace
+    counts only when it is complete, holding ``iters`` times the launches
+    that a trace of one call holds: late in a long process, most of the
+    doors' and tiers' rowhash traces once held none of theirs, and a trace
+    that lost some would read too low. Up to three pairs of traces are
+    taken; None means that none was complete. Each reading is logged in
+    DEVICE_READINGS."""
+    reading = {"focus": focus, "iters": iters, "per_call": None,
+               "traces": 0, "complete": False}
+    DEVICE_READINGS.append(reading)
+    for _ in range(3):
+        reading["traces"] += 1
+        one = device_profile(torch, fn, focus=focus)["focus_count"]
+        prof = device_profile(torch, lambda: [fn() for _ in range(iters)],
+                              focus=focus)
+        reading["per_call"] = one
+        if one and prof["focus_count"] == one * iters:
+            reading["complete"] = True
+            return prof["focus_ms"] / iters
+    return None
 
 
 def span_summary(tracer) -> list:
@@ -2373,8 +2427,9 @@ def doors_split(torch, doors: list, kern: dict, seed: int) -> dict:
         "probe": shape_hist(doors, "probe_shapes"),
         "segsum_diff": shape_hist(doors, "segsum_shapes")}, seed)
     return phase("doors_split", rowhash=[
-        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "launches")} for e in rows],
+        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "device_ms",
+                           "plain_ms", "bound_ms", "launches")}
+        for e in rows],
         exact=swept, seconds=time.perf_counter() - t0)
 
 
@@ -2691,8 +2746,9 @@ def tiers_split(torch, tiers: list, kern: dict, seed: int) -> dict:
         "probe": shape_hist(tiers, "probe_shapes"),
         "segsum_diff": shape_hist(tiers, "segsum_shapes")}, seed)
     return phase("tiers_split", rowhash=[
-        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "launches")}
+        {f: e[f] for f in ("shape", "ok", "max_abs_err", "ms", "device_ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "device_bound_share", "launches")}
         for e in rows], rowhash_shapes=len(hist), exact=swept,
         seconds=time.perf_counter() - t0)
 
@@ -3116,17 +3172,36 @@ def serve_models_phase(torch, seed: int, models=SERVE_MODELS,
 
 # -------------------------------------------------------------------- train
 
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` whose mixer is attention (its attention slots
+    times its periods): 0 for rwkv6, 1 in jamba's training cut."""
+    return cfg.slot_kinds().count("attn") * cfg.n_periods
+
+
 def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 N T for the dense work (N the
     parameters a token meets: an MoE's active ones), plus attention's over
     its unmasked pairs (under a sliding window, those inside it), 3.5 x
-    its forward (the backward is 2.5 x). A remat step's recomputed
-    forward is not model work and is not counted."""
+    its forward (the backward is 2.5 x), on each attention layer. A remat
+    step's recomputed forward is not model work and is not counted. The
+    state-space mixers' own terms (the intra-chunk products and the
+    state's updates, beyond their weights' 6 N T) are left out: at the
+    published widths they are under 0.5% of 6 N T (jamba's mamba about 3
+    MFLOP a token and layer against 2 GFLOP, rwkv6 about 2 against
+    0.55)."""
     W = cfg.sliding_window
     pairs = window_pairs(seq, seq, W) if W else \
         attention_pairs(seq, seq, True)
     fwd = 4.0 * batch * cfg.n_heads * cfg.hd * pairs
-    return 6.0 * n_params * batch * seq + 3.5 * fwd * cfg.n_layers
+    return 6.0 * n_params * batch * seq + 3.5 * fwd * attention_layers(cfg)
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The attention kernels' launches that ``steps`` remat steps of
+    ``cfg`` make: the forward twice an attention layer (remat runs it
+    again in the backward), the backward once."""
+    n = attention_layers(cfg) * steps
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n}
 
 
 #: layer matrices whose init scale is fixed, not 1/sqrt(periods)
@@ -3156,26 +3231,77 @@ def published_init_scale(torch, model) -> None:
                     part.copy_((part.float() * rescale).bfloat16())
 
 
+def leaf_gaps(torch, card: dict, cpu: dict, f32: dict) -> dict:
+    """The card's gradients leaf by leaf (name -> gradient) against the
+    CPU's bf16 ones and float32's. For every leaf that float32 gives a
+    gradient: the norms' relative gap card vs CPU (``rel_diff``), each
+    bf16 side's distance from float32 over float32's norm (``card_err``,
+    ``cpu_err``) and their ratio (``err_ratio``). Returns the median and
+    the worst leaf by gap, the worst by ratio, the leaves that float32
+    gives exactly none (``zero_on_both``: none on either bf16 side too),
+    the leaf with the largest share of the float32 norm's square, and
+    ``by_leaf``, [card, cpu, cpu_f32, card_err, cpu_err] norms. Each
+    leaf is moved once to the card's gradients' device and summed there
+    in float64, in slices."""
+    dev = next(iter(card.values())).device
+    rows = {}
+    for n, g in f32.items():
+        flat = [(torch.zeros_like(g) if t is None else t).to(dev).reshape(-1)
+                for t in (card[n], cpu[n], g)]
+        sums = [0.0] * 5
+        for i in range(0, g.numel(), 1 << 24):
+            c, p, f = (t[i:i + (1 << 24)].double() for t in flat)
+            # squares of card, cpu, float32, card - float32, cpu - float32
+            for j, t in enumerate((c, p, f, c - f, p - f)):
+                sums[j] += float(torch.sum(torch.square(t)))
+        c, p, f, ce, pe = (math.sqrt(x) for x in sums)
+        rows[n] = [c, p, f, ce / f, pe / f] if f else [c, p, f, None, None]
+
+    def leaf(n):
+        c, p, f, ce, pe = rows[n]
+        return {"leaf": n, "card": c, "cpu": p, "cpu_f32": f,
+                "rel_diff": abs(c - p) / p if p else math.inf,
+                "card_err": ce, "cpu_err": pe,
+                "err_ratio": 0.0 if ce == 0 else ce / pe if pe
+                else math.inf}
+    live = sorted((leaf(n) for n in rows if rows[n][2] > 0),
+                  key=lambda e: e["rel_diff"])
+    zero = sorted(n for n in rows if rows[n][2] == 0)
+    top = max(live, key=lambda e: e["cpu_f32"])
+    return {"leaves": len(rows), "median_gap": live[len(live) // 2],
+            "worst_gap": live[-1],
+            "worst_err_ratio": max(live, key=lambda e: e["err_ratio"]),
+            "zero_in_f32": zero,
+            "zero_on_both": all(rows[n][0] == rows[n][1] == 0 for n in zero),
+            "largest": dict(top, share=top["cpu_f32"] ** 2
+                            / sum(r[2] ** 2 for r in rows.values())),
+            "by_leaf": rows}
+
+
 def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     """One full-width loss and gradient (``loss_fn(..., remat=remat)`` and
     its backward, the work of ``train_step`` before AdamW) on the card and
     on the CPU's plain path, from the same bf16 weights and a
     TRAIN_CHECK-sized batch: the loss and the global gradient norm, each
-    within its tolerance. The same step on the CPU in float32 (the same
-    weights, upcast) gives the bf16 noise floor the tolerance is read
-    against. An MoE config's card step records its routes and the CPU
-    steps replay them (``models.routes``), so both sides compute one
-    function; the CPU's bf16 step with its own routing is recorded
-    beside it (``own_routes``), unheld, and so are the choices that the
-    card's remat recompute routed differently from its forward
-    (``recompute_flips``, 0 expected). Each model is drawn on its own
-    from a CPU generator of one seed, so the weights are the same only if
-    the init does not depend on the device. A config cut in depth keeps
-    the published depth's init scale: each model's layer matrices are
-    taken to 1/sqrt(published periods), as the published model's first
-    layers are drawn (a one-layer cut would draw them at 1, where bf16
-    rounding moved phi3.5-moe's gradient norm by a third against
-    float32)."""
+    within its tolerance, and leaf by leaf (``leaf_gaps``): the median
+    leaf's norm within the same tolerance, each leaf's distance from the
+    float32 gradient within TRAIN_LEAF_ERR_RATIO times the CPU's, and
+    where float32 has no gradient, none. The same step on the CPU in
+    float32 (the same weights, upcast) gives the bf16 noise floor the
+    tolerance is read against. An MoE config's card step records its
+    routes and the CPU steps replay them (``models.routes``), so both
+    sides compute one function; the CPU's bf16 step with its own routing
+    is recorded beside it (``own_routes``), unheld, and so are the
+    choices that the card's remat recompute routed differently from its
+    forward (``recompute_flips``, 0 expected). The weights are drawn
+    once, on the CPU from a generator of one seed (a full-width draw
+    takes 7-20 s of host time), and loaded into the card's model and the
+    float32 one, each made on the card in a fraction of a second. A
+    config cut in depth keeps the published depth's init scale: the layer
+    matrices are taken to 1/sqrt(published periods), as the published
+    model's first layers are drawn (a one-layer cut would draw them at 1,
+    where bf16 rounding moved phi3.5-moe's gradient norm by a third
+    against float32)."""
     import contextlib
     import dataclasses
 
@@ -3196,19 +3322,22 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     moe = cfg.moe is not None
     published = get_config(cfg.name).n_periods
 
-    def model(dtype, device):
-        # weights drawn in float32 and rounded to bf16, then held in dtype
-        m = LM(dataclasses.replace(cfg, dtype=dtype), device=device,
-               generator=torch.Generator().manual_seed(seed + 7))
-        published_init_scale(torch, m)
-        return m
     t_draw = time.perf_counter()
-    card, cpu = model("bfloat16", "cuda"), model("bfloat16", "cpu")
+    # weights drawn in float32 and rounded to bf16
+    cpu = LM(dataclasses.replace(cfg, dtype="bfloat16"), device="cpu",
+             generator=torch.Generator().manual_seed(seed + 7))
+    published_init_scale(torch, cpu)
+
+    def model(dtype, device):
+        # made (and drawn) on the card, then given the CPU's weights,
+        # held in dtype (the float32 leaves stay float32)
+        m = LM(dataclasses.replace(cfg, dtype=dtype), device="cuda",
+               generator=torch.Generator("cuda").manual_seed(seed))
+        m.load_state_dict(cpu.state_dict())
+        return m.to(device)
+    card = model("bfloat16", "cuda")
     draw_s = time.perf_counter() - t_draw
-    check(all(torch.equal(a.cpu(), c) for a, c in zip(card.parameters(),
-                                                      cpu.parameters())),
-          "the card and CPU models do not hold the same weights")
-    out = {}
+    out, grads = {}, {}
     for name, ctx in (("card", routes.recorded(log)),
                       ("cpu", routes.replayed(log)),
                       ("cpu_f32", routes.replayed(log)),
@@ -3220,9 +3349,6 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
             t_draw = time.perf_counter()
             m = model("float32", "cpu")
             draw_s += time.perf_counter() - t_draw
-            check(all(torch.equal(c.float(), f) for c, f in
-                      zip(cpu.parameters(), m.parameters())),
-                  "the float32 model does not hold the bf16 weights")
         for p in m.parameters():
             p.grad = None
         m.requires_grad_()
@@ -3235,9 +3361,14 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
         gnorm = global_norm(p.grad for p in m.parameters())
         out[name] = {"loss": loss.item(), "grad_norm": gnorm.item(),
                      "seconds": time.perf_counter() - t0}
+        if name != "own_routes":
+            grads[name] = {n: p.grad for n, p in m.named_parameters()}
         if name == "card":
             out["launches"] = dict(build.LAUNCHES)
         if name == "cpu_f32":
+            out["leaves"] = leaf_gaps(torch, grads["card"], grads["cpu"],
+                                      grads["cpu_f32"])
+            grads.clear()
             del m
             gc.collect()
     del card, cpu
@@ -3267,7 +3398,10 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     check(all(math.isfinite(x[k]) for x in (a, c)
               for k in ("loss", "grad_norm")), f"non-finite check: {out}")
     check(out["loss_rel_diff"] <= TRAIN_LOSS_TOL
-          and out["grad_norm_rel_diff"] <= TRAIN_GNORM_TOL,
+          and out["grad_norm_rel_diff"] <= TRAIN_GNORM_TOL
+          and out["leaves"]["median_gap"]["rel_diff"] <= TRAIN_GNORM_TOL
+          and out["leaves"]["worst_err_ratio"]["err_ratio"]
+          <= TRAIN_LEAF_ERR_RATIO and out["leaves"]["zero_on_both"],
           f"the card's step differs from the CPU's: {out}")
     check(not moe or not remat or log.recompute_flips == 0,
           f"the card's remat recompute routed differently: {out}")
@@ -3453,16 +3587,41 @@ def train_phase(torch, seed: int) -> dict:
     return rec
 
 
+def train_cut(full, layers):
+    """``full`` cut as a TRAIN_MODELS row says: None keeps it whole, a
+    count keeps the stack's first layers (``configs.first_layers``), a
+    tuple keeps those slots of its first period
+    (``configs.period_slots``)."""
+    from repro_torch.configs import first_layers, period_slots
+    if layers is None:
+        return full
+    if isinstance(layers, tuple):
+        return period_slots(full, layers)
+    return first_layers(full, layers)
+
+
+def cut_note(full, cfg, layers):
+    """How ``cfg`` was cut from ``full``, for the record (None: whole)."""
+    if layers is None:
+        return None
+    note = f"n_layers {full.n_layers} -> {cfg.n_layers}"
+    if isinstance(layers, tuple):
+        note += (f": slots {list(layers)} of the first period of "
+                 f"{full.period} ({', '.join(cfg.slot_kinds())}; ffn "
+                 f"{', '.join(cfg.ffn_kinds())})")
+    return note
+
+
 def train_model(torch, arch: str, layers, batch: int, seq: int,
                 seed: int) -> dict:
     """One config at its published widths (depth cut to ``layers`` where
     given) through the training path: its own versioned token corpus,
     pinned, batches from the pipeline on the card, TRAIN_MODELS_STEPS
     steps of ``train.train_step(..., remat=True)`` (loss, backward through
-    the flash kernels, AdamW), then one profiled step. Returns its
-    record; the caller frees the card."""
-    import dataclasses
-
+    the flash kernels, AdamW), then one profiled step. A depth cut draws
+    its layer matrices at the published depth's init scale
+    (``published_init_scale``). Returns its record; the caller frees the
+    card."""
     from repro_torch.configs import get_config
     from repro_torch.core import Engine
     from repro_torch.data import (BatchPipeline, PinnedDataset, PipelineCfg,
@@ -3473,8 +3632,7 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
     from repro_torch.optim import AdamWCfg, init_opt_state
 
     full = get_config(arch)
-    cfg = full if layers is None else dataclasses.replace(full,
-                                                          n_layers=layers)
+    cfg = train_cut(full, layers)
     t_all = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3489,6 +3647,7 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
     t0 = time.perf_counter()
     model = LM(cfg, device="cuda",
                generator=torch.Generator("cuda").manual_seed(seed))
+    published_init_scale(torch, model)
     model.requires_grad_()
     live = dict(model.named_parameters())
     opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=TRAIN_MODELS_STEPS)
@@ -3515,24 +3674,28 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
     steady = sorted(step_ms[1:])
     median_ms = steady[len(steady) // 2]
     flops = train_flops(n_active, cfg, batch, seq)
-    want = cfg.n_layers * TRAIN_MODELS_STEPS
-    check(launches["flash_attention"] == 2 * want
-          and launches["flash_attention_bwd"] == want,
-          f"{arch}: attention kernels launched {launches}, not {2 * want} "
-          f"forwards (remat runs each twice) and {want} backwards")
+    want = train_launches(cfg, TRAIN_MODELS_STEPS)
+    check(all(launches.get(k, 0) == n for k, n in want.items()),
+          f"{arch}: attention kernels launched {launches}, not {want} "
+          f"(remat runs each forward twice)")
     check(all(math.isfinite(x) for x in losses + gnorms),
           f"{arch}: a loss or gradient norm is not finite: {losses} "
           f"{gnorms}")
     peak = torch.cuda.max_memory_allocated()
     data = pipe.tensors_at(TRAIN_MODELS_STEPS + 1, "cuda")
+    # without attention there is no backward kernel to focus on: the
+    # record keeps the step's leading kernels alone
     prof = device_profile(torch, lambda: train.train_step(
         model, data, opt, opt_cfg, decay, seq, remat=True),
-        focus="attn_bwd")
+        focus="attn_bwd" if attention_layers(cfg) else None)
     W = cfg.sliding_window
     rec = {"arch": arch, "n_layers": cfg.n_layers,
            "published_layers": full.n_layers,
-           "cut": None if layers is None else
-           f"n_layers {full.n_layers} -> {layers}",
+           "cut": cut_note(full, cfg, layers),
+           "slots": list(cfg.slot_kinds()),
+           "ffn_slots": list(cfg.ffn_kinds()),
+           "attention_layers": attention_layers(cfg),
+           "init_scale_periods": full.n_periods,
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "hd": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
            "moe": None if not cfg.moe else [cfg.moe.n_experts,
@@ -3551,7 +3714,7 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
            "model_flops": flops,
            "model_flop_share": flops / (median_ms / 1e3) / BF16_FLOPS_PER_S,
            "launches": launches,
-           "window_bwd_launches": launches["flash_attention_bwd"]
+           "window_bwd_launches": launches.get("flash_attention_bwd", 0)
            if W and W < seq else 0,
            "max_memory_allocated": peak,
            "max_memory_reserved": torch.cuda.max_memory_reserved(),
@@ -3565,13 +3728,15 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
 
 def train_models_phase(torch, seed: int) -> dict:
     """Every config of TRAIN_MODELS through ``train_model``, each trained
-    and freed before the next; then the card-vs-CPU step, with remat and
-    the card's routes replayed on the CPU, for each MoE config at one
-    layer (mixtral's window cut to TRAIN_CHECK_WINDOW so that it binds at
-    TRAIN_CHECK tokens)."""
+    and freed before the next; then the card-vs-CPU step with remat for
+    each MoE config at one layer, the card's routes replayed on the CPU
+    (mixtral's window cut to TRAIN_CHECK_WINDOW so that it binds at
+    TRAIN_CHECK tokens), and for each state-space config at its first
+    trained slot: rwkv6's one rwkv layer, jamba's slot 0 (mamba with its
+    MLP)."""
     import dataclasses
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, period_slots
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3586,15 +3751,21 @@ def train_models_phase(torch, seed: int) -> dict:
               top_kernels=recs[-1]["profile_step"]["top_kernels"][:5])
     for arch, layers, _, _ in TRAIN_MODELS:
         cfg = get_config(arch)
-        if cfg.moe is None:
+        if cfg.ssm is not None:
+            first = (layers[0],) if isinstance(layers, tuple) else (0,)
+            one = period_slots(cfg, first)
+            checks[arch] = card_vs_cpu_step(torch, one, seed, remat=True)
+            checks[arch]["cut"] = cut_note(cfg, one, first)
+        elif cfg.moe is not None:
+            cut = {"n_layers": 1}
+            if cfg.sliding_window:
+                cut["sliding_window"] = TRAIN_CHECK_WINDOW
+            checks[arch] = card_vs_cpu_step(
+                torch, dataclasses.replace(cfg, **cut), seed, remat=True)
+            checks[arch]["cut"] = {k: [getattr(cfg, k), v]
+                                   for k, v in cut.items()}
+        else:
             continue
-        cut = {"n_layers": 1}
-        if cfg.sliding_window:
-            cut["sliding_window"] = TRAIN_CHECK_WINDOW
-        checks[arch] = card_vs_cpu_step(
-            torch, dataclasses.replace(cfg, **cut), seed, remat=True)
-        checks[arch]["cut"] = {k: [getattr(cfg, k), v]
-                               for k, v in cut.items()}
         phase("train_model_check", arch=arch, **checks[arch])
     return {"models": recs, "card_vs_cpu": checks,
             "seconds": time.perf_counter() - t0,
@@ -3987,6 +4158,12 @@ def main(argv=None) -> int:
         phase("train_models", **{k: v for k, v in models_trained.items()
                                  if k not in ("models", "card_vs_cpu")},
               archs=[m["arch"] for m in models_trained["models"]])
+        record["device_readings"] = phase(
+            "device_readings", readings=len(DEVICE_READINGS),
+            complete=sum(r["complete"] for r in DEVICE_READINGS),
+            by_traces=dict(collections.Counter(
+                r["traces"] for r in DEVICE_READINGS)),
+            retried=[r for r in DEVICE_READINGS if r["traces"] > 1])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -2,7 +2,7 @@
 seeded numpy generator (``paper_vcs``), and the architecture registry of
 the model stack (one module per architecture the port serves)."""
 from .base import (ArchConfig, MoECfg, SSMCfg, all_arch_names,  # noqa: F401
-                   first_layers, get_config)
+                   first_layers, get_config, period_slots)
 
 from . import (deepseek_7b, granite_20b, internlm2_1_8b,  # noqa: F401,E402
                jamba_1_5_large_398b, mixtral_8x7b, phi3_5_moe_42b,

@@ -153,16 +153,35 @@ class ArchConfig:
 def first_layers(cfg: ArchConfig, n: int) -> ArchConfig:
     """``cfg`` cut to the first ``n`` layers of its stack, at its widths:
     whole periods, or the first ``n`` slots of one period (the period
-    then shrinks to ``n``). The weights' init scale follows the cut's
-    periods, not the published ones."""
+    then shrinks to ``n``: :func:`period_slots`). The weights' init
+    scale follows the cut's periods, not the published ones."""
     if n % cfg.period == 0:
         return dataclasses.replace(cfg, n_layers=n)
     if n > cfg.period:
         raise ValueError(f"{cfg.name}: {n} layers are neither whole "
                          f"periods of {cfg.period} nor part of one")
-    return dataclasses.replace(cfg, n_layers=n, period=n,
-                               slots=cfg.slot_kinds()[:n],
-                               ffn_slots=cfg.ffn_kinds()[:n])
+    return period_slots(cfg, tuple(range(n)))
+
+
+def period_slots(cfg: ArchConfig, slots: Tuple[int, ...]) -> ArchConfig:
+    """``cfg`` cut to the layers of chosen ``slots`` of its first period,
+    in order, at its widths: one period of ``len(slots)`` layers, each
+    keeping its slot's mixer and FFN. Picking the slots of a
+    :func:`first_layers` cut whose FFN is not an MoE drops its MoE layers
+    (jamba's slots 0, 2 and 4: its first five layers less the two whose
+    16 experts hold 9.7 B parameters each). A cut that keeps no MoE layer
+    has no ``moe``. The weights' init scale follows the cut's one period,
+    not the published periods."""
+    kinds, ffns = cfg.slot_kinds(), cfg.ffn_kinds()
+    if not slots or sorted(set(slots)) != list(slots) \
+            or not 0 <= slots[0] <= slots[-1] < cfg.period:
+        raise ValueError(f"{cfg.name}: slots {slots} are not increasing "
+                         f"slots of a period of {cfg.period}")
+    ffn = tuple(ffns[i] for i in slots)
+    return dataclasses.replace(
+        cfg, n_layers=len(slots), period=len(slots),
+        slots=tuple(kinds[i] for i in slots), ffn_slots=ffn,
+        moe=cfg.moe if "moe" in ffn else None)
 
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}

@@ -45,6 +45,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
+def _floor(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo), the reference's ``jnp.maximum`` against a scalar: the
+    same values as ``torch.clamp(x, min=lo)``, and at a tie (x == lo) the
+    gradient split in half between x and the bound, as JAX splits it
+    (``clamp`` would pass all of it to x)."""
+    return torch.maximum(x, x.new_full((), lo))
+
+
 def _chunk(S: int, chunk: int) -> int:
     chunk = min(chunk, S)
     while S % chunk:
@@ -82,7 +90,7 @@ def mamba_mix(p: Params, x: torch.Tensor, state: Optional[Tuple] = None, *,
 
     dt = _softplus(dt.float() + p["dt_bias"])                 # (B,S,nh)
     a_log = -torch.exp(p["a_log"].float())                     # (nh,) < 0
-    logw = torch.clamp(dt * a_log[None, None], min=_LOGW_MIN)  # (B,S,nh)
+    logw = _floor(dt * a_log[None, None], _LOGW_MIN)          # (B,S,nh)
     # the matmul stream stays in the model dtype; decay/state math in f32
     v = xi.reshape(B, S, nh, head_dim) * dt[..., None].to(xi.dtype)
     y, new_ssm = _chunked_decay_attn(
@@ -140,7 +148,7 @@ def mamba_decode(p: Params, x: torch.Tensor, state: Tuple, *, d_state: int,
     xi = _silu(_conv(xi_p, p["conv"], 1))
     dt = _softplus(dt.float() + p["dt_bias"])
     a_log = -torch.exp(p["a_log"].float())
-    w = torch.exp(torch.clamp(dt * a_log[None, None], min=_LOGW_MIN))
+    w = torch.exp(_floor(dt * a_log[None, None], _LOGW_MIN))
     v = xi.reshape(B, 1, nh, head_dim).float() * dt[..., None]
     h = h * w[:, 0, :, None, None] \
         + B_[:, 0].float()[:, None, :, None] * v[:, 0][:, :, None, :]
@@ -195,7 +203,7 @@ def rwkv6_mix(p: Params, x: torch.Tensor, state: Optional[Tuple] = None, *,
         else state[1]
     r, k, v, g, wr = _rwkv_proj(p, x, _token_shift(x, prev))
     # data-dependent decay w in (0,1): log w = -exp(wr), clamped
-    logw = torch.clamp(-torch.exp(wr.float()), min=_LOGW_MIN_RWKV)
+    logw = _floor(-torch.exp(wr.float()), _LOGW_MIN_RWKV)
     rh = r.reshape(B, S, H, dk).float()
     kh = k.reshape(B, S, H, dk).float()
     vh = v.reshape(B, S, H, dv).float()
@@ -234,7 +242,7 @@ def rwkv6_decode(p: Params, x: torch.Tensor, state: Tuple, *,
     dk = dv = head_dim
     prev, h = state
     r, k, v, g, wr = _rwkv_proj(p, x, prev)
-    w = torch.exp(torch.clamp(-torch.exp(wr.float()), min=_LOGW_MIN_RWKV))
+    w = torch.exp(_floor(-torch.exp(wr.float()), _LOGW_MIN_RWKV))
     rh = r.reshape(B, H, dk).float()
     kh = k.reshape(B, H, dk).float()
     vh = v.reshape(B, H, dv).float()

@@ -1324,3 +1324,107 @@ def test_serve_cli_serves_the_ssm_configs_on_the_card(cuda, capsys):
                 "--requests", "2", "--max-new", "3", "--batch", "2"])
     assert capsys.readouterr().out.startswith("served 2 requests")
     assert build.LAUNCHES["flash_attention"] == 2
+
+
+# ------------------------------------------------- state-space training
+
+@pytest.mark.parametrize("kind", ["mamba", "rwkv"])
+def test_ssm_mixer_gradients_on_the_card_match_the_cpu(cuda, kind):
+    """The chunked mixer's gradients (every leaf, the input and the
+    carried state) over 100 positions (chunks of 50) from a carried
+    state, float32, on the card and on the CPU: each within 1e-4 of its
+    largest value, the forward's bound."""
+    from repro_torch.models import ssm
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {n: t.requires_grad_() for n, t in
+             _ssm_params(kind, "float32", dev).items()}
+        g = torch.Generator().manual_seed(2)
+        x = torch.randn((2, 100, 64), generator=g).to(dev).requires_grad_()
+        shapes = ((2, 3, 128), (2, 8, 4, 16)) if kind == "mamba" \
+            else ((2, 1, 64), (2, 4, 16, 16))
+        st = tuple(torch.randn(s, generator=g).to(dev).requires_grad_()
+                   for s in shapes)
+        if kind == "mamba":
+            y, new = ssm.mamba_mix(p, x, st, d_state=4, head_dim=16,
+                                   d_conv=4)
+        else:
+            y, new = ssm.rwkv6_mix(p, x, st, head_dim=16)
+        dy = torch.randn(y.shape, generator=g).to(dev)
+        ds = [torch.randn(t.shape, generator=g).to(dev) for t in new]
+        ((y * dy).sum() + sum((t * d).sum() for t, d in zip(new, ds))
+         ).backward()
+        grads.append({**{n: t.grad.cpu() for n, t in p.items()},
+                      "x": x.grad.cpu(),
+                      **{f"state{i}": t.grad.cpu() for i, t in
+                         enumerate(st)}})
+    got, want = grads
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert float((got[name] - w).abs().max()) <= 1e-4 * float(
+            w.abs().max()), name
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_reduced_ssm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One train_step(remat=True) of the reduced config in bf16 (jamba cut
+    to slots 0, 1 and 4: mamba, mamba with the MoE, attention, its head
+    dim widened to 64 for the kernel) on the card and on the CPU from the
+    same weights: the loss and the gradient norm within chip_smoke's
+    TRAIN_LOSS_TOL and TRAIN_GNORM_TOL, the float32 leaves and moments
+    float32, and jamba's attention layer through both kernels (the
+    forward twice under remat)."""
+    from repro_torch.configs import get_config, period_slots
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWCfg, init_opt_state
+    cfg = get_config(arch).reduced()
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(period_slots(cfg, (0, 1, 4)), head_dim=64)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        2, cfg.vocab, (2, 129)))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = LM(cfg, device=dev,
+                   generator=torch.Generator().manual_seed(1))
+        model.requires_grad_()
+        live = dict(model.named_parameters())
+        opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=4)
+        opt = init_opt_state(live, opt_cfg)
+        build.reset_launches()
+        opt, metrics = train.train_step(
+            model, {"tokens": toks[:, :-1].to(dev),
+                    "targets": toks[:, 1:].to(dev)}, opt, opt_cfg,
+            train.decay_names(live), 32, remat=True)
+        out.append((metrics["loss"].item(), metrics["grad_norm"].item()))
+        assert all(t.dtype == torch.float32 for t in opt.mu.values())
+        assert {n.rsplit(".", 1)[1] for n, p in live.items()
+                if p.dtype == torch.float32} == (
+            {"dec_bias", "u"} if arch == "rwkv6-7b"
+            else {"a_log", "dt_bias", "d_skip"})
+        if dev.type == "cuda":
+            n = cfg.slot_kinds().count("attn") * cfg.n_periods
+            assert build.LAUNCHES["flash_attention"] == 2 * n
+            assert build.LAUNCHES["flash_attention_bwd"] == n
+    (loss, gnorm), (cpu_loss, cpu_gnorm) = out
+    assert all(np.isfinite([loss, gnorm]))
+    assert abs(loss - cpu_loss) / cpu_loss <= TRAIN_LOSS_TOL
+    assert abs(gnorm - cpu_gnorm) / cpu_gnorm <= TRAIN_GNORM_TOL
+
+
+def test_flash_attention_bwd_at_jambas_layer_matches_float32(cuda):
+    """The backward at jamba-1.5-large's attention layer, one row of
+    chip_smoke's (j): 2,048 positions, GQA 64:8 (a group of 8, held
+    elementwise), hd 128, causal, against the float32 backward."""
+    from chip_smoke import BWD_GROUP_ELEMENTWISE, BWD_TRAIN_SHAPES
+    b, sq, sk, h, kv, hd, causal = (1,) + BWD_TRAIN_SHAPES[-1][1:]
+    assert (h, kv, hd) == (64, 8, 128) and h // kv <= BWD_GROUP_ELEMENTWISE
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=64)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(8), device=cuda).bfloat16()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    of, lsef = ref.attention_lse(qf, kf, vf)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    _bwd_close(got, ref.attention_bwd(qf, kf, vf, of, lsef, do.float()))
+    assert build.LAUNCHES["flash_attention_bwd"] == 1

@@ -370,10 +370,15 @@ def test_chip_smoke_pads_the_planted_fault_to_the_backward_tile():
 
 
 def _trained_layers():
+    """(arch, batch, tokens) of every config that the train and
+    train_models phases train with attention layers (rwkv6 has none)."""
     import chip_smoke
+    from repro_torch.configs import get_config
     return [(chip_smoke.TRAIN_ARCH, chip_smoke.TRAIN_BATCH,
              chip_smoke.TRAIN_SEQ)] + [
-        (arch, b, s) for arch, _, b, s in chip_smoke.TRAIN_MODELS]
+        (arch, b, s) for arch, cut, b, s in chip_smoke.TRAIN_MODELS
+        if chip_smoke.attention_layers(
+            chip_smoke.train_cut(get_config(arch), cut))]
 
 
 @pytest.mark.parametrize("arch,b,s", _trained_layers())
