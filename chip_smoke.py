@@ -43,7 +43,11 @@ Phases, one line each:
                 (serving's and the LSE one) against the plain version,
                 beside SDPA with a boolean band mask, bound by the
                 in-window pairs; jamba's attention layer (GQA 64:8, hd
-                128) at 2,048 and 1,024 tokens; and the backward with the window at
+                128) at 2,048 and 1,024 tokens; all pairs at serve_cross's
+                shapes (whisper's encoder over 1,500 frames and its cross
+                sublayer at 2,048 tokens, llama-vision's cross layers
+                over 6,404 patches, the Server's 8 stub frames), SDPA
+                beside each; and the backward with the window at
                 mixtral's training layer (8,192 tokens, W 4,096; the
                 plain version KV head by KV head), at hd 64 with W off
                 the tile and at W = Sq (the unwindowed kernel's bits),
@@ -167,6 +171,23 @@ Phases, one line each:
                 formula, the state's bytes, decode ms a token beside
                 its bound (weights, valid KV and the state read and
                 written once)
+     serve_cross — whisper-medium whole (24 encoder + 24 decoder layers,
+                learned positions) and llama-3.2-vision-90b cut to its
+                first 30 layers (6 cross + 24 attention; the cut's
+                matrices at the published depth's init scale), served as
+                serve_models serves with the Server's stub context (8
+                zero frames, 6,404 zero patches): flash launches = 72
+                and 30 a prefill (encoder layers, decoder self and
+                cross, cross layers) x requests; then with a context of
+                real size drawn from the seed (1,500 frames, 6,404
+                patches, N(0, 1) in bf16): prefill ms and tok/s at 2,048
+                tokens (whisper's encoder apart), decode ms a token
+                beside its bound (the cached cross K/V read whole), the
+                cross cache's bytes, the consistency check at 2,048 + 32,
+                two planted cross faults (a layer's K/V zeroed, every
+                layer's from another context) and the change of context
+                itself, each above the tolerance at the first decoded
+                position
   7. train    —qwen1.5-0.5b at full width (random weights from seed 0):
                 a corpus of 4,096 samples x 2,049 tokens in a token table
                 on the card engine, pinned; train_loop at 2,048 tokens x
@@ -252,6 +273,17 @@ FLASH_SHAPES = ((1, 2048, 2048, 16, 16, 64, True),
 # at hd 128 (no rotary positions, which the kernel never sees)
 FLASH_JAMBA_SHAPES = ((1, 2048, 2048, 64, 8, 128, True),
                       (1, 1024, 1024, 64, 8, 128, True))
+# the flash kernel all pairs at serve_cross's shapes: (e) whisper's
+# encoder over 1,500 frames (a ragged query tile too); (xw) whisper's
+# cross sublayer at a 2,048-token prompt; (xv) llama-vision's cross
+# layers over 6,404 patches (GQA 64:8, hd 128, the key tail ragged:
+# 50 x 128 + 4); (x8) the Server's stub context, 8 frames, whisper's
+# encoder over it (every tile ragged) and (x8q) its cross sublayer
+FLASH_CROSS_SHAPES = ((1, 1500, 1500, 16, 16, 64, False),
+                      (1, 2048, 1500, 16, 16, 64, False),
+                      (1, 2048, 6404, 64, 8, 128, False),
+                      (1, 8, 8, 16, 16, 64, False),
+                      (1, 2048, 8, 16, 16, 64, False))
 FLASH_BLOCK_N = 128         # keys per K/V tile of the kernel
 FLASH_TOL = 2e-2            # atol = rtol, bf16 against the plain version
 # and ||kernel - plain|| / ||plain|| at most this: two bf16 roundings of the
@@ -294,6 +326,20 @@ SERVE_MODELS = (("deepseek-7b", None), ("internlm2-1.8b", None),
 # 0-4: four mamba layers and the attention layer, FFNs mlp/moe/mlp/moe/
 # mlp; one published period of 8 holds ~45 B parameters, 90 GB in bf16)
 SERVE_SSM_MODELS = (("rwkv6-7b", None), ("jamba-1.5-large-398b", 5))
+# The encoder-decoder and cross-attention configs, served alike, at the
+# published depth's init scale: whisper-medium whole (1.15 B parameters
+# with its two 65,536-row position tables), llama-3.2-vision-90b cut to
+# its first 30 layers, 6 of its 20 periods (27.77 B parameters, 55.5 GB
+# in bf16; 35 layers would need 64.1 GB before activations)
+SERVE_CROSS_MODELS = (("whisper-medium", None),
+                      ("llama-3.2-vision-90b", 30))
+# the context of real size each serve_cross config also serves with:
+# whisper's encoder length for one 30 s window of audio (1,500 frames,
+# arXiv:2212.04356); otherwise the config's cross_len (llama-vision's
+# 6,404 patches)
+CROSS_CONTEXT = {"whisper-medium": 1500}
+# timed calls of the real-context prefill and of the encoder alone
+CROSS_TIMED = 3
 # a config without attention also serves these prompts one at a time:
 # its state is O(1), so its bytes and decode time do not grow with them
 SSM_SOLO_PROMPTS = (1024, 32768)
@@ -689,7 +735,8 @@ def kernel_phase(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     results["flash_attention"] = flash_phase(torch, seed) \
         + flash_window_phase(torch, seed) \
-        + flash_phase(torch, seed, FLASH_JAMBA_SHAPES)
+        + flash_phase(torch, seed, FLASH_JAMBA_SHAPES) \
+        + flash_phase(torch, seed, FLASH_CROSS_SHAPES)
     results["flash_attention_bwd"] = bwd_phase(torch, seed)
     return results
 
@@ -2882,14 +2929,21 @@ def param_count(cfg) -> int:
     ``init_params`` makes them: per layer two norms, the mixer's leaves
     (attention's Q/K/V/O and QKV biases; mamba's w_in, w_bcdt, w_out,
     conv, a_log, dt_bias and d_skip; rwkv's five mu, six d x d matrices,
-    dec_bias, u and ln_x) and the FFN's (the gated MLP, or the router and
-    E gated experts); then embed, head and the final norm. The config's
-    ``n_params()`` is the reference's approximation: it leaves out the
-    norms, biases and routers, rwkv's w_dec, and counts mamba's w_bcdt as
-    di (2 ds + 2)."""
+    dec_bias, u and ln_x; a cross slot's Q/K/V/O; an encoder-decoder
+    config's cross sublayer, ln_x and xq..xo) and the FFN's (the gated
+    MLP, or the router and E gated experts); then embed, head and the
+    final norm, the learned position table, and an encoder's layers (two
+    norms, Q/K/V/O and the gated MLP each), its norm and its position
+    table. The config's ``n_params()`` is the reference's approximation:
+    it leaves out the norms, biases and routers, rwkv's w_dec, the cross
+    sublayer and the position tables, and counts mamba's w_bcdt as di
+    (2 ds + 2)."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mixer = {"attn": 2 * d * H * hd + 2 * d * KV * hd
-             + (H * hd + 2 * KV * hd if cfg.qkv_bias else 0)}
+    qkvo = 2 * d * H * hd + 2 * d * KV * hd
+    mixer = {"attn": qkvo + (H * hd + 2 * KV * hd if cfg.qkv_bias else 0)}
+    mixer["cross"] = mixer["attn"]
+    if cfg.is_encdec:       # the decoder's cross sublayer: ln_x, xq..xo
+        mixer["attn"] += d + qkvo
     if cfg.ssm is not None:
         s = cfg.ssm
         di = s.expand * d
@@ -2904,7 +2958,35 @@ def param_count(cfg) -> int:
             + 3 * cfg.moe.n_experts * d * cfg.d_ff
     per_period = sum(2 * d + mixer[k] + ffn[f]
                      for k, f in zip(cfg.slot_kinds(), cfg.ffn_kinds()))
-    return per_period * cfg.n_periods + 2 * cfg.vocab * d + d
+    total = per_period * cfg.n_periods + 2 * cfg.vocab * d + d
+    if cfg.learned_pos:
+        total += cfg.max_seq * d                    # pos
+    if cfg.is_encdec:       # per layer two norms, Q/K/V/O, the MLP; then
+        total += cfg.encoder_layers * (2 * d + qkvo + ffn["mlp"]) \
+            + d + cfg.max_seq * d                   # enc_norm, enc_pos
+    return total
+
+
+def cross_bytes(cache) -> int:
+    """Bytes of a decode cache's cross K/V (``models.lm.CROSS_KV``), which
+    every decode step reads whole."""
+    from repro_torch.models.lm import CROSS_KV
+
+    names = {name for pair in CROSS_KV for name in pair}
+    return sum(t.numel() * t.element_size()
+               for key, entry in cache.items()
+               if key.startswith("slot") and isinstance(entry, dict)
+               for name, t in entry.items() if name in names)
+
+
+def decode_weight_bytes(model) -> int:
+    """Bytes of the weights a decode step at B = 1 reads: every parameter
+    but the embedding and the learned position table (one row of each)
+    and the encoder's (it runs in the prefill only)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name not in ("embed", "pos", "enc_pos", "enc_norm")
+               and not name.startswith("encoder."))
 
 
 def cache_bytes(cache, ssm_only: bool = False) -> int:
@@ -2928,7 +3010,10 @@ def serve_model(torch, arch: str, layers, seed: int,
     at the published depth's init scale) through the serving path: built
     from the seed, two requests through ``Server`` (prefill on the flash
     kernel for its attention layers, a few decode steps), then the
-    prefill-vs-decode consistency check. A config with state-space slots
+    prefill-vs-decode consistency check. A config with an encoder or
+    cross slots serves the Server's stub context and then, in the check
+    and in ``cross_context``, a context of real size drawn from the seed
+    (CROSS_CONTEXT). A config with state-space slots
     also serves SSM_SOLO_PROMPTS one request at a time (their decode ms
     a token and the state's bytes after each prefill, equal whatever the
     prompt length for a config without attention), and holds the check
@@ -2947,8 +3032,8 @@ def serve_model(torch, arch: str, layers, seed: int,
     cfg = full if layers is None else first_layers(full, layers)
     W = cfg.sliding_window
     kinds = cfg.slot_kinds()
-    n_attn = kinds.count("attn") * cfg.n_periods
-    has_ssm = n_attn < cfg.n_layers
+    n_attn = self_attention_layers(cfg)
+    has_ssm = bool(set(kinds) & {"mamba", "rwkv"})
     solo = SSM_SOLO_PROMPTS if has_ssm and not n_attn else ()
     prompts = SERVE_MODELS_PROMPTS if not W else \
         (WINDOW_PROMPT,) + SERVE_MODELS_PROMPTS[1:]
@@ -2969,6 +3054,12 @@ def serve_model(torch, arch: str, layers, seed: int,
           f"not the config's {param_count(cfg)}")
     check(all(n % srv.attn_block == 0 for n in prompts + solo),
           "a prompt would take the pad path")
+    ctx = None
+    if model.needs_context:     # N(0, 1) frame or patch embeddings
+        ctx = torch.randn(
+            (1, CROSS_CONTEXT.get(arch, cfg.cross_len), cfg.d_model),
+            generator=torch.Generator(device=model.device).manual_seed(
+                seed), device=model.device).bfloat16()
     rng = np.random.default_rng(seed)
     reqs = [Request(i, rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                     SERVE_MODELS_NEW) for i, n in enumerate(prompts)]
@@ -2978,7 +3069,8 @@ def serve_model(torch, arch: str, layers, seed: int,
     def prefill_recorded(req):
         logits, cache = prefill_one(req)
         cached.append((len(req.prompt), cache_bytes(cache),
-                       cache_bytes(cache, ssm_only=True)))
+                       cache_bytes(cache, ssm_only=True),
+                       cross_bytes(cache)))
         return logits, cache
     srv._prefill_one = prefill_recorded
     build.reset_launches()
@@ -2986,25 +3078,25 @@ def serve_model(torch, arch: str, layers, seed: int,
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     flash = launches.get("flash_attention", 0)
-    want = n_attn * len(reqs)
+    want = attention_layers(cfg) * len(reqs)
     check(flash == want,
           f"{arch}: flash_attention launched {flash} times on the serve "
-          f"path, not {want} (attention layers x requests)")
+          f"path, not {want} (attention launches a prefill x requests)")
     check(all(len(r.out) == SERVE_MODELS_NEW and all(
         0 <= t < cfg.vocab for t in r.out) for r in done),
         f"{arch}: a generated token is out of range or a request is short")
     pre = srv.timings["prefill_s"]
     dec = srv.timings["decode_step_s"]
     n_dec = sum(len(r.out) for r in done) - len(reqs)
-    # a decode step at B = 1 reads every weight but the embedding table
-    # (one row of it; the MoE runs every expert over its capacity slots,
-    # as the reference does) and the cache's valid keys and values, and
-    # reads and writes the recurrent state
-    embed_bytes = model.embed.numel() * model.embed.element_size()
+    # a decode step at B = 1 reads every decoder weight (the MoE runs
+    # every expert over its capacity slots, as the reference does), the
+    # cache's valid keys and values and its cross K/V whole, and reads
+    # and writes the recurrent state
     kv_row = 2 * n_attn * cfg.n_kv_heads * cfg.hd * 2
     cached_pos = min(prompts[0], W) if W else prompts[0]
     state_bytes = cached[0][2]
-    read = param_bytes - embed_bytes + kv_row * cached_pos + 2 * state_bytes
+    read = decode_weight_bytes(model) + kv_row * cached_pos \
+        + 2 * state_bytes + cached[0][3]
     rec = {"arch": arch, "n_layers": cfg.n_layers,
            "published_layers": full.n_layers,
            "cut": None if layers is None else
@@ -3022,7 +3114,14 @@ def serve_model(torch, arch: str, layers, seed: int,
                "slots": sorted(set(kinds) - {"attn"}),
                "d_state": cfg.ssm.d_state, "head_dim": cfg.ssm.head_dim,
                "d_conv": cfg.ssm.d_conv, "expand": cfg.ssm.expand},
+           "cross": None if ctx is None else {
+               "encoder_layers": cfg.encoder_layers,
+               "cross_layers": kinds.count("cross") * cfg.n_periods,
+               "learned_pos": cfg.learned_pos,
+               "server_context": cfg.cross_len or 8,
+               "context": ctx.shape[1]},
            "attention_layers": n_attn,
+           "flash_per_prefill": attention_layers(cfg),
            "window": W, "params": n_params,
            "param_count": param_count(cfg),
            "n_params_formula": int(cfg.n_params()),
@@ -3035,7 +3134,7 @@ def serve_model(torch, arch: str, layers, seed: int,
            "prefill_tok_per_s": sum(prompts) / sum(pre),
            "decode_ms_per_token": sum(dec) / n_dec * 1e3,
            "state_bytes": state_bytes,
-           "cache_bytes": cached[0][1],
+           "cache_bytes": cached[0][1], "cross_bytes": cached[0][3],
            "decode_read_bytes": read,
            "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3}
 
@@ -3078,13 +3177,15 @@ def serve_model(torch, arch: str, layers, seed: int,
     def gap(tail, plant=None, own=False, length=n):
         l1, l2 = prefill_decode_logits(model, prompt[:, :length], tail,
                                        srv.attn_block, plant=plant,
-                                       fixed_routes=fixed and not own)
+                                       fixed_routes=fixed and not own,
+                                       ctx=ctx)
         return l1, l2, rel_gap(l1, l2)
     l1, l2, rel = gap(TAIL)
     finite = bool(torch.isfinite(l1).all() and torch.isfinite(l2).all())
     rec["consistency"] = {
         "prompt": n, "prefilled": n - TAIL, "decoded": TAIL,
         "fixed_routes": fixed,
+        "context": None if ctx is None else list(ctx.shape),
         "finite": finite, "max_abs_diff": float((l1 - l2).abs().max()),
         "logit_abs_max": float(l1.abs().max()), "rel_l2_diff": rel,
         "rel_l2_tol": SERVE_REL_TOL,
@@ -3142,12 +3243,105 @@ def serve_model(torch, arch: str, layers, seed: int,
             "is": "the reference's ring-buffer fault, kept for parity "
                   "(ROADMAP Queue 3): a prefill of S > W positions, S % W "
                   "!= 0, then decode; recorded, not held to a limit"}
+    if ctx is not None:
+        rec["real_context"] = cross_context(torch, model, prompt, ctx, l1,
+                                            seed, srv.attn_block)
     torch.cuda.synchronize()
     total = torch.cuda.get_device_properties(0).total_memory
     rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
                max_memory_reserved=torch.cuda.max_memory_reserved(),
                free_at_peak=total - torch.cuda.max_memory_reserved(),
                seconds=time.perf_counter() - t_all)
+    return rec
+
+
+def cross_context(torch, model, prompt, ctx, l1, seed: int,
+                  attn_block: int) -> dict:
+    """A config with an encoder or cross slots served with a context of
+    real size, ``ctx``: the prefill of the first SERVE_MODELS_PROMPTS
+    length (ms a call over CROSS_TIMED, whisper's encoder alone apart),
+    8 decode steps after it (ms each, beside the bound:
+    the decoder's weights, the valid KV and the cached cross K/V read
+    once), the cross cache's bytes, both under the profiler; then, at the
+    first decoded position, the clean gap and ``cross_faults`` (each
+    must exceed SERVE_REL_TOL), and the gap between ``l1``, the last
+    logits of ``prompt`` with ``ctx``, and those with another context
+    drawn from the seed, which must exceed it too."""
+    from repro_torch.benchmarks.serve_consistency import (
+        cross_faults, prefill_decode_logits, rel_gap)
+
+    cfg = model.cfg
+    n0 = SERVE_MODELS_PROMPTS[0]
+    cap = n0 + 8
+    other = torch.randn(ctx.shape, generator=torch.Generator(
+        device=model.device).manual_seed(seed + 1),
+        device=model.device).bfloat16()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CROSS_TIMED):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CROSS_TIMED * 1e3, out
+
+    def prefill():
+        return model.prefill(prompt[:, :n0], ctx, seq_cap=cap,
+                             attn_block=attn_block)
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms, (_, cache) = timed(prefill)
+    enc_ms = timed(lambda: model.encode(ctx))[0] if cfg.is_encdec \
+        else None
+    cross = cross_bytes(cache)
+
+    def decode8(ms=None):       # rewrites the same 8 positions each time
+        c = cache
+        for i in range(n0, n0 + 8):
+            t0 = time.perf_counter()
+            _, c = model.decode_step(prompt[:, i:i + 1], c)
+            if ms is not None:
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+    dec_ms = []
+    decode8(dec_ms)
+    peak = torch.cuda.max_memory_allocated()
+    kv_row = 2 * self_attention_layers(cfg) * cfg.n_kv_heads * cfg.hd * 2
+    read = decode_weight_bytes(model) + kv_row * n0 + cross
+    rec = {"context": list(ctx.shape), "prompt": n0,
+           "prefill_ms": pre_ms, "prefill_tok_per_s": n0 / pre_ms * 1e3,
+           "encoder_ms": enc_ms,
+           "decode_step_ms": dec_ms,
+           "decode_ms_per_token": sum(dec_ms) / len(dec_ms),
+           "decode_ms_median": sorted(dec_ms)[len(dec_ms) // 2],
+           "decode_read_bytes": read,
+           "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+           "cross_bytes": cross, "max_memory_allocated": peak,
+           "profile_prefill": device_profile(torch, prefill),
+           "profile_decode_8": device_profile(torch, decode8)}
+    del cache
+
+    m = n0 + 1                  # the first decoded position
+    first = rel_gap(*prefill_decode_logits(model, prompt[:, :m], 1,
+                                           attn_block, ctx=ctx))
+    faults = {name: rel_gap(*prefill_decode_logits(
+        model, prompt[:, :m], 1, attn_block, plant=plant, ctx=ctx))
+        for name, plant in cross_faults(model, prompt[:, :m], m - 1, other,
+                                        attn_block).items()}
+    l_other = model.prefill(prompt, other, seq_cap=prompt.shape[1],
+                            attn_block=attn_block)[0].float()
+    rec.update(first_step_prompt=m, first_step_rel_l2_diff=first,
+               cross_faults=faults, context_change_rel_l2_diff=rel_gap(
+                   l1, l_other), rel_l2_tol=SERVE_REL_TOL)
+    name = cfg.name
+    check(first <= SERVE_REL_TOL, f"{name}: prefill and decode logits "
+          f"differ at the first decoded position: {first}")
+    check(all(g > SERVE_REL_TOL for g in faults.values()),
+          f"{name}: a planted cross fault stays within the tolerance: "
+          f"{faults}")
+    check(rec["context_change_rel_l2_diff"] > SERVE_REL_TOL,
+          f"{name}: another context moves the logits by "
+          f"{rec['context_change_rel_l2_diff']} only")
     return rec
 
 
@@ -3173,8 +3367,20 @@ def serve_models_phase(torch, seed: int, models=SERVE_MODELS,
 # -------------------------------------------------------------------- train
 
 def attention_layers(cfg) -> int:
-    """Layers of ``cfg`` whose mixer is attention (its attention slots
-    times its periods): 0 for rwkv6, 1 in jamba's training cut."""
+    """Flash launches of one forward (a prefill) of ``cfg``: one per
+    attention layer, two in an encoder-decoder config's decoder layers
+    (self and cross), one per cross layer and one per encoder layer: 0
+    for rwkv6, 1 in jamba's training cut, 72 for whisper-medium and 30
+    for llama-3.2-vision-90b's first 30 layers."""
+    kinds = cfg.slot_kinds()
+    per_period = kinds.count("attn") * (2 if cfg.is_encdec else 1) \
+        + kinds.count("cross")
+    return per_period * cfg.n_periods + cfg.encoder_layers
+
+
+def self_attention_layers(cfg) -> int:
+    """Layers of ``cfg`` with causal self-attention (its attention slots
+    times its periods)."""
     return cfg.slot_kinds().count("attn") * cfg.n_periods
 
 
@@ -3182,7 +3388,8 @@ def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 N T for the dense work (N the
     parameters a token meets: an MoE's active ones), plus attention's over
     its unmasked pairs (under a sliding window, those inside it), 3.5 x
-    its forward (the backward is 2.5 x), on each attention layer. A remat
+    its forward (the backward is 2.5 x), on each self-attention layer
+    (the cross and encoder layers' pairs wait for their training). A remat
     step's recomputed forward is not model work and is not counted. The
     state-space mixers' own terms (the intra-chunk products and the
     state's updates, beyond their weights' 6 N T) are left out: at the
@@ -3193,7 +3400,8 @@ def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
     pairs = window_pairs(seq, seq, W) if W else \
         attention_pairs(seq, seq, True)
     fwd = 4.0 * batch * cfg.n_heads * cfg.hd * pairs
-    return 6.0 * n_params * batch * seq + 3.5 * fwd * attention_layers(cfg)
+    return 6.0 * n_params * batch * seq \
+        + 3.5 * fwd * self_attention_layers(cfg)
 
 
 def train_launches(cfg, steps: int) -> dict:
@@ -3212,23 +3420,26 @@ def published_init_scale(torch, model) -> None:
     """Take a depth-cut model's layer matrices to the published depth's
     init scale, in place: ``LM`` draws them at 1/sqrt(the cut's periods),
     the published model's first layers are drawn at 1/sqrt(its own)
-    (a one-layer cut would draw them at 1). The matrices with a fixed
-    scale (``FIXED_SCALE``) keep it. Each is scaled in float32 and
-    rounded to bf16, in slices, so that a 9.7 B-parameter expert stack
-    needs no float32 copy of its own."""
+    (a one-layer cut would draw them at 1); an encoder's matrices alike,
+    at 1/sqrt(its layers). The matrices with a fixed scale
+    (``FIXED_SCALE``) keep it. Each is scaled in float32 and rounded to
+    bf16, in slices, so that a 9.7 B-parameter expert stack needs no
+    float32 copy of its own."""
     from repro_torch.configs import get_config
 
     cfg = model.cfg
-    published = get_config(cfg.name).n_periods
-    if published == cfg.n_periods:
-        return
-    rescale = math.sqrt(cfg.n_periods / published)
+    published = get_config(cfg.name)
+    rescale = {"layers": math.sqrt(cfg.n_periods / published.n_periods)}
+    if cfg.is_encdec:
+        rescale["encoder"] = math.sqrt(cfg.encoder_layers
+                                       / published.encoder_layers)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if (name.startswith("layers.") and p.dim() >= 2
+            factor = rescale.get(name.split(".")[0], 1.0)
+            if (factor != 1.0 and p.dim() >= 2
                     and not name.endswith(FIXED_SCALE)):
                 for part in p.view(-1).split(1 << 26):
-                    part.copy_((part.float() * rescale).bfloat16())
+                    part.copy_((part.float() * factor).bfloat16())
 
 
 def leaf_gaps(torch, card: dict, cpu: dict, f32: dict) -> dict:
@@ -4148,6 +4359,13 @@ def main(argv=None) -> int:
         phase("serve_ssm", seconds=ssm["seconds"],
               flash_launches=ssm["flash_launches"],
               archs=[m["arch"] for m in ssm["models"]])
+        cross = serve_models_phase(torch, args.seed, SERVE_CROSS_MODELS,
+                                   published_scale=True,
+                                   name="serve_cross_model")
+        record["serve_cross"] = cross
+        phase("serve_cross", seconds=cross["seconds"],
+              flash_launches=cross["flash_launches"],
+              archs=[m["arch"] for m in cross["models"]])
         trained = train_phase(torch, args.seed)
         record["train"] = trained
         phase("train", **{k: v for k, v in trained.items()
@@ -4173,10 +4391,12 @@ def main(argv=None) -> int:
     launches = {k: sum(r["launches"][k] for r in runs + flows + doors
                        + tiers + list(examples.values()))
                 for k in build.VCS_SOURCES}
-    # attention: the serve windows' (jamba's attention layer among them)
+    # attention: the serve windows' (jamba's attention layer, whisper's
+    # encoder and cross sublayers, llama-vision's cross layers among them)
     # and the train windows'
     launches["flash_attention"] = serve["flash_launches"] \
         + models["flash_launches"] + ssm["flash_launches"] \
+        + cross["flash_launches"] \
         + trained["launches"]["flash_attention"] \
         + models_trained["flash_launches"]
     launches["flash_attention_bwd"] = trained["launches"][

@@ -38,6 +38,14 @@ clamp, exp(-0.25) = 0.78 a position, and mamba's near exp(-0.3), so a
 fault planted TAIL positions before the compared logits has faded (to
 0.78^32 = 3.5e-4 of its size); ``chip_smoke.py`` holds these faults one
 decoded position after the prefill.
+
+A config with an encoder or cross slots (whisper, llama-vision) takes a
+context in both prefills (``ctx``); its decode reads the cross K/V that
+the prefill cached and never the context. ``cross_faults`` plant in
+those: one layer's zeroed, or every layer's from another context's
+prefill, which only a decode that reads the cache its prefill filled
+can tell apart (the Server's zero context cannot: a context of zeros
+gives K = V = 0 in a cross slot without biases).
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ import torch
 
 from ..configs import get_config
 from ..models import routes as route_hooks
-from ..models.lm import LM
+from ..models.lm import CROSS_KV, LM
 
 ARCH = "qwen1.5-0.5b"
 TAIL = 32
@@ -58,8 +66,10 @@ SEEDS = 3
 
 
 def _attn_slots(cache):
+    # self-attention entries: a cross slot's ck/cv hold no positions
     return [kv for key, kv in cache.items()
-            if key.startswith("slot") and isinstance(kv, dict)]
+            if key.startswith("slot") and isinstance(kv, dict)
+            and "k" in kv]
 
 
 def _lose_last_slot(cache):
@@ -122,19 +132,52 @@ def ssm_faults(model: LM, prompt: torch.Tensor, prefilled: int,
                                        attn_block)}
 
 
+def _cross_kv(cache):
+    """(slot, k name, v name) of every cross K/V entry of a cache, in slot
+    order: an encoder-decoder attention slot's xk/xv, a cross slot's
+    ck/cv."""
+    return [(key, k, v) for key, entry in cache.items()
+            if key.startswith("slot") and isinstance(entry, dict)
+            for k, v in CROSS_KV if k in entry]
+
+
+def cross_faults(model: LM, prompt: torch.Tensor, prefilled: int,
+                 other_ctx: torch.Tensor, attn_block: int = 32):
+    """Faults that a cache's cross K/V can hold, for a prefill of
+    ``prefilled`` positions of ``prompt``: ``cross_zeroed``, the first
+    cross layer's K and V zeroed (the first period of the first slot
+    that holds them); ``cross_swapped``, every layer's cross K/V those of
+    the same prefill with ``other_ctx``, which runs here, before any
+    route replay starts."""
+    _, other = model.prefill(prompt[:, :prefilled], other_ctx,
+                             seq_cap=prefilled, attn_block=attn_block)
+
+    def zero(cache):
+        key, k, v = _cross_kv(cache)[0]
+        cache[key][k][0].zero_()
+        cache[key][v][0].zero_()
+
+    def swap(cache):
+        for key, k, v in _cross_kv(cache):
+            cache[key][k].copy_(other[key][k])
+            cache[key][v].copy_(other[key][v])
+    return {"cross_zeroed": zero, "cross_swapped": swap}
+
+
 def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
                           attn_block: int = 32, plant=None,
-                          fixed_routes: bool = False):
+                          fixed_routes: bool = False, ctx=None):
     """(L1, L2) float32 last logits of ``prompt`` (1, n): whole prefill,
     and prefill of n - tail positions plus ``tail`` decode steps, with
     ``plant(cache)`` applied to that prefill's cache first when given.
     ``fixed_routes`` (MoE models): L2 replays the routes of L1's prefill
-    (see the module's docstring)."""
+    (see the module's docstring). ``ctx``: the context of a config with
+    an encoder or cross slots, given to both prefills."""
     n = prompt.shape[1]
     routes: list = []
     with route_hooks.calls(routes) if fixed_routes \
             else contextlib.nullcontext():
-        l1, _ = model.prefill(prompt, seq_cap=n, attn_block=attn_block)
+        l1, _ = model.prefill(prompt, ctx, seq_cap=n, attn_block=attn_block)
     replay = contextlib.nullcontext()
     if fixed_routes:
         # calls run MoE layer by MoE layer, each over its chunks in order
@@ -146,7 +189,7 @@ def prefill_decode_logits(model: LM, prompt: torch.Tensor, tail: int,
                   for i in range(n_layers)]
         replay = route_hooks.served(routes, n_layers, n - tail)
     with replay:
-        l2, cache = model.prefill(prompt[:, :n - tail], seq_cap=n + 1,
+        l2, cache = model.prefill(prompt[:, :n - tail], ctx, seq_cap=n + 1,
                                   attn_block=attn_block)
         if plant is not None:
             plant(cache)

@@ -116,6 +116,16 @@ class ArchConfig:
         total += 2 * self.vocab * d  # embed + lm head
         return float(total)
 
+    def n_params_encoder(self) -> float:
+        """Encoder-stack params only (enc-dec archs): the reference's
+        formula, without the encoder's norms."""
+        if not self.is_encdec:
+            return 0.0
+        d, hd = self.d_model, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        return float(self.encoder_layers * (attn + 3 * d * self.d_ff))
+
     def n_params_active(self) -> float:
         """Active params per token (MoE: top_k of n_experts)."""
         if not self.moe:

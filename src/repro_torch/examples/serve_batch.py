@@ -1,7 +1,9 @@
 """Batched serving with continuous batching: reduced mixtral, with its MoE
 FFN and its sliding window (the port of ``examples/serve_batch.py``), or
 another reduced config (``--arch``: rwkv6-7b's recurrent layers,
-jamba-1.5-large-398b's mamba, attention and MoE layers).
+jamba-1.5-large-398b's mamba, attention and MoE layers, whisper-medium's
+encoder and cross sublayers, llama-3.2-vision-90b's cross layers, the
+last two over the server's stub context).
 
 Ten requests of 8-31 prompt tokens and 24 new tokens each through a
 4-slot server; prompts are padded to the 16-token attention block, so

@@ -6,12 +6,18 @@ layers), then decodes in lockstep; a slot whose request finishes is
 immediately refilled from the queue (continuous batching). Prefill
 attention runs the flash kernel on the card.
 
+A config with an encoder or cross slots (whisper-medium,
+llama-3.2-vision-90b) gets the reference's stub context with every
+request: ``cross_len`` zero patch embeddings, or 8 zero frames for
+whisper, in bf16 (ROADMAP Queue 3: a served request attends zeros).
+
 Usage, on the card at the published widths (``--layers`` cuts the depth
 to the stack's first layers: jamba-1.5-large-398b does not fit one card
-whole, ``--layers 5`` does):
+whole, ``--layers 5`` does; llama-3.2-vision-90b ``--layers 30``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --requests 8 --max-new 32
   ... --arch jamba-1.5-large-398b --layers 5
+  ... --arch whisper-medium
 and on the CPU at the reduced widths (``--device cpu``: the reduced
 configs' head dim 16 has no kernel instance, so the card takes the
 published widths only).
@@ -77,6 +83,12 @@ class Server:
     def _prefill_one(self, req: Request):
         toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                device=self.device)[None]
+        ctx = None
+        if self.model.needs_context:
+            # the reference's stub: zeros, bf16, cross_len positions or 8
+            ctx = torch.zeros((1, self.cfg.cross_len or 8,
+                               self.cfg.d_model), dtype=torch.bfloat16,
+                              device=self.device)
         # The reference pads with token 0 and returns the logits of the
         # last (pad) position; parity keeps that (ROADMAP Queue 3). A
         # mamba or rwkv layer's state then holds the pad tokens too, and
@@ -84,7 +96,7 @@ class Server:
         pad = (-toks.shape[1]) % self.attn_block
         if pad:
             toks = F.pad(toks, (0, pad))
-        logits, cache = self.model.prefill(toks, seq_cap=self.seq_cap,
+        logits, cache = self.model.prefill(toks, ctx, seq_cap=self.seq_cap,
                                            attn_block=self.attn_block)
         if pad:  # position counter must reflect the unpadded prompt
             cache["len"] -= pad

@@ -9,7 +9,11 @@ slot holds is carried by name, so the MoE's ``router`` (P, d, E) and
 ``moe_w1``/``moe_w3``/``moe_w2`` (P, E, d, d_ff) / (P, E, d_ff, d) go
 both ways as the dense leaves do, and so do a mamba or rwkv slot's
 leaves, each in its own dtype (the float32 ones stay float32 beside
-bf16 matrices).
+bf16 matrices), a cross slot's, and the cross sublayer's ``ln_x``,
+``xq``..``xo``. An encoder-decoder config's ``encoder`` tree is split
+over its own stacked axis of ``encoder_layers`` (encoder layer ``e`` is
+``encoder.e.<name>``), and the learned positions ``pos``/``enc_pos`` and
+``enc_norm`` are top-level leaves like ``embed``.
 
 The way back, :func:`stack_tree` (tensors) and :func:`params_to_numpy`,
 rebuilds the reference's stacked tree from any dict keyed like the state
@@ -27,8 +31,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..optim import OptState
 
-#: the top-level leaves of the tree (every other leaf is a layer's)
-TOP = ("embed", "final_norm", "lm_head")
+#: the top-level leaves a tree may hold (every other leaf is a layer's
+#: or an encoder layer's, stacked in the reference's tree)
+TOP = ("embed", "final_norm", "lm_head", "pos", "enc_pos", "enc_norm")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -45,44 +50,58 @@ def _tensor(a) -> torch.Tensor:
 def unstack_tree(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
     """The reference's nested, period-stacked tree (tensor leaves) -> a
     dict keyed like :class:`LM`'s state dict (views of the leaves)."""
-    sd = {name: tree[name] for name in TOP}
+    sd = {name: tree[name] for name in TOP if name in tree}
     for i in range(cfg.period):
         for name, stacked in tree["blocks"][f"slot{i}"].items():
             for p in range(cfg.n_periods):
                 sd[f"layers.{p * cfg.period + i}.{name}"] = stacked[p]
+    for name, stacked in tree.get("encoder", {}).items():
+        for e in range(cfg.encoder_layers):
+            sd[f"encoder.{e}.{name}"] = stacked[e]
     return sd
 
 
 def stacked_ndim(name: str, t: torch.Tensor) -> int:
     """Dimensions of the leaf ``name`` of a state dict in the reference's
-    tree, where every layer leaf carries the period axis: the reference's
-    ndim rules (weight decay, the injected fault) read this."""
+    tree, where every layer leaf carries the period axis and every
+    encoder leaf the encoder's: the reference's ndim rules (weight
+    decay, the injected fault) read this."""
     return t.dim() + (0 if name in TOP else 1)
 
 
 def stack_tree(cfg: ArchConfig, flat: Dict[str, torch.Tensor]) -> Dict:
     """A dict keyed like :class:`LM`'s state dict -> the reference's
     nested tree: top-level leaves as they are, each layer leaf stacked
-    over the periods of its slot (new tensors)."""
-    tree: Dict = {name: flat[name] for name in TOP}
-    blocks: Dict = {}
-    for i in range(cfg.period):
-        names = sorted({k.split(".", 2)[2] for k in flat
-                        if k.startswith(f"layers.{i}.")})
-        blocks[f"slot{i}"] = {
-            name: torch.stack([flat[f"layers.{p * cfg.period + i}.{name}"]
-                               for p in range(cfg.n_periods)])
-            for name in names}
-    tree["blocks"] = blocks
+    over the periods of its slot and each encoder leaf over the encoder's
+    layers (new tensors)."""
+    tree: Dict = {name: flat[name] for name in TOP if name in flat}
+    tree["blocks"] = {
+        f"slot{i}": _stack(flat, [f"layers.{p * cfg.period + i}"
+                                  for p in range(cfg.n_periods)])
+        for i in range(cfg.period)}
+    if cfg.is_encdec:
+        tree["encoder"] = _stack(flat, [f"encoder.{e}"
+                                        for e in range(cfg.encoder_layers)])
     return tree
+
+
+def _stack(flat: Dict[str, torch.Tensor], rows) -> Dict:
+    """Each leaf under the state-dict prefixes ``rows`` (one per row of
+    the stacked axis, in order), stacked."""
+    first = rows[0] + "."
+    names = sorted(k[len(first):] for k in flat if k.startswith(first))
+    return {name: torch.stack([flat[f"{row}.{name}"] for row in rows])
+            for name in names}
 
 
 def params_from_numpy(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
     sd = unstack_tree(cfg, {
-        **{name: _tensor(tree[name]) for name in TOP},
+        **{name: _tensor(tree[name]) for name in TOP if name in tree},
         "blocks": {slot: {name: _tensor(leaf) for name, leaf in sp.items()}
                    for slot, sp in tree["blocks"].items()
-                   if int(slot[4:]) < cfg.period}})
+                   if int(slot[4:]) < cfg.period},
+        "encoder": {name: _tensor(leaf)
+                    for name, leaf in tree.get("encoder", {}).items()}})
     return {k: v.clone() for k, v in sd.items()}   # each owns its memory
 
 
@@ -98,10 +117,13 @@ def params_to_numpy(cfg: ArchConfig, flat: Dict[str, torch.Tensor]) -> Dict:
     leaf. numpy has no bfloat16 of its own: a bf16 leaf comes back as its
     uint16 bits (``.view(jnp.bfloat16)`` gives the reference's dtype)."""
     tree = stack_tree(cfg, flat)
-    out: Dict = {name: _numpy(tree[name]) for name in TOP}
+    out: Dict = {name: _numpy(tree[name]) for name in TOP if name in tree}
     out["blocks"] = {slot: {name: _numpy(leaf)
                             for name, leaf in sp.items()}
                      for slot, sp in tree["blocks"].items()}
+    if "encoder" in tree:
+        out["encoder"] = {name: _numpy(leaf)
+                          for name, leaf in tree["encoder"].items()}
     return out
 
 

@@ -1,26 +1,42 @@
-"""Decoder LM of the port: attention, Mamba or RWKV6 mixers, each with a
-gated-MLP or top-k MoE FFN, attention dense or in a sliding window.
+"""The LM of the port: a decoder of attention, cross-attention, Mamba or
+RWKV6 mixers, each with a gated-MLP or top-k MoE FFN, attention dense or
+in a sliding window; and, for an encoder-decoder config (whisper), a
+non-causal encoder whose output every decoder layer attends.
 
-Counterpart of ``repro.models.lm`` for configs whose slots are ``attn``,
-``mamba`` or ``rwkv`` (cross-attention, an encoder and learned positions
-raise ``NotImplementedError``). Layers are a ``ModuleList`` run in a
-Python loop in place of the reference's ``lax.scan`` over stacked
-periods; layer ``l`` is period ``l // period``, slot ``l % period`` of the
-reference's parameter tree. The mixers of the state-space slots are
+Counterpart of ``repro.models.lm`` for every slot kind it has: ``attn``,
+``cross``, ``mamba`` and ``rwkv``, with learned absolute positions where
+the config asks. Layers are a ``ModuleList`` run in a Python loop in
+place of the reference's ``lax.scan`` over stacked periods; layer ``l``
+is period ``l // period``, slot ``l % period`` of the reference's
+parameter tree, and encoder layer ``e`` is row ``e`` of its stacked
+``encoder`` tree. The mixers of the state-space slots are
 ``models.ssm``'s.
 
 Entry points (the reference's, as methods):
   LM(cfg, device=None, generator=None)   -> weights drawn from a seed
-  forward(tokens, remat=False)           -> logits (B, S, V)
+  forward(tokens, ctx=None, remat=False) -> logits (B, S, V)
   loss_fn(model, batch, remat=False)     -> scalar loss (a function)
-  init_cache(B, seq_cap)                 -> zero decode cache
-  prefill(tokens, seq_cap=...)           -> (last_logits (B, V), cache)
+  init_cache(B, seq_cap, ctx_len=0)      -> zero decode cache
+  prefill(tokens, ctx=None, seq_cap=...) -> (last_logits (B, V), cache)
   decode_step(token, cache)              -> (logits (B, V), cache)
+  encode(frames)                         -> the encoder's output
+
+``ctx`` (B, L, d_model) is the stub frontend's output, as in the
+reference: whisper's frame embeddings, which the encoder runs over, or
+the patch embeddings a ``cross`` slot attends. A config with either
+raises ``ValueError`` without one. The context is cast to the model's
+dtype first (the reference's einsums promote a bf16 context against
+float32 weights, which is the same values; ``torch.matmul`` takes one
+dtype).
 
 The cache has the reference's layout: ``{"len": n, "slot<i>": ...}``. An
 attention slot holds ``{"k", "v"}`` of shape (P, B, cap, KV, hd) in the
 model dtype, ``cap`` being ``seq_cap``, or min(``seq_cap``, W) under a
-sliding window W, where the cache is a ring. A state-space slot holds
+sliding window W, where the cache is a ring; in an encoder-decoder
+config also the cross sublayer's ``{"xk", "xv"}``, (P, B, L, KV, hd). A
+``cross`` slot holds ``{"ck", "cv"}``, (P, B, L, KV, hd). The cross K/V
+are filled at prefill from the context and only read by decode. A
+state-space slot holds
 the tuple of its layers' final states, stacked over the periods: mamba
 (conv (P, B, d_conv-1, di) in the model dtype, ssm (P, B, nh, ds, hp)
 float32), rwkv (shift (P, B, 1, d) in the model dtype, wkv (P, B, H, hd,
@@ -65,21 +81,21 @@ BF16 = torch.bfloat16
 SSM_KINDS = ("mamba", "rwkv")
 #: an rwkv layer's token-shift mixing coefficients
 RWKV_MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
+#: a cache's cross K/V entries, (K, V) pairs: an encoder-decoder
+#: attention slot's, a cross slot's
+CROSS_KV = (("xk", "xv"), ("ck", "cv"))
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     """Raise unless the port's LM runs ``cfg``: attention (dense or
-    windowed), mamba and rwkv slots with MLP or MoE FFNs, rotary or no
-    positions."""
-    if (not set(cfg.slot_kinds()) <= {"attn", *SSM_KINDS}
-            or not set(cfg.ffn_kinds()) <= {"mlp", "moe"}
-            or cfg.is_encdec or cfg.cross_len or cfg.learned_pos):
+    windowed), cross-attention, mamba and rwkv slots with MLP or MoE
+    FFNs."""
+    if (not set(cfg.slot_kinds()) <= {"attn", "cross", *SSM_KINDS}
+            or not set(cfg.ffn_kinds()) <= {"mlp", "moe"}):
         raise NotImplementedError(
-            f"{cfg.name}: the port's LM runs attention, mamba and rwkv "
+            f"{cfg.name}: the port's LM runs attn, cross, mamba and rwkv "
             f"layers with MLP or MoE FFNs only (slots {cfg.slot_kinds()}, "
-            f"ffn {cfg.ffn_kinds()}, encoder layers {cfg.encoder_layers}, "
-            f"cross {cfg.cross_len}, learned positions {cfg.learned_pos}); "
-            f"see ROADMAP Queue 1")
+            f"ffn {cfg.ffn_kinds()})")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -87,10 +103,15 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Layer(nn.Module):
-    """One mixer + FFN layer: the mixer ``kind`` "attn", "mamba" or
-    "rwkv", the FFN ``ffn`` "mlp" or "moe". Its weights carry the
+    """One mixer + FFN layer: the mixer ``kind`` "attn", "cross", "mamba"
+    or "rwkv", the FFN ``ffn`` "mlp" or "moe". Its weights carry the
     reference's slot key names and shapes (``wq`` is (d, H*hd):
     activations multiply from the left, as in the reference's einsums;
+    a "cross" layer's ``wk``/``wv`` project the context; an "attn" layer
+    of an encoder-decoder config also holds the cross sublayer's
+    ``ln_x`` (d,) and ``xq``/``xk``/``xv`` (d, H*hd or KV*hd), ``xo``
+    (H*hd, d), unless it is an ``encoder`` layer, which has no biases
+    either;
     the MoE's ``router`` is (d, E), ``moe_w1``/``moe_w3`` (E, d, d_ff),
     ``moe_w2`` (E, d_ff, d)). A mamba layer holds ``w_in`` (d, 2 di),
     ``w_bcdt`` (d, 2 ds + nh), ``w_out`` (di, d), ``conv`` (d_conv, di)
@@ -99,7 +120,8 @@ class Layer(nn.Module):
     ``w_v``/``w_g``/``w_dec``/``w_o`` (d, d), ``ln_x`` (d,) and, in
     float32, ``dec_bias`` (d,) and ``u`` (H, hd)."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, ffn: str, dense, full):
+    def __init__(self, cfg: ArchConfig, kind: str, ffn: str, dense, full,
+                 encoder: bool = False):
         super().__init__()
         d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
         self.kind = kind
@@ -108,16 +130,25 @@ class Layer(nn.Module):
         self.moe = cfg.moe if ffn == "moe" else None
         self.ln1, self.ln2 = full(d, 1.0), full(d, 1.0)
         self.qkv_bias = False
-        if kind == "attn":
+        self.cross_sublayer = False
+        if kind in ("attn", "cross"):
             self.wq = dense((d, H * hd))
             self.wk = dense((d, KV * hd))
             self.wv = dense((d, KV * hd))
             self.wo = dense((H * hd, d))
-            self.qkv_bias = cfg.qkv_bias
-            if cfg.qkv_bias:
+            self.qkv_bias = cfg.qkv_bias and not encoder
+            if self.qkv_bias:
                 self.bq, self.bk, self.bv = (full(H * hd, 0.0),
                                              full(KV * hd, 0.0),
                                              full(KV * hd, 0.0))
+            self.cross_sublayer = (kind == "attn" and cfg.is_encdec
+                                   and not encoder)
+            if self.cross_sublayer:
+                self.ln_x = full(d, 1.0)
+                self.xq = dense((d, H * hd))
+                self.xk = dense((d, KV * hd))
+                self.xv = dense((d, KV * hd))
+                self.xo = dense((H * hd, d))
         elif kind == "mamba":
             s = cfg.ssm
             di = s.expand * d
@@ -151,15 +182,34 @@ class Layer(nn.Module):
             self.w3 = dense((d, cfg.d_ff))
             self.w2 = dense((cfg.d_ff, d))
 
+    def q(self, h: torch.Tensor, cross: bool = False):
+        """(B,S,d) -> q (B,S,H,hd): ``wq`` and its bias, or the cross
+        sublayer's ``xq`` (no bias, as in the reference)."""
+        B, S, _ = h.shape
+        H, _, hd = self.shape
+        if cross:
+            return (h @ self.xq).reshape(B, S, H, hd)
+        q = h @ self.wq
+        if self.qkv_bias:
+            q = q + self.bq
+        return q.reshape(B, S, H, hd)
+
+    def kv(self, src: torch.Tensor, cross: bool = False):
+        """(B,L,d) -> k and v (B,L,KV,hd): ``wk``/``wv`` and their
+        biases, or the cross sublayer's ``xk``/``xv``."""
+        B, L, _ = src.shape
+        _, KV, hd = self.shape
+        if cross:
+            k, v = src @ self.xk, src @ self.xv
+        else:
+            k, v = src @ self.wk, src @ self.wv
+            if self.qkv_bias:
+                k, v = k + self.bk, v + self.bv
+        return k.reshape(B, L, KV, hd), v.reshape(B, L, KV, hd)
+
     def qkv(self, h: torch.Tensor):
         """(B,S,d) -> q (B,S,H,hd), k and v (B,S,KV,hd)."""
-        B, S, _ = h.shape
-        H, KV, hd = self.shape
-        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
-        if self.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-                v.reshape(B, S, KV, hd))
+        return (self.q(h), *self.kv(h))
 
     def mix(self, h: torch.Tensor, state=None, *, decode: bool = False):
         """A state-space layer's mixer over h (B,S,d) from ``state`` (None:
@@ -188,23 +238,31 @@ class Layer(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM on ``device`` (``None``: the card, which must be there;
+    """LM on ``device`` (``None``: the card, which must be there;
     ``"cpu"`` only when asked).
 
     Weights have the reference's shapes and scales (``init_params``):
-    embed, head and MoE router N(0, 0.02²), norms one, QKV biases zero,
-    a mamba conv N(0, 0.5²), an rwkv decay matrix N(0, 0.01²), every
-    other matrix (the experts' too) N(0, 1/P) with P = ``cfg.n_periods``
-    (the reference's ``_dense`` takes the leading, stacked period axis as
-    its fan-in), rounded to bf16 and then cast to ``cfg.dtype``; the
-    state-space constants as the reference sets them (mamba ``a_log`` 0,
-    ``dt_bias`` -1, ``d_skip`` 1; rwkv ``mu_*`` 0.5, ``dec_bias`` 0.5, ``u``
-    0), float32 where the reference keeps them in float32. Random leaves
-    are drawn on ``generator``'s device (default: a generator on
-    ``device`` seeded 0), one after another in the layers' order, so a
-    CPU generator gives the same weights on every device (the reference
-    keys rwkv's r/k/v/g matrices by ``hash(name) % 20``, which Python
-    salts per process: ROADMAP Queue 3).
+    embed, head, MoE router and the learned position tables ``pos`` and
+    ``enc_pos`` (max_seq, d) N(0, 0.02²), norms one, QKV biases zero, a
+    mamba conv N(0, 0.5²), an rwkv decay matrix N(0, 0.01²), every other
+    layer matrix (the experts' and the cross sublayer's too) N(0, 1/P)
+    with P = ``cfg.n_periods`` (the reference's ``_dense`` takes the
+    leading, stacked period axis as its fan-in), the encoder's N(0, 1/E)
+    with E = ``cfg.encoder_layers`` (its stacked axis), rounded to bf16
+    and then cast to ``cfg.dtype``; the state-space constants as the
+    reference sets them (mamba ``a_log`` 0, ``dt_bias`` -1, ``d_skip`` 1;
+    rwkv ``mu_*`` 0.5, ``dec_bias`` 0.5, ``u`` 0), float32 where the
+    reference keeps them in float32. Random leaves are drawn on
+    ``generator``'s device (default: a generator on ``device`` seeded 0),
+    one after another: embed, head, the layers in order, ``pos``, the
+    encoder's layers, ``enc_pos``; so a CPU generator gives the same
+    weights on every device. The reference keys some leaves alike, and
+    the port draws each apart (ROADMAP Queue 3): rwkv's r/k/v/g matrices
+    by ``hash(name) % 20``, which Python salts per process; and in the
+    encoder wq and wk from one key, wv and wo from another, w1, w3 and
+    w2 from a third, and ``pos`` and ``enc_pos`` from one key, so that
+    ``w1 == w3`` and ``pos == enc_pos`` there (and ``wk == wq``, ``wo ==
+    wv`` where KV = H and d = H * hd).
     """
 
     def __init__(self, cfg: ArchConfig, device=None,
@@ -236,18 +294,73 @@ class LM(nn.Module):
             Layer(cfg, kinds[i % cfg.period], ffns[i % cfg.period], dense,
                   full)
             for i in range(cfg.n_layers))
+        if cfg.learned_pos:
+            self.pos = dense((cfg.max_seq, cfg.d_model), 0.02)
+        if cfg.is_encdec:
+            enc_scale = 1.0 / math.sqrt(cfg.encoder_layers)
+
+            def enc_dense(shape):
+                return dense(shape, enc_scale)
+            self.encoder = nn.ModuleList(
+                Layer(cfg, "attn", "mlp", enc_dense, full, encoder=True)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = full(cfg.d_model, 1.0)
+            self.enc_pos = dense((cfg.max_seq, cfg.d_model), 0.02)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def needs_context(self) -> bool:
+        """Whether the forward reads a context: an encoder or a cross
+        slot."""
+        return self.cfg.is_encdec or "cross" in self.cfg.slot_kinds()
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_encoder``: frames (B, S, d) plus ``enc_pos``,
+        then per encoder layer a norm, all-pairs self-attention (the
+        kernel's block default, 1024, as the reference passes none), a
+        norm and the gated MLP; then ``enc_norm``."""
+        cfg = self.cfg
+        B, S, _ = frames.shape
+        x = frames.to(self.dtype) + self.enc_pos[:S]
+        for layer in self.encoder:
+            q, k, v = layer.qkv(rms_norm(x, layer.ln1, cfg.norm_eps))
+            a = block_causal_attention(q, k, v, causal=False)
+            x = x + a.reshape(B, S, -1) @ layer.wo
+            x = x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))[0]
+        return rms_norm(x, self.enc_norm, cfg.norm_eps)
+
+    def _context(self, ctx: Optional[torch.Tensor], batch: int):
+        """What the cross layers attend: None for a config without them;
+        else ``ctx`` (B, L, d) in the model dtype, through the encoder for
+        an encoder-decoder config. Raises ``ValueError`` on a missing
+        context or one of another batch or width."""
+        cfg = self.cfg
+        if not self.needs_context:
+            return None
+        if ctx is None:
+            raise ValueError(f"{cfg.name}: its cross-attention needs a "
+                             f"context (B, L, {cfg.d_model}): frame or "
+                             f"patch embeddings")
+        if ctx.dim() != 3 or ctx.shape[0] != batch \
+                or ctx.shape[2] != cfg.d_model:
+            raise ValueError(f"{cfg.name}: context {tuple(ctx.shape)} is "
+                             f"not ({batch}, L, {cfg.d_model})")
+        ctx = ctx.to(self.dtype)
+        return self.encode(ctx) if cfg.is_encdec else ctx
+
     def _period(self, x: torch.Tensor, aux: torch.Tensor, layers,
                 positions: torch.Tensor, attn_block: int,
+                ctx: Optional[torch.Tensor] = None,
                 states: Optional[list] = None):
         """One period's ``layers`` over the full sequence (the body of the
         reference's ``period``): returns x and aux with its layers added.
+        ``ctx`` is what the cross layers attend (:meth:`_context`).
         ``states``, when given, gets each layer's cache entry in order: an
-        attention layer's (k, v), a state-space layer's final state (each
+        attention layer's dict of k, v (and the cross sublayer's xk, xv),
+        a cross layer's ck, cv, a state-space layer's final state (each
         layer starts from a zero state, as in the reference)."""
         cfg = self.cfg
         B, S, _ = x.shape
@@ -262,7 +375,22 @@ class LM(nn.Module):
                                            window=cfg.sliding_window,
                                            block=attn_block)
                 x = x + a.reshape(B, S, -1) @ layer.wo
-                state = (k, v)
+                state = {"k": k, "v": v}
+                if layer.cross_sublayer:  # after self-attention, normed
+                    hx = rms_norm(x, layer.ln_x, cfg.norm_eps)
+                    kx, vx = layer.kv(ctx, cross=True)
+                    a = block_causal_attention(layer.q(hx, cross=True), kx,
+                                               vx, causal=False,
+                                               block=attn_block)
+                    x = x + a.reshape(B, S, -1) @ layer.xo
+                    state.update(xk=kx, xv=vx)
+            elif layer.kind == "cross":
+                # k/v from the raw context: no norm, no rope
+                k, v = layer.kv(ctx)
+                a = block_causal_attention(layer.q(h), k, v, causal=False,
+                                           block=attn_block)
+                x = x + a.reshape(B, S, -1) @ layer.wo
+                state = {"ck": k, "cv": v}
             else:
                 y, state = layer.mix(h)
                 x = x + y
@@ -275,36 +403,45 @@ class LM(nn.Module):
         return x, aux
 
     def _trunk(self, tokens: torch.Tensor, attn_block: int,
-               states: Optional[list] = None, remat: bool = False):
-        """Embed, every period over the full sequence, final norm. Returns
-        the hidden states and the sum of the MoE layers' aux losses
-        (float32, 0 without MoE). ``remat`` keeps only each period's
-        input and recomputes its layers in the backward, as the
+               states: Optional[list] = None, remat: bool = False,
+               ctx: Optional[torch.Tensor] = None):
+        """Embed (plus the learned positions), the context
+        (:meth:`_context`), every period over the full sequence, final
+        norm. Returns the hidden states and the sum of the MoE layers' aux
+        losses (float32, 0 without MoE). ``remat`` keeps only each
+        period's input and recomputes its layers in the backward, as the
         reference's ``jax.checkpoint(period)``."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed[tokens].to(self.dtype)
+        if cfg.learned_pos:
+            x = x + self.pos[:S]
+        ctx = self._context(ctx, B)
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for p0 in range(0, len(self.layers), cfg.period):
             layers = self.layers[p0:p0 + cfg.period]
             if remat:
                 x, aux = checkpoint(self._period, x, aux, layers, positions,
-                                    attn_block, use_reentrant=False)
+                                    attn_block, ctx, use_reentrant=False)
             else:
                 x, aux = self._period(x, aux, layers, positions, attn_block,
-                                      states)
+                                      ctx, states)
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
-    def forward(self, tokens: torch.Tensor, *, attn_block: int = 1024,
-                return_aux: bool = False, remat: bool = False):
+    def forward(self, tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None, *,
+                attn_block: int = 1024, return_aux: bool = False,
+                remat: bool = False):
         """tokens (B, S) integer -> logits (B, S, V); with ``return_aux``
         (logits, aux), ``aux`` the MoE load-balance loss summed over the
         layers (float32 scalar), as the reference's ``forward`` returns.
-        ``remat`` recomputes each period's layers in the backward instead
-        of keeping their activations (the reference's ``remat``): the
-        same loss and gradients, bit for bit, for less memory."""
-        x, aux = self._trunk(tokens, attn_block, remat=remat)
+        ``ctx`` (B, L, d): the context of a config with an encoder or
+        cross slots (module docstring). ``remat`` recomputes each
+        period's layers in the backward instead of keeping their
+        activations (the reference's ``remat``): the same loss and
+        gradients, bit for bit, for less memory."""
+        x, aux = self._trunk(tokens, attn_block, remat=remat, ctx=ctx)
         logits = x @ self.lm_head
         return (logits, aux) if return_aux else logits
 
@@ -314,10 +451,12 @@ class LM(nn.Module):
         W = self.cfg.sliding_window
         return min(seq_cap, W) if W else seq_cap
 
-    def init_cache(self, B: int, seq_cap: int) -> Dict:
-        """A zero cache of the reference's layout (module docstring)."""
+    def init_cache(self, B: int, seq_cap: int, ctx_len: int = 0) -> Dict:
+        """A zero cache of the reference's layout (module docstring), its
+        cross K/V for a context of ``ctx_len`` positions."""
         cfg = self.cfg
         P = cfg.n_periods
+        ctx_kv = (ctx_len, cfg.n_kv_heads, cfg.hd)
 
         def zeros(*shape, dtype=self.dtype):
             return torch.zeros((P, B) + shape, dtype=dtype,
@@ -327,6 +466,12 @@ class LM(nn.Module):
             if kind == "attn":
                 shape = (self._cache_cap(seq_cap), cfg.n_kv_heads, cfg.hd)
                 cache[f"slot{i}"] = {"k": zeros(*shape), "v": zeros(*shape)}
+                if cfg.is_encdec:
+                    cache[f"slot{i}"].update(xk=zeros(*ctx_kv),
+                                             xv=zeros(*ctx_kv))
+            elif kind == "cross":
+                cache[f"slot{i}"] = {"ck": zeros(*ctx_kv),
+                                     "cv": zeros(*ctx_kv)}
             elif kind == "mamba":
                 s = cfg.ssm
                 di = s.expand * cfg.d_model
@@ -341,38 +486,45 @@ class LM(nn.Module):
                     zeros(cfg.d_model // hd, hd, hd, dtype=F32))
         return cache
 
-    def prefill(self, tokens: torch.Tensor, *, seq_cap: int,
+    def prefill(self, tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None, *, seq_cap: int,
                 attn_block: int = 1024):
-        """Full forward that fills a fresh cache of ``seq_cap`` positions.
-        Returns the logits of the last position (B, V) and the cache."""
+        """Full forward that fills a fresh cache of ``seq_cap`` positions
+        (and the cross K/V of ``ctx``'s positions). Returns the logits of
+        the last position (B, V) and the cache."""
         B, S = tokens.shape
         if S > seq_cap:
             raise ValueError(f"prefill of {S} positions into a cache of "
                              f"{seq_cap}")
         states: list = []
-        x, _ = self._trunk(tokens, attn_block, states)
-        cache = self.init_cache(B, seq_cap)
+        x, _ = self._trunk(tokens, attn_block, states, ctx=ctx)
+        cache = self.init_cache(
+            B, seq_cap, ctx.shape[1] if self.needs_context else 0)
         cache["len"] = S
         period, W = self.cfg.period, self.cfg.sliding_window
         n = min(S, self._cache_cap(seq_cap))
         for layer_idx, (layer, state) in enumerate(zip(self.layers, states)):
             c, p = cache[f"slot{layer_idx % period}"], layer_idx // period
-            if layer.kind != "attn":
+            if isinstance(state, tuple):        # a state-space layer
                 for stack, t in zip(c, state):
                     stack[p] = t
                 continue
-            k, v = state
-            if W and S > W:      # the last W positions, into slots 0..W-1
-                k, v = k[:, -W:], v[:, -W:]
-            c["k"][p, :, :n] = k[:, :n]
-            c["v"][p, :, :n] = v[:, :n]
+            for key, t in state.items():
+                if key not in ("k", "v"):       # the context's K/V, whole
+                    c[key][p] = t
+                    continue
+                if W and S > W:  # the last W positions, into slots 0..W-1
+                    t = t[:, -W:]
+                c[key][p, :, :n] = t[:, :n]
         return x[:, -1] @ self.lm_head, cache
 
     def decode_step(self, token: torch.Tensor, cache: Dict):
         """One serving step: token (B, 1) + cache -> (logits (B, V), cache
         with ``len + 1``). Position ``pos`` goes to k/v slot ``pos``, or to
-        ``pos % cap`` in the ring of a sliding window; a state-space layer
-        steps its state once."""
+        ``pos % cap`` in the ring of a sliding window, and takes the
+        learned position row ``pos % max_seq``; the cross layers read the
+        context's K/V that the prefill cached; a state-space layer steps
+        its state once."""
         cfg = self.cfg
         B = token.shape[0]
         pos = cache["len"]
@@ -387,6 +539,8 @@ class LM(nn.Module):
                                  f"holds {cap}")
             slot = pos % cap if W else pos
         x = self.embed[token[:, 0]][:, None].to(self.dtype)
+        if cfg.learned_pos:
+            x = x + self.pos[pos % self.pos.shape[0]]
         pvec = torch.full((B, 1), pos, device=x.device)
         for layer_idx, layer in enumerate(self.layers):
             c = cache[f"slot{layer_idx % cfg.period}"]
@@ -401,6 +555,17 @@ class LM(nn.Module):
                 kc[:, slot] = k[:, 0]
                 vc[:, slot] = v[:, 0]
                 a = decode_attention(q, kc, vc, pos + 1, window=W)
+                x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.wo
+                if layer.cross_sublayer:
+                    hx = rms_norm(x, layer.ln_x, cfg.norm_eps)
+                    kx = c["xk"][p]
+                    a = decode_attention(layer.q(hx, cross=True), kx,
+                                         c["xv"][p], kx.shape[1])
+                    x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.xo
+            elif layer.kind == "cross":
+                kx = c["ck"][p]
+                a = decode_attention(layer.q(h), kx, c["cv"][p],
+                                     kx.shape[1])
                 x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.wo
             else:
                 y, state = layer.mix(h, tuple(t[p] for t in c), decode=True)

@@ -38,7 +38,8 @@ from repro_torch.kernels.rowhash import signatures
 from repro_torch.kernels.searchsorted import searchsorted, searchsorted_sides
 from repro_torch.kernels.segsum_diff import segsum
 from chip_smoke import (BWD_MQA_SHAPE, BWD_REL_TOL, BWD_SHAPES,
-                        BWD_WINDOW_SHAPES, EXAMPLES, FLASH_REL_TOL, GOLDEN,
+                        BWD_WINDOW_SHAPES, EXAMPLES, FLASH_CROSS_SHAPES,
+                        FLASH_REL_TOL, GOLDEN,
                         GOLDEN_APPLY, LSE_TOL, TRAIN_GNORM_TOL,
                         TRAIN_LOSS_TOL, finish, run_example)
 
@@ -1428,3 +1429,81 @@ def test_flash_attention_bwd_at_jambas_layer_matches_float32(cuda):
     got = flash_attention_bwd(q, k, v, o, lse, do)
     _bwd_close(got, ref.attention_bwd(qf, kf, vf, of, lsef, do.float()))
     assert build.LAUNCHES["flash_attention_bwd"] == 1
+
+
+# ------------------------------------------ encoder-decoder and cross serving
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", FLASH_CROSS_SHAPES)
+def test_flash_attention_at_serve_crosss_shapes_matches_plain(
+        cuda, b, sq, sk, h, kv, hd, causal):
+    """The forward all pairs at chip_smoke's cross rows: whisper's encoder
+    over 1,500 frames and its cross sublayer, llama-vision's cross layers
+    over 6,404 patches (GQA 64:8, hd 128, the key tail ragged), and the
+    Server's 8 stub frames (every tile ragged)."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, kv, hd, seed=sq + sk)
+    got = flash_attention(q, k, v, causal=causal).float()
+    want = ref.attention(q, k, v, causal=causal, block=256).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= FLASH_REL_TOL
+    assert build.LAUNCHES["flash_attention"] == 1
+
+
+#: the cross-model card test's query projections are scaled by this:
+#: at the published widths and init scale the port's attention scores
+#: have a standard deviation of ~40, so attention is an argmax that a
+#: one-ulp difference flips, and two bf16 paths part by the flips (the
+#: 2 + 2 layer whisper in bf16 against float32 on the CPU: 0.53-0.97 of
+#: the logits' norm; the card against the CPU 0.227 in a first run). At
+#: 1/64 the scores sit near one standard deviation, the softmax spreads
+#: over the keys and the masks and sums carry weight: bf16 against float32
+#: reads 0.0125 there
+CROSS_TEST_QUERY_SCALE = 1 / 64
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_cross_lms_on_the_card_match_the_cpu(cuda, arch):
+    """At the published widths and init scale, whisper cut to 2 encoder
+    and 2 decoder layers and llama-vision's first period (its cross layer
+    and four attention layers), their query projections scaled by
+    CROSS_TEST_QUERY_SCALE, with a context of 300 positions (off the
+    128-key tile): the card's prefill logits (encoder, self and cross
+    attention on the flash kernel, as many launches as chip_smoke counts)
+    and two decode steps against the same weights moved to the CPU, by
+    relative L2, with the same cache layout."""
+    from chip_smoke import attention_layers, published_init_scale
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=2, encoder_layers=2) \
+        if cfg.is_encdec else first_layers(cfg, 5)
+    model = LM(cfg, device=cuda,
+               generator=torch.Generator(device=cuda).manual_seed(0))
+    published_init_scale(torch, model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".wq", ".xq")):
+                p.copy_((p.float() * CROSS_TEST_QUERY_SCALE).bfloat16())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab, (1, 96)))
+    ctx = torch.randn((1, 300, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1)).bfloat16()
+    logits, layouts = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model.to(dev)
+        build.reset_launches()
+        out, cache = model.prefill(toks.to(dev), ctx.to(dev), seq_cap=128,
+                                   attn_block=32)
+        if dev.type == "cuda":
+            assert build.LAUNCHES["flash_attention"] == \
+                attention_layers(cfg)
+        steps = [out]
+        for t in (5, 7):
+            out, cache = model.decode_step(torch.tensor([[t]], device=dev),
+                                           cache)
+            steps.append(out)
+        logits.append([x.float().cpu() for x in steps])
+        layouts.append({k: {n: tuple(t.shape) for n, t in v.items()}
+                        for k, v in cache.items() if k != "len"})
+    assert layouts[0] == layouts[1]
+    for got, want in zip(*logits):
+        assert float((got - want).norm() / want.norm()) <= 5e-2

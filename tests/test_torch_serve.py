@@ -31,8 +31,9 @@ from chip_smoke import SERVE_REL_TOL
 ARCH = "qwen1.5-0.5b"
 #: every architecture the port registers
 PORTED = ("deepseek-7b", "granite-20b", "internlm2-1.8b",
-          "jamba-1.5-large-398b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
-          "qwen1.5-0.5b", "rwkv6-7b")
+          "jamba-1.5-large-398b", "llama-3.2-vision-90b", "mixtral-8x7b",
+          "phi3.5-moe-42b-a6.6b", "qwen1.5-0.5b", "rwkv6-7b",
+          "whisper-medium")
 PREFILL_TOL = 2e-4
 DECODE_TOL = 3e-3
 #: bf16 logits of the two packages differ by up to LOGIT_TOL / 2 on the
@@ -261,12 +262,18 @@ def test_lm_and_server_need_the_card_unless_asked_for_the_cpu():
     assert serve.Server(ARCH, device="cpu").model.device.type == "cpu"
 
 
-@pytest.mark.parametrize("change", [{"slots": ("cross",)},
-                                    {"slots": ("hyena",)},
-                                    {"cross_len": 8},
-                                    {"learned_pos": True},
-                                    {"encoder_layers": 2}])
-def test_other_architectures_raise(change):
+@pytest.mark.parametrize("change,ctx_width,error", [
+    ({"slots": ("hyena",)}, None, NotImplementedError),
+    ({"ffn_slots": ("glu2",)}, None, NotImplementedError),
+    ({"slots": ("cross",), "cross_len": 8}, None, ValueError),
+    ({"encoder_layers": 2, "learned_pos": True}, None, ValueError),
+    ({"slots": ("cross",), "cross_len": 8}, 32, ValueError)])
+def test_other_architectures_raise(change, ctx_width, error):
+    """An unknown mixer or FFN kind raises when the model is built; a
+    cross or encoder-decoder config raises at its forward without a
+    context, or with one whose width is not d_model."""
     _, tcfg = _cfgs("bfloat16")
-    with pytest.raises(NotImplementedError):
-        LM(dataclasses.replace(tcfg, **change), device="cpu")
+    ctx = None if ctx_width is None else torch.zeros((1, 8, ctx_width))
+    with pytest.raises(error):
+        LM(dataclasses.replace(tcfg, **change), device="cpu")(
+            torch.zeros((1, 4), dtype=torch.long), ctx)
