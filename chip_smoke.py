@@ -53,8 +53,12 @@ Phases, one line each:
                 the tile and at W = Sq (the unwindowed kernel's bits),
                 and unwindowed MQA at granite-20b's (4 x 2,048, 48 query
                 heads on one KV head; dk and dv, sums over 48 heads, held
-                by rel-L2 and the plain bf16 path's error), beside SDPA's
-                backward (with a band mask under the window)
+                by rel-L2 and the plain bf16 path's error), at the other
+                training layers (t1-t3, jamba's j) and at the cross
+                configs' (eb-lb: whisper's encoder, cross sublayer and
+                decoder in a microbatch of 8, llama-vision's cross and
+                attention layers), beside SDPA's backward (with a band
+                mask under the window)
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
@@ -211,11 +215,18 @@ Phases, one line each:
                 windowed for mixtral, and AdamW), one profiled step, then
                 freed; finite losses, launches (forward twice a layer
                 under remat), step ms, tokens/s, model-FLOP share with
-                active parameters, peak memory; then the card-vs-CPU step
-                with remat for each MoE config at one layer (its matrices
-                at the 32-layer scale; mixtral's window cut to 128) with
+                active parameters (lookup tables left out), peak memory;
+                then the card-vs-CPU step (1 x 128 tokens) with remat
+                for each MoE config at one layer (its matrices at the
+                32-layer scale; mixtral's window cut to 64) with
                 the card's routes replayed on the CPU, each side's own
-                routing recorded unheld
+                routing recorded unheld. rwkv6-7b (16 of 32) and jamba's
+                slots 0, 2, 4 likewise; whisper-medium whole (16 x 1,500
+                frames, 448 tokens, two microbatches) and
+                llama-3.2-vision-90b's slots 0 and 1 (1 x 2,048 tokens
+                over 6,404 patches) through launch.steps.make_train_step,
+                a context drawn from the seed each step, their card-vs-CPU
+                steps with the queries scaled to unit-deviation scores
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
@@ -244,6 +255,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: the script's start: each phase line carries its seconds since (at_s)
+START = time.perf_counter()
 SF1_ROWS = 6_001_215       # TPC-H SF1 lineitem
 C4_ROWS = 100_000          # change set C4 of benchmarks/vcs_tables.py
 #: the NoPK half of the tiers phase runs on an engine of at most this many
@@ -377,11 +390,24 @@ BWD_TRAIN_SHAPES = ((4, 2048, 2048, 16, 8, 128, True),
                     (4, 2048, 2048, 32, 32, 128, True),
                     (4, 2048, 2048, 32, 8, 128, True),
                     (4, 2048, 2048, 64, 8, 128, True))
+# The encoder-decoder and cross-attention configs' training layers, as
+# train_models runs them through launch.steps.make_train_step: whisper-
+# medium at 16 x 1,500 frames in two microbatches of 8, its decoder at
+# min(448, 1,500) tokens: (eb) the encoder, all pairs, ragged query and key
+# tiles (11 x 128 + 92); (xb) the decoder's cross sublayer, 448 x 1,500;
+# (db) the decoder's self-attention, causal. llama-3.2-vision-90b's slots
+# 0 and 1 at 1 x 2,048 over 6,404 patches, GQA 64:8, hd 128: (vb) the
+# cross layer, all pairs, a 4-key tail; (lb) the attention layer
+BWD_CROSS_SHAPES = ((8, 1500, 1500, 16, 16, 64, False),
+                    (8, 448, 1500, 16, 16, 64, False),
+                    (8, 448, 448, 16, 16, 64, True),
+                    (1, 2048, 6404, 64, 8, 128, False),
+                    (1, 2048, 2048, 64, 8, 128, True))
 # every row of the backward's table, (B, Sq, Sk, H, KV, hd, causal[, W]):
 # each shape that the train and train_models phases run the backward at
 BWD_ROWS = BWD_SHAPES + tuple(s[:6] + (True,) + s[6:]
                               for s in BWD_WINDOW_SHAPES) \
-    + (BWD_MQA_SHAPE,) + BWD_TRAIN_SHAPES
+    + (BWD_MQA_SHAPE,) + BWD_TRAIN_SHAPES + BWD_CROSS_SHAPES
 BWD_TILE = 128              # keys per CTA tile of the kernel
 # dk and dv of a KV head sum the bf16-rounded P and dS of its G query
 # heads over every row: their elementwise error grows with G. Up to this
@@ -409,6 +435,11 @@ TRAIN_SAMPLES, TRAIN_SEQ, TRAIN_BATCH = 4096, 2048, 4
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 12, 4, 6
 TRAIN_MORE_STEPS = 3        # on the new pin, after the curation
 TRAIN_CHECK = (1, 256)      # batch, tokens of the card-vs-CPU step
+#: and of train_models' checks, each one layer of a config at full
+#: width: half TRAIN_CHECK, for the script's time (their CPU steps took
+#: 208 s of it at 256 tokens; the loss and gradient norms sat 14x or more
+#: inside the tolerances below)
+TRAIN_MODELS_CHECK = (1, 128)
 # |card - CPU| / CPU for that step's loss and global gradient norm: bf16
 # weights and activations, summed in other orders by cuBLAS and the flash
 # kernels on the card and by the plain path on the CPU. Each bf16 path
@@ -437,19 +468,31 @@ TRAIN_LEAF_ERR_RATIO = 2.0
 # the slots 0, 2 and 4 of its first period (a tuple: slots, not a
 # count): mamba, mamba and attention, each with its MLP, its first five
 # layers less the two MoE layers, whose 16 experts hold 9.66 B
-# parameters (116 GB of state) each (3.85 B, ~46 GB).
+# parameters (116 GB of state) each (3.85 B, ~46 GB). The configs with a
+# context train through launch.steps.make_train_step, their batch and
+# tokens a ShapeCfg's (an encoder-decoder config's "tokens" are its
+# frames: its decoder takes min(448, frames)): whisper-medium whole
+# (1.147 B, 13.8 GB of state) at 16 x 1,500 frames, one 30 s window, and
+# 448 tokens, in the reference's two microbatches (pick_microbatches);
+# llama-3.2-vision-90b's slots 0 and 1 (its cross layer and an attention
+# layer, 3.81 B, ~46 GB) at 1 x 2,048 tokens over its 6,404 patches: at B
+# 2 the reference's policy takes two microbatches, whose float32
+# accumulator (15.2 GB) and AdamW's float32 temporaries of the 1.05 B-
+# parameter lm_head would pass 80 GB.
 TRAIN_MODELS = (("internlm2-1.8b", None, 4, 2048),
                 ("deepseek-7b", 16, 4, 2048),
                 ("granite-20b", 6, 4, 2048),
                 ("phi3.5-moe-42b-a6.6b", 3, 4, 2048),
                 ("mixtral-8x7b", 3, 1, 8192),
                 ("rwkv6-7b", 16, 4, 2048),
-                ("jamba-1.5-large-398b", (0, 2, 4), 4, 2048))
+                ("jamba-1.5-large-398b", (0, 2, 4), 4, 2048),
+                ("whisper-medium", None, 16, 1500),
+                ("llama-3.2-vision-90b", (0, 1), 1, 2048))
 TRAIN_MODELS_STEPS = 4
 TRAIN_MODELS_SAMPLES = 64   # samples of each config's pinned corpus
 # mixtral's window in its card-vs-CPU step, cut so that it binds at
-# TRAIN_CHECK's 256 tokens
-TRAIN_CHECK_WINDOW = 128
+# TRAIN_MODELS_CHECK's 128 tokens
+TRAIN_CHECK_WINDOW = 64
 # searchsorted launches of the main path, grouped by query count: the
 # 1-query zone windows of core/table.py, small, Δ-sized and table-sized
 SEARCH_GROUPS = (("1 query", 1, 1), ("2-1023 queries", 2, 1023),
@@ -512,8 +555,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def phase(phase_name: str, **fields) -> dict:
-    print(json.dumps({"phase": phase_name, **fields}, sort_keys=True),
-          flush=True)
+    print(json.dumps({"phase": phase_name,
+                      "at_s": time.perf_counter() - START, **fields},
+                     sort_keys=True), flush=True)
     return fields
 
 
@@ -3384,32 +3428,50 @@ def self_attention_layers(cfg) -> int:
     return cfg.slot_kinds().count("attn") * cfg.n_periods
 
 
-def train_flops(n_params: int, cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 N T for the dense work (N the
-    parameters a token meets: an MoE's active ones), plus attention's over
-    its unmasked pairs (under a sliding window, those inside it), 3.5 x
-    its forward (the backward is 2.5 x), on each self-attention layer
-    (the cross and encoder layers' pairs wait for their training). A remat
-    step's recomputed forward is not model work and is not counted. The
-    state-space mixers' own terms (the intra-chunk products and the
-    state's updates, beyond their weights' 6 N T) are left out: at the
-    published widths they are under 0.5% of 6 N T (jamba's mamba about 3
-    MFLOP a token and layer against 2 GFLOP, rwkv6 about 2 against
-    0.55)."""
+def train_flops(n_params: int, cfg, batch: int, seq: int,
+                ctx_len: int = 0) -> float:
+    """Model FLOPs of one training step of ``batch`` rows of ``seq``
+    tokens over a context of ``ctx_len`` positions (frames or patches):
+    6 N T for the dense work, N the parameters a token meets (an MoE's
+    active ones) and T the tokens; an encoder's parameters
+    (``n_params_encoder``) over the frames instead. The lookup tables,
+    whose rows are read and not multiplied, are left out: the token
+    embedding (never tied to ``lm_head``, which is a product and counts)
+    and the learned position tables.
+    Plus attention's over its unmasked pairs, 3.5 x its forward (the
+    backward is 2.5 x): the tokens' causal pairs (under a sliding window,
+    those inside it) on each self-attention layer, the frames' S^2 on
+    each encoder layer, and S x L on each cross layer or cross sublayer.
+    A remat step's recomputed forward is not model work and is not
+    counted. The state-space mixers' own terms (the intra-chunk products
+    and the state's updates, beyond their weights' 6 N T) are left out:
+    at the published widths they are under 0.5% of 6 N T (jamba's mamba
+    about 3 MFLOP a token and layer against 2 GFLOP, rwkv6 about 2
+    against 0.55)."""
     W = cfg.sliding_window
     pairs = window_pairs(seq, seq, W) if W else \
         attention_pairs(seq, seq, True)
-    fwd = 4.0 * batch * cfg.n_heads * cfg.hd * pairs
-    return 6.0 * n_params * batch * seq \
-        + 3.5 * fwd * self_attention_layers(cfg)
+    n_enc = int(cfg.n_params_encoder())
+    n_lookup = cfg.vocab * cfg.d_model + cfg.max_seq * cfg.d_model * (
+        int(cfg.learned_pos) + int(cfg.is_encdec))
+    cross = attention_layers(cfg) - self_attention_layers(cfg) \
+        - cfg.encoder_layers
+    pairs_all = pairs * self_attention_layers(cfg) \
+        + ctx_len * ctx_len * cfg.encoder_layers + seq * ctx_len * cross
+    return 6.0 * (n_params - n_enc - n_lookup) * batch * seq \
+        + 6.0 * n_enc * batch * ctx_len \
+        + 3.5 * 4.0 * batch * cfg.n_heads * cfg.hd * pairs_all
 
 
-def train_launches(cfg, steps: int) -> dict:
+def train_launches(cfg, steps: int, n_micro: int = 1) -> dict:
     """The attention kernels' launches that ``steps`` remat steps of
-    ``cfg`` make: the forward twice an attention layer (remat runs it
-    again in the backward), the backward once."""
-    n = attention_layers(cfg) * steps
-    return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    ``cfg`` in ``n_micro`` microbatches make: the forward twice a decoder
+    attention (remat runs it again in the backward) and once an encoder
+    layer (the encoder is not rematerialised, as in the reference), the
+    backward once each."""
+    n = attention_layers(cfg) * steps * n_micro
+    enc = cfg.encoder_layers * steps * n_micro
+    return {"flash_attention": 2 * n - enc, "flash_attention_bwd": n}
 
 
 #: layer matrices whose init scale is fixed, not 1/sqrt(periods)
@@ -3489,11 +3551,41 @@ def leaf_gaps(torch, card: dict, cpu: dict, f32: dict) -> dict:
             "by_leaf": rows}
 
 
-def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
+def unit_scores(torch, model) -> dict:
+    """Scale each attention's query matrix (``wq``, and the cross
+    sublayer's ``xq``) of a model at the published init scale, in place,
+    so that its attention scores have a standard deviation near one. At
+    that init a layer matrix is N(0, 1/P), P the published periods (an
+    encoder's: its layers), and its input has unit RMS (a norm's output,
+    or a context of unit variance), so each query and key element has a
+    variance of d / P and each score (q.k / sqrt(hd)) a standard
+    deviation of d / P: 42.7 for whisper-medium, 409.6 for llama-3.2-
+    vision-90b. Attention there is an argmax that one bf16 rounding
+    flips, and two bf16 paths then part by the flips, not by their
+    kernels. Scaling the queries by P / d keeps every weight, kernel and
+    shape of the step and takes the scores to one standard deviation,
+    where bf16 against float32 measures the kernels' rounding. Returns
+    the factor of each stack."""
+    from repro_torch.configs import get_config
+
+    cfg = model.cfg
+    published = get_config(cfg.name)
+    factor = {"layers": published.n_periods / cfg.d_model}
+    if cfg.is_encdec:
+        factor["encoder"] = published.encoder_layers / cfg.d_model
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".wq", ".xq")):
+                p.copy_((p.float() * factor[name.split(".")[0]]).bfloat16())
+    return factor
+
+
+def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False,
+                     ctx_len: int = 0, check_batch=TRAIN_CHECK) -> dict:
     """One full-width loss and gradient (``loss_fn(..., remat=remat)`` and
     its backward, the work of ``train_step`` before AdamW) on the card and
-    on the CPU's plain path, from the same bf16 weights and a
-    TRAIN_CHECK-sized batch: the loss and the global gradient norm, each
+    on the CPU's plain path, from the same bf16 weights and a batch of
+    ``check_batch`` (rows, tokens): the loss and the global gradient norm, each
     within its tolerance, and leaf by leaf (``leaf_gaps``): the median
     leaf's norm within the same tolerance, each leaf's distance from the
     float32 gradient within TRAIN_LEAF_ERR_RATIO times the CPU's, and
@@ -3505,15 +3597,20 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     is recorded beside it (``own_routes``), unheld, and so are the
     choices that the card's remat recompute routed differently from its
     forward (``recompute_flips``, 0 expected). The weights are drawn
-    once, on the CPU from a generator of one seed (a full-width draw
-    takes 7-20 s of host time), and loaded into the card's model and the
-    float32 one, each made on the card in a fraction of a second. A
+    once, on the card from a generator of one seed, and copied to the
+    CPU's model and loaded into the float32 one, made on the card in a
+    fraction of a second (a full-width draw on the CPU took 7-38 s of
+    host time, llama-vision's cross layer and its 1.05 B-parameter
+    embedding and head the longest). A
     config cut in depth keeps the published depth's init scale: the layer
     matrices are taken to 1/sqrt(published periods), as the published
     model's first layers are drawn (a one-layer cut would draw them at 1,
     where bf16 rounding moved phi3.5-moe's gradient norm by a third
-    against float32)."""
+    against float32). A config with a context takes one of ``ctx_len``
+    positions, drawn on the CPU from the seed in bf16, and has its query
+    matrices scaled by ``unit_scores`` (recorded as ``query_scale``)."""
     import contextlib
+    import copy
     import dataclasses
 
     import numpy as np
@@ -3524,20 +3621,26 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
     from repro_torch.models.lm import LM, loss_fn
     from repro_torch.optim import global_norm
 
-    b, n = TRAIN_CHECK
+    b, n = check_batch
     rng = np.random.default_rng(seed)
     toks = rng.integers(2, cfg.vocab, size=(b, n + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1]),
              "targets": torch.as_tensor(toks[:, 1:])}
+    if ctx_len:
+        batch["ctx"] = torch.randn(
+            (b, ctx_len, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed + 5)).bfloat16()
     log = routes.RouteLog(n)
     moe = cfg.moe is not None
     published = get_config(cfg.name).n_periods
 
     t_draw = time.perf_counter()
-    # weights drawn in float32 and rounded to bf16
-    cpu = LM(dataclasses.replace(cfg, dtype="bfloat16"), device="cpu",
-             generator=torch.Generator().manual_seed(seed + 7))
-    published_init_scale(torch, cpu)
+    # weights drawn on the card in float32, rounded to bf16, and copied
+    card = LM(dataclasses.replace(cfg, dtype="bfloat16"), device="cuda",
+              generator=torch.Generator("cuda").manual_seed(seed + 7))
+    published_init_scale(torch, card)
+    query_scale = unit_scores(torch, card) if ctx_len else None
+    cpu = copy.deepcopy(card).to("cpu")
 
     def model(dtype, device):
         # made (and drawn) on the card, then given the CPU's weights,
@@ -3546,7 +3649,6 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
                generator=torch.Generator("cuda").manual_seed(seed))
         m.load_state_dict(cpu.state_dict())
         return m.to(device)
-    card = model("bfloat16", "cuda")
     draw_s = time.perf_counter() - t_draw
     out, grads = {}, {}
     for name, ctx in (("card", routes.recorded(log)),
@@ -3602,7 +3704,8 @@ def card_vs_cpu_step(torch, cfg, seed: int, remat: bool = False) -> dict:
             held=False)
         out["replayed_chunks"] = len(log.choices)
         out["recompute_flips"] = log.recompute_flips if remat else None
-    out.update(batch=b, tokens=n, remat=remat, routes_replayed=moe,
+    out.update(batch=b, tokens=n, context=ctx_len, query_scale=query_scale,
+               remat=remat, routes_replayed=moe,
                draw_seconds=draw_s,
                init_scale_periods=published,
                loss_tol=TRAIN_LOSS_TOL, grad_norm_tol=TRAIN_GNORM_TOL)
@@ -3829,40 +3932,51 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
     given) through the training path: its own versioned token corpus,
     pinned, batches from the pipeline on the card, TRAIN_MODELS_STEPS
     steps of ``train.train_step(..., remat=True)`` (loss, backward through
-    the flash kernels, AdamW), then one profiled step. A depth cut draws
-    its layer matrices at the published depth's init scale
-    (``published_init_scale``). Returns its record; the caller frees the
-    card."""
-    from repro_torch.configs import get_config
+    the flash kernels, AdamW), then one profiled step. A config with a
+    context (an encoder or cross slots) trains through the reference's
+    entry point instead, ``launch.steps.make_train_step`` for
+    ``ShapeCfg(seq, batch)``: its tokens and context are what
+    ``input_specs`` shapes (an encoder-decoder config's ``seq`` is its
+    frames, its decoder min(448, frames) tokens), its microbatches
+    ``pick_microbatches``', and the context of each step (frame or patch
+    embeddings from the stub frontend) is drawn in bf16 from a CUDA
+    generator of the seed. A depth cut draws its layer matrices at the
+    published depth's init scale (``published_init_scale``). Returns its
+    record; the caller frees the card."""
+    from repro_torch.configs import ShapeCfg, get_config
     from repro_torch.core import Engine
     from repro_torch.data import (BatchPipeline, PinnedDataset, PipelineCfg,
                                   create_token_table, synth_corpus)
     from repro_torch.kernels import build
-    from repro_torch.launch import train
+    from repro_torch.launch import steps, train
     from repro_torch.models.lm import LM
-    from repro_torch.optim import AdamWCfg, init_opt_state
+    from repro_torch.optim import AdamWCfg
 
     full = get_config(arch)
     cfg = train_cut(full, layers)
+    shape = ShapeCfg(f"train_models_{arch}", seq, batch, "train")
+    specs = steps.input_specs(cfg, shape)["batch"]
+    tokens = specs["tokens"].shape[1]
+    ctx_shape = tuple(specs["ctx"].shape) if "ctx" in specs else None
+    n_micro = steps.pick_microbatches(cfg, shape) if ctx_shape else 1
     t_all = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = Engine(device="cuda")
     create_token_table(engine, "corpus")
     synth_corpus(engine, "corpus", n_samples=TRAIN_MODELS_SAMPLES,
-                 sample_len=seq + 1, vocab=cfg.vocab, seed=seed)
+                 sample_len=tokens + 1, vocab=cfg.vocab, seed=seed)
     pin = engine.create_snapshot("train-pin", "corpus")
     pipe = BatchPipeline(PinnedDataset(engine, pin),
-                         PipelineCfg(seq_len=seq, global_batch=batch))
+                         PipelineCfg(seq_len=tokens, global_batch=batch))
     corpus_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     model = LM(cfg, device="cuda",
                generator=torch.Generator("cuda").manual_seed(seed))
     published_init_scale(torch, model)
-    model.requires_grad_()
-    live = dict(model.named_parameters())
     opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=TRAIN_MODELS_STEPS)
-    opt = init_opt_state(live, opt_cfg)
+    state = steps.init_state(model, opt_cfg)
+    live = state["params"]
     decay = train.decay_names(live)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3871,37 +3985,58 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
           f"not the config's {param_count(cfg)}")
     # the parameters a token meets: an MoE's experts count top_k of E
     n_active = n_params - int(cfg.n_params() - cfg.n_params_active())
+    ctx_gen = torch.Generator("cuda").manual_seed(seed + 3)
+
+    def batch_at(step: int) -> dict:
+        data = pipe.tensors_at(step, "cuda")
+        if ctx_shape:
+            data["ctx"] = torch.randn(ctx_shape, generator=ctx_gen,
+                                      device="cuda").bfloat16()
+        return data
+
+    if ctx_shape:
+        step_fn = steps.make_train_step(cfg, shape, opt_cfg=opt_cfg,
+                                        n_micro=n_micro, device="cuda")
+
+        def run(data) -> dict:
+            new, metrics = step_fn(state, data)
+            state.update(new)
+            return metrics
+    else:
+        def run(data) -> dict:
+            state["opt"], metrics = train.train_step(
+                model, data, state["opt"], opt_cfg, decay, seq, remat=True)
+            return metrics
     build.reset_launches()
     losses, step_ms, gnorms = [], [], []
     for step in range(1, TRAIN_MODELS_STEPS + 1):
         t0 = time.perf_counter()
-        data = pipe.tensors_at(step, "cuda")
-        opt, metrics = train.train_step(model, data, opt, opt_cfg, decay,
-                                        seq, remat=True)
+        metrics = run(batch_at(step))
         losses.append(float(metrics["loss"]))      # syncs the step's work
         step_ms.append((time.perf_counter() - t0) * 1e3)
         gnorms.append(float(metrics["grad_norm"]))
     launches = dict(build.LAUNCHES)
     steady = sorted(step_ms[1:])
     median_ms = steady[len(steady) // 2]
-    flops = train_flops(n_active, cfg, batch, seq)
-    want = train_launches(cfg, TRAIN_MODELS_STEPS)
+    ctx_len = ctx_shape[1] if ctx_shape else 0
+    flops = train_flops(n_active, cfg, batch, tokens, ctx_len)
+    want = train_launches(cfg, TRAIN_MODELS_STEPS, n_micro)
     check(all(launches.get(k, 0) == n for k, n in want.items()),
           f"{arch}: attention kernels launched {launches}, not {want} "
-          f"(remat runs each forward twice)")
+          f"(remat runs each decoder forward twice)")
     check(all(math.isfinite(x) for x in losses + gnorms),
           f"{arch}: a loss or gradient norm is not finite: {losses} "
           f"{gnorms}")
     peak = torch.cuda.max_memory_allocated()
-    data = pipe.tensors_at(TRAIN_MODELS_STEPS + 1, "cuda")
+    data = batch_at(TRAIN_MODELS_STEPS + 1)
     # without attention there is no backward kernel to focus on: the
     # record keeps the step's leading kernels alone
-    prof = device_profile(torch, lambda: train.train_step(
-        model, data, opt, opt_cfg, decay, seq, remat=True),
-        focus="attn_bwd" if attention_layers(cfg) else None)
+    prof = device_profile(torch, lambda: run(data),
+                          focus="attn_bwd" if attention_layers(cfg) else None)
     W = cfg.sliding_window
     rec = {"arch": arch, "n_layers": cfg.n_layers,
            "published_layers": full.n_layers,
+           "encoder_layers": cfg.encoder_layers,
            "cut": cut_note(full, cfg, layers),
            "slots": list(cfg.slot_kinds()),
            "ffn_slots": list(cfg.ffn_kinds()),
@@ -3911,8 +4046,17 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
            "hd": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
            "moe": None if not cfg.moe else [cfg.moe.n_experts,
                                             cfg.moe.top_k],
-           "window": W, "batch": batch, "seq_len": seq,
-           "window_binds": bool(W and W < seq),
+           "window": W, "batch": batch, "seq_len": tokens,
+           "window_binds": bool(W and W < tokens),
+           "entry": "launch.steps.make_train_step" if ctx_shape
+           else "launch.train.train_step",
+           "n_micro": n_micro,
+           "context": None if not ctx_shape else {
+               "shape": list(ctx_shape), "dtype": "bfloat16",
+               "bytes": math.prod(ctx_shape) * 2,
+               "is": ("frame" if cfg.is_encdec else "patch")
+               + " embeddings of the stub frontend, torch.randn on a CUDA "
+                 "generator of seed + 3, one a step"},
            "corpus_samples": TRAIN_MODELS_SAMPLES, "pin": "train-pin",
            "corpus_s": corpus_s, "init_s": init_s,
            "params": n_params, "active_params": n_active,
@@ -3921,16 +4065,17 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
            "steps": TRAIN_MODELS_STEPS, "remat": True, "losses": losses,
            "grad_norms": gnorms, "step_ms": step_ms,
            "step_ms_median": median_ms,
-           "tokens_per_s": batch * seq / (median_ms / 1e3),
+           "tokens_per_s": batch * tokens / (median_ms / 1e3),
+           "context_per_s": batch * ctx_len / (median_ms / 1e3),
            "model_flops": flops,
            "model_flop_share": flops / (median_ms / 1e3) / BF16_FLOPS_PER_S,
            "launches": launches,
            "window_bwd_launches": launches.get("flash_attention_bwd", 0)
-           if W and W < seq else 0,
+           if W and W < tokens else 0,
            "max_memory_allocated": peak,
            "max_memory_reserved": torch.cuda.max_memory_reserved(),
            "profile_step": prof}
-    del model, live, opt, data, pipe, engine
+    del model, live, state, data, pipe, engine
     gc.collect()
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_all
@@ -3942,12 +4087,16 @@ def train_models_phase(torch, seed: int) -> dict:
     and freed before the next; then the card-vs-CPU step with remat for
     each MoE config at one layer, the card's routes replayed on the CPU
     (mixtral's window cut to TRAIN_CHECK_WINDOW so that it binds at
-    TRAIN_CHECK tokens), and for each state-space config at its first
+    TRAIN_MODELS_CHECK tokens), and for each state-space config at its first
     trained slot: rwkv6's one rwkv layer, jamba's slot 0 (mamba with its
-    MLP)."""
+    MLP); and for each config with a context, over a context of its
+    row's length: whisper-medium at one encoder and one decoder layer,
+    llama-3.2-vision-90b at its cross layer (slot 0), their queries
+    scaled by ``unit_scores``."""
     import dataclasses
 
     from repro_torch.configs import get_config, period_slots
+    from repro_torch.launch.steps import context_sizes
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3960,19 +4109,37 @@ def train_models_phase(torch, seed: int) -> dict:
               profile_step={k: v for k, v in recs[-1]["profile_step"].items()
                             if k != "top_kernels"},
               top_kernels=recs[-1]["profile_step"]["top_kernels"][:5])
-    for arch, layers, _, _ in TRAIN_MODELS:
+    for arch, layers, _, seq in TRAIN_MODELS:
         cfg = get_config(arch)
-        if cfg.ssm is not None:
+        if cfg.is_encdec:
+            cut = {"n_layers": 1, "encoder_layers": 1}
+            checks[arch] = card_vs_cpu_step(
+                torch, dataclasses.replace(cfg, **cut), seed, remat=True,
+                ctx_len=context_sizes(cfg, seq)[0],
+                check_batch=TRAIN_MODELS_CHECK)
+            checks[arch]["cut"] = {k: [getattr(cfg, k), v]
+                                   for k, v in cut.items()}
+        elif "cross" in cfg.slot_kinds():
+            one = period_slots(cfg, (0,))
+            checks[arch] = card_vs_cpu_step(
+                torch, one, seed, remat=True,
+                ctx_len=context_sizes(cfg, seq)[0],
+                check_batch=TRAIN_MODELS_CHECK)
+            checks[arch]["cut"] = cut_note(cfg, one, (0,))
+        elif cfg.ssm is not None:
             first = (layers[0],) if isinstance(layers, tuple) else (0,)
             one = period_slots(cfg, first)
-            checks[arch] = card_vs_cpu_step(torch, one, seed, remat=True)
+            checks[arch] = card_vs_cpu_step(
+                torch, one, seed, remat=True,
+                check_batch=TRAIN_MODELS_CHECK)
             checks[arch]["cut"] = cut_note(cfg, one, first)
         elif cfg.moe is not None:
             cut = {"n_layers": 1}
             if cfg.sliding_window:
                 cut["sliding_window"] = TRAIN_CHECK_WINDOW
             checks[arch] = card_vs_cpu_step(
-                torch, dataclasses.replace(cfg, **cut), seed, remat=True)
+                torch, dataclasses.replace(cfg, **cut), seed, remat=True,
+                check_batch=TRAIN_MODELS_CHECK)
             checks[arch]["cut"] = {k: [getattr(cfg, k), v]
                                    for k, v in cut.items()}
         else:

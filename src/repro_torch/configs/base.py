@@ -3,7 +3,8 @@
 The port's copy of ``repro.configs.base`` (the subset the serving and
 training paths read): the same fields, defaults, ``reduced()`` shrink and
 parameter counts, so a config name selects the same architecture in both
-packages. Registered configs are listed in ``configs/__init__.py``.
+packages, and the step shape (``ShapeCfg``) that ``launch.steps`` sizes
+its inputs by. Registered configs are listed in ``configs/__init__.py``.
 """
 from __future__ import annotations
 
@@ -192,6 +193,19 @@ def period_slots(cfg: ArchConfig, slots: Tuple[int, ...]) -> ArchConfig:
         cfg, n_layers=len(slots), period=len(slots),
         slots=tuple(kinds[i] for i in slots), ffn_slots=ffn,
         moe=cfg.moe if "moe" in ffn else None)
+
+
+# ---------------------------------------------------------------- shapes
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    """One step's sizes (the reference's): ``seq_len`` tokens (an
+    encoder-decoder config's frames), ``global_batch`` rows, and the
+    step's ``kind``: train | prefill | decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
 
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}

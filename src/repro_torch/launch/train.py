@@ -68,13 +68,21 @@ def decay_names(params: Dict[str, torch.Tensor]):
     return [n for n, p in params.items() if stacked_ndim(n, p) >= 2]
 
 
+def _first_row(cfg: ArchConfig, name: str) -> bool:
+    """Whether the state-dict leaf ``name`` is in row 0 of its stacked
+    axis in the reference's tree: a layer of the first period, or the
+    first encoder layer (the encoder is stacked over its layers)."""
+    stack, row = name.split(".")[:2]
+    return int(row) < (1 if stack == "encoder" else cfg.period)
+
+
 @torch.no_grad()
 def probe_norm(cfg: ArchConfig, params: Dict[str, torch.Tensor]):
     """The reference's health probe: the global norm of each leaf's first
-    slice along its stacked axis (the first period's layers, and row 0
-    of the top-level leaves)."""
+    slice along its stacked axis (the first period's layers, the first
+    encoder layer, and row 0 of the top-level leaves)."""
     return global_norm(p[:1] if n in TOP else p for n, p in params.items()
-                       if n in TOP or int(n.split(".")[1]) < cfg.period)
+                       if n in TOP or _first_row(cfg, n))
 
 
 def train_step(model: LM, batch: Dict[str, torch.Tensor], opt: OptState,

@@ -16,7 +16,8 @@ Entry points (the reference's, as methods):
   LM(cfg, device=None, generator=None)   -> weights drawn from a seed
   forward(tokens, ctx=None, remat=False) -> logits (B, S, V)
   loss_fn(model, batch, remat=False)     -> scalar loss (a function)
-  init_cache(B, seq_cap, ctx_len=0)      -> zero decode cache
+  init_cache(B, seq_cap, ctx_len=0)      -> zero decode cache (also a
+                                            function of the config)
   prefill(tokens, ctx=None, seq_cap=...) -> (last_logits (B, V), cache)
   decode_step(token, cache)              -> (logits (B, V), cache)
   encode(frames)                         -> the encoder's output
@@ -445,46 +446,11 @@ class LM(nn.Module):
         logits = x @ self.lm_head
         return (logits, aux) if return_aux else logits
 
-    def _cache_cap(self, seq_cap: int) -> int:
-        """Positions a cache of ``seq_cap`` holds: min(seq_cap, W) under a
-        sliding window W (a ring), else ``seq_cap``."""
-        W = self.cfg.sliding_window
-        return min(seq_cap, W) if W else seq_cap
-
     def init_cache(self, B: int, seq_cap: int, ctx_len: int = 0) -> Dict:
         """A zero cache of the reference's layout (module docstring), its
-        cross K/V for a context of ``ctx_len`` positions."""
-        cfg = self.cfg
-        P = cfg.n_periods
-        ctx_kv = (ctx_len, cfg.n_kv_heads, cfg.hd)
-
-        def zeros(*shape, dtype=self.dtype):
-            return torch.zeros((P, B) + shape, dtype=dtype,
-                               device=self.device)
-        cache: Dict = {"len": 0}
-        for i, kind in enumerate(cfg.slot_kinds()):
-            if kind == "attn":
-                shape = (self._cache_cap(seq_cap), cfg.n_kv_heads, cfg.hd)
-                cache[f"slot{i}"] = {"k": zeros(*shape), "v": zeros(*shape)}
-                if cfg.is_encdec:
-                    cache[f"slot{i}"].update(xk=zeros(*ctx_kv),
-                                             xv=zeros(*ctx_kv))
-            elif kind == "cross":
-                cache[f"slot{i}"] = {"ck": zeros(*ctx_kv),
-                                     "cv": zeros(*ctx_kv)}
-            elif kind == "mamba":
-                s = cfg.ssm
-                di = s.expand * cfg.d_model
-                cache[f"slot{i}"] = (
-                    zeros(s.d_conv - 1, di),
-                    zeros(di // s.head_dim, s.d_state, s.head_dim,
-                          dtype=F32))
-            else:
-                hd = cfg.ssm.head_dim
-                cache[f"slot{i}"] = (
-                    zeros(1, cfg.d_model),
-                    zeros(cfg.d_model // hd, hd, hd, dtype=F32))
-        return cache
+        cross K/V for a context of ``ctx_len`` positions, on the model's
+        device (:func:`init_cache`)."""
+        return init_cache(self.cfg, B, seq_cap, ctx_len, device=self.device)
 
     def prefill(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None, *, seq_cap: int,
@@ -502,7 +468,7 @@ class LM(nn.Module):
             B, seq_cap, ctx.shape[1] if self.needs_context else 0)
         cache["len"] = S
         period, W = self.cfg.period, self.cfg.sliding_window
-        n = min(S, self._cache_cap(seq_cap))
+        n = min(S, _cache_cap(self.cfg, seq_cap))
         for layer_idx, (layer, state) in enumerate(zip(self.layers, states)):
             c, p = cache[f"slot{layer_idx % period}"], layer_idx // period
             if isinstance(state, tuple):        # a state-space layer
@@ -577,6 +543,56 @@ class LM(nn.Module):
         return x[:, 0] @ self.lm_head, {**cache, "len": pos + 1}
 
 
+
+def _cache_cap(cfg: ArchConfig, seq_cap: int) -> int:
+    """Positions a cache of ``seq_cap`` holds: min(seq_cap, W) under a
+    sliding window W (a ring), else ``seq_cap``."""
+    W = cfg.sliding_window
+    return min(seq_cap, W) if W else seq_cap
+
+
+def init_cache(cfg: ArchConfig, B: int, seq_cap: int, ctx_len: int = 0,
+               device=None) -> Dict:
+    """A zero decode cache of ``cfg`` (the module docstring's layout) on
+    ``device`` (``None``: the card; ``"cpu"`` only when asked; ``"meta"``
+    gives shapes and dtypes alone, as the reference's ``eval_shape`` of
+    its ``init_cache``): the attention caches of ``seq_cap`` positions
+    (min(``seq_cap``, W) under a sliding window W), cross K/V for a
+    context of ``ctx_len``."""
+    device = resolve_device(device)
+    P = cfg.n_periods
+    dtype = getattr(torch, cfg.dtype)
+    ctx_kv = (ctx_len, cfg.n_kv_heads, cfg.hd)
+    cap = _cache_cap(cfg, seq_cap)
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((P, B) + shape, dtype=dtype, device=device)
+    cache: Dict = {"len": 0}
+    for i, kind in enumerate(cfg.slot_kinds()):
+        if kind == "attn":
+            shape = (cap, cfg.n_kv_heads, cfg.hd)
+            cache[f"slot{i}"] = {"k": zeros(*shape), "v": zeros(*shape)}
+            if cfg.is_encdec:
+                cache[f"slot{i}"].update(xk=zeros(*ctx_kv),
+                                         xv=zeros(*ctx_kv))
+        elif kind == "cross":
+            cache[f"slot{i}"] = {"ck": zeros(*ctx_kv),
+                                 "cv": zeros(*ctx_kv)}
+        elif kind == "mamba":
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            cache[f"slot{i}"] = (
+                zeros(s.d_conv - 1, di),
+                zeros(di // s.head_dim, s.d_state, s.head_dim,
+                      dtype=F32))
+        else:
+            hd = cfg.ssm.head_dim
+            cache[f"slot{i}"] = (
+                zeros(1, cfg.d_model),
+                zeros(cfg.d_model // hd, hd, hd, dtype=F32))
+    return cache
+
+
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
             attn_block: int = 1024, aux_coef: float = 0.01,
             remat: bool = False) -> torch.Tensor:
@@ -584,11 +600,13 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
     entropy over float32 logits, averaged over the targets >= 0 (a target
     < 0 is masked), plus ``aux_coef`` times the MoE load-balance loss
     (0 for dense configs). ``batch`` holds ``tokens`` and ``targets``,
-    (B, S) integer tensors on the model's device. ``remat`` as in
-    :meth:`LM.forward`."""
+    (B, S) integer tensors on the model's device, and for a config with
+    an encoder or cross slots its context ``ctx`` (B, L, d), which goes to
+    the forward as the reference's ``batch.get("ctx")`` does. ``remat`` as
+    in :meth:`LM.forward`."""
     targets = batch["targets"]
-    logits, aux = model(batch["tokens"], attn_block=attn_block,
-                        return_aux=True, remat=remat)
+    logits, aux = model(batch["tokens"], batch.get("ctx"),
+                        attn_block=attn_block, return_aux=True, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,

@@ -1507,3 +1507,73 @@ def test_cross_lms_on_the_card_match_the_cpu(cuda, arch):
     assert layouts[0] == layouts[1]
     for got, want in zip(*logits):
         assert float((got - want).norm() / want.norm()) <= 5e-2
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd", [
+    (2, 300, 300, 16, 16, 64),    # (eb) whisper's encoder: 300 = 4 x 64
+    #                               + 44 queries, 2 x 128 + 44 keys
+    (2, 112, 300, 16, 16, 64),    # (xb) its cross sublayer: 112 = 64 + 48
+    (1, 200, 644, 64, 8, 128),    # (vb) llama-vision's cross layer: GQA
+    #                               64:8, hd 128, 5 x 128 + a 4-key tail
+])
+def test_flash_attention_bwd_at_the_cross_shapes_matches_plain(
+        cuda, b, sq, sk, h, kv, hd):
+    """The backward all pairs at reduced versions of chip_smoke's cross
+    rows (eb), (xb) and (vb), each with a ragged query tile that is not a
+    multiple of 64 and a ragged key tile, against the plain backward."""
+    test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv,
+                                                  hd, False)
+
+
+@pytest.mark.parametrize("arch,n_micro", [("whisper-medium", 2),
+                                          ("llama-3.2-vision-90b", 1)])
+def test_cross_train_step_on_the_card_matches_the_cpu(cuda, arch, n_micro):
+    """One ``launch.steps.make_train_step`` step of the reduced config in
+    bf16 (widened to 4 heads of 64 for the kernels, its queries scaled by
+    P / d so that its scores sit near one deviation, as chip_smoke's
+    ``unit_scores``) on the card and on the CPU from the same weights and
+    batch (a context of 200 positions, off the 128-key tile): the loss
+    and the gradient norm within TRAIN_LOSS_TOL and TRAIN_GNORM_TOL, the
+    flash kernels launched as chip_smoke's ``train_launches`` counts (an
+    encoder forward once, a decoder attention twice under remat, per
+    microbatch), finite parameters after the step."""
+    from chip_smoke import train_launches
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWCfg
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=256,
+                              head_dim=64, d_ff=512, cross_len=200)
+    shape = ShapeCfg("t", 200 if cfg.is_encdec else 96, 4, "train")
+    specs = steps.input_specs(cfg, shape)["batch"]
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab,
+                                        tuple(specs["tokens"].shape)))
+    batch = {"tokens": toks, "targets": toks.roll(-1, dims=1),
+             "ctx": torch.randn(tuple(specs["ctx"].shape),
+                                generator=torch.Generator().manual_seed(3))
+             .bfloat16()}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = LM(cfg, device=dev,
+                   generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith((".wq", ".xq")):
+                    p.mul_(2 / cfg.d_model)
+        opt_cfg = AdamWCfg(warmup_steps=2, decay_steps=4)
+        step = steps.make_train_step(cfg, shape, opt_cfg=opt_cfg,
+                                     n_micro=n_micro, attn_block=64,
+                                     device=dev)
+        build.reset_launches()
+        state, metrics = step(steps.init_state(model, opt_cfg), batch)
+        out.append((metrics["loss"].item(), metrics["grad_norm"].item()))
+        assert all(bool(torch.isfinite(p).all())
+                   for p in state["params"].values())
+        if dev.type == "cuda":
+            want = train_launches(cfg, 1, n_micro)
+            assert {k: build.LAUNCHES[k] for k in want} == want
+    (loss, gnorm), (cpu_loss, cpu_gnorm) = out
+    assert all(np.isfinite([loss, gnorm]))
+    assert abs(loss - cpu_loss) / cpu_loss <= TRAIN_LOSS_TOL
+    assert abs(gnorm - cpu_gnorm) / cpu_gnorm <= TRAIN_GNORM_TOL

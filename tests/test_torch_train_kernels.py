@@ -385,14 +385,32 @@ def _trained_layers():
 def test_chip_smoke_holds_the_backward_at_every_trained_shape(arch, b, s):
     """chip_smoke's bwd phase holds the kernel against its plain version
     at each shape that its train and train_models phases run it at:
-    (B, S, S, H, KV, hd, causal[, W]) of every config they train."""
+    (B, S, S, H, KV, hd, causal[, W]) of every config they train; for a
+    config with a context, which trains through make_train_step, at its
+    microbatch's rows: the decoder's causal self-attention, whisper's
+    encoder over its frames and each cross attention (S x L), all
+    pairs."""
+    import chip_smoke
     from chip_smoke import BWD_ROWS
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.launch import steps
     cfg = get_config(arch)
-    shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True)
-    if cfg.sliding_window and cfg.sliding_window < s:
-        shape += (cfg.sliding_window,)
-    assert shape in BWD_ROWS
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    if not (cfg.is_encdec or "cross" in cfg.slot_kinds()):
+        shape = (b, s, s) + heads + (True,)
+        if cfg.sliding_window and cfg.sliding_window < s:
+            shape += (cfg.sliding_window,)
+        assert shape in BWD_ROWS
+        return
+    cut = next(c for a, c, *_ in chip_smoke.TRAIN_MODELS if a == arch)
+    cut = chip_smoke.train_cut(cfg, cut)
+    mb = b // steps.pick_microbatches(cut, ShapeCfg("t", s, b, "train"))
+    ctx, tokens = steps.context_sizes(cut, s)
+    shapes = [(mb, tokens, tokens) + heads + (True,),
+              (mb, tokens, ctx) + heads + (False,)]
+    if cut.is_encdec:
+        shapes.append((mb, ctx, ctx) + heads + (False,))
+    assert all(shape in BWD_ROWS for shape in shapes)
 
 
 # ------------------------------------------------------------ the window

@@ -616,13 +616,14 @@ def test_chip_smoke_trains_the_ssm_cuts_it_names():
 def test_chip_smoke_counts_attention_on_attention_slots_only():
     """The model FLOPs add attention's over its pairs on attention layers
     only, and the launch check expects the kernels there only: rwkv6 none
-    (6 N T alone), jamba's cut one layer (8 forwards and 4 backwards in 4
-    remat steps)."""
+    (6 N T alone, N without the token embedding, a lookup), jamba's cut
+    one layer (8 forwards and 4 backwards in 4 remat steps)."""
     b, s, steps = 4, 2048, chip_smoke.TRAIN_MODELS_STEPS
     rwkv = first_layers(get_config("rwkv6-7b"), 16)
     n = chip_smoke.param_count(rwkv)
     assert chip_smoke.attention_layers(rwkv) == 0
-    assert chip_smoke.train_flops(n, rwkv, b, s) == 6.0 * n * b * s
+    assert chip_smoke.train_flops(n, rwkv, b, s) == \
+        6.0 * (n - rwkv.vocab * rwkv.d_model) * b * s
     assert chip_smoke.train_launches(rwkv, steps) == {
         "flash_attention": 0, "flash_attention_bwd": 0}
     jamba = period_slots(get_config("jamba-1.5-large-398b"), (0, 2, 4))
@@ -630,7 +631,7 @@ def test_chip_smoke_counts_attention_on_attention_slots_only():
     fwd = 4.0 * b * 64 * 128 * chip_smoke.attention_pairs(s, s, True)
     assert chip_smoke.attention_layers(jamba) == 1
     assert chip_smoke.train_flops(n, jamba, b, s) == \
-        6.0 * n * b * s + 3.5 * fwd
+        6.0 * (n - jamba.vocab * jamba.d_model) * b * s + 3.5 * fwd
     assert chip_smoke.train_launches(jamba, steps) == {
         "flash_attention": 8, "flash_attention_bwd": 4}
     # a dense config: every layer, as before
