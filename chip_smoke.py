@@ -227,14 +227,27 @@ Phases, one line each:
                 over 6,404 patches) through launch.steps.make_train_step,
                 a context drawn from the seed each step, their card-vs-CPU
                 steps with the queries scaled to unit-deviation scores
+     sharded  — the sharded step on a world-size-1 NCCL group's mesh
+                (make_mesh_for: data 1 x model 1, DTensor): 2 steps of
+                launch.steps.make_train_step over the mesh for
+                qwen1.5-0.5b at full width (4 x 2,048 tokens) and one of
+                whisper-medium whole (16 x 1,500 frames, two
+                microbatches), each against the one-device step from the
+                same init: losses and every parameter and moment bit for
+                bit; a 2,048-token prefill and 8 decode steps of qwen
+                through make_prefill_step / make_decode_step against
+                LM.prefill / decode_step, logits and cache bit for bit;
+                step ms with and without the mesh, peak memory and the
+                attention kernels' launches in the mesh's windows
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
 is the one-line JSON result; the line before it lists the kernels, with
 the launches of every path's window (main path, workflow, doors and
 tiers, both modes, and the examples; flash from the three serving
-phases and both training phases, its backward from both training phases, with the
-windowed launches apart). The full record goes to
+phases, both training phases and the sharded phase, its backward from
+both training phases and the sharded phase, with the windowed launches
+apart). The full record goes to
 ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -249,10 +262,12 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 #: the script's start: each phase line carries its seconds since (at_s)
@@ -489,6 +504,14 @@ TRAIN_MODELS = (("internlm2-1.8b", None, 4, 2048),
                 ("whisper-medium", None, 16, 1500),
                 ("llama-3.2-vision-90b", (0, 1), 1, 2048))
 TRAIN_MODELS_STEPS = 4
+# The sharded phase on the world-size-1 mesh: (arch, batch, tokens, steps)
+# of the train step against the one-device step (the train phase's
+# shape); whisper-medium whole at train_models' 16 x 1,500 frames (448
+# tokens), where pick_microbatches takes two microbatches; (arch, batch,
+# prompt, new tokens) of the prefill and decode steps
+SHARDED_TRAIN = (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, 2)
+SHARDED_CONTEXT = ("whisper-medium", 16, 1500, 2)
+SHARDED_SERVE = (TRAIN_ARCH, 1, 2048, 8)
 TRAIN_MODELS_SAMPLES = 64   # samples of each config's pinned corpus
 # mixtral's window in its card-vs-CPU step, cut so that it binds at
 # TRAIN_MODELS_CHECK's 128 tokens
@@ -4174,6 +4197,259 @@ LINT_PLANTED = {
 }
 
 
+# ------------------------------------------------------------ sharded
+
+@contextlib.contextmanager
+def process_group(torch, backend: str = "nccl", store=None):
+    """A process group of world size 1 (this process, rank 0) through a
+    ``file://`` store (default under build/), destroyed on the way
+    out."""
+    import torch.distributed as dist
+    store = Path(store or ROOT / "build" / "sharded_store")
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def local(t):
+    """A DTensor's local tensor (on a 1 x 1 mesh, the whole tensor)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def unequal_leaves(torch, got: dict, want: dict) -> list:
+    """The leaves of ``got`` whose bits differ from ``want``'s, each with
+    its largest difference over the leaf's largest magnitude."""
+    out = []
+    for name, w in want.items():
+        g = local(got[name]).detach()
+        if not torch.equal(g, w.detach()):
+            d = (g.float() - w.float()).abs().max().item()
+            out.append({"leaf": name,
+                        "rel": d / max(w.float().abs().max().item(), 1e-30)})
+    return out
+
+
+def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
+                  seed: int, device: str = "cuda",
+                  n_micro: Optional[int] = None) -> dict:
+    """``n_steps`` of ``launch.steps.make_train_step`` over ``mesh`` and
+    the same steps of its one-device form, each from ``LM(cfg)``'s own
+    init on the card, at ``pick_microbatches``' factor on the mesh (or
+    ``n_micro``), on
+    the same batches (tokens, and a context for a config with one, drawn
+    from ``seed``): the losses, and every parameter and AdamW moment after
+    the last step, bit for bit; each side's step ms (the median after the
+    first), the attention kernels' launches and peak memory (above what
+    was allocated when the run began). ``device`` "cpu" runs both on the CPU (the tests)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+
+    shape = ShapeCfg("t", seq, batch, "train")
+    n_micro = n_micro or steps.pick_microbatches(cfg, shape, mesh)
+    specs = steps.input_specs(cfg, shape)["batch"]
+    g = torch.Generator().manual_seed(seed)
+    batches = []
+    for _ in range(n_steps):
+        toks = torch.randint(0, cfg.vocab, tuple(specs["tokens"].shape),
+                             generator=g)
+        b = {"tokens": toks, "targets": toks.roll(-1, dims=1)}
+        if "ctx" in specs:
+            b["ctx"] = torch.randn(tuple(specs["ctx"].shape), generator=g,
+                                   dtype=torch.bfloat16)
+        batches.append({k: v.to(device) for k, v in b.items()})
+    card = device == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+
+    def run(on_mesh: bool):
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # the other run's leaves are held for the comparison: count this
+        # run's own memory
+        base = torch.cuda.memory_allocated() if card else 0
+        state = steps.init_state(LM(cfg, device=device))
+        if on_mesh:
+            step, st_specs, b_specs = steps.make_train_step(
+                cfg, shape, mesh, n_micro=n_micro)
+            state, _ = steps.place_inputs(state, None, st_specs, b_specs,
+                                          mesh)
+        else:
+            step = steps.make_train_step(cfg, shape, n_micro=n_micro,
+                                         device=device)
+        build.reset_launches()
+        losses, ms = [], []
+        for b in batches:
+            if on_mesh:
+                b = place_tree(b, b_specs, mesh)
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(local(m["loss"]).item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: build.LAUNCHES[k] for k in
+                    ("flash_attention", "flash_attention_bwd")}
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9 if card \
+            else None
+        leaves = {f"params/{n}": local(p) for n, p in state["params"].items()}
+        for part in ("mu", "nu"):
+            leaves.update({f"{part}/{n}": local(t) for n, t in
+                           getattr(state["opt"], part).items()})
+        del state, step
+        return losses, ms, launches, peak, leaves
+
+    losses, ms, launches, peak, got = run(True)
+    p_losses, p_ms, p_launches, p_peak, want = run(False)
+    check(all(math.isfinite(x) for x in losses), f"sharded losses {losses}")
+    unequal = unequal_leaves(torch, got, want)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": batch, "seq_len": seq, "n_micro": n_micro,
+           "steps": n_steps, "losses": losses, "plain_losses": p_losses,
+           "losses_equal": losses == p_losses,
+           "leaves": len(want), "unequal_leaves": unequal,
+           "step_ms": ms, "plain_step_ms": p_ms,
+           "step_ms_median": statistics.median(ms[1:] or ms),
+           "plain_step_ms_median": statistics.median(p_ms[1:] or p_ms),
+           "launches": launches, "plain_launches": p_launches,
+           "peak_gb": peak, "plain_peak_gb": p_peak}
+    rec["dtensor_host_ms"] = rec["step_ms_median"] \
+        - rec["plain_step_ms_median"]
+    del got, want
+    return rec
+
+
+def sharded_serve(torch, mesh, cfg, batch: int, prompt: int, new: int,
+                  seed: int, device: str = "cuda") -> dict:
+    """``launch.steps.make_prefill_step`` and ``make_decode_step`` over
+    ``mesh`` against ``LM.prefill`` and ``LM.decode_step`` on the same
+    weights: a ``prompt``-token prefill (the last logits and every cache
+    leaf), then ``new`` greedy tokens (each step's logits), bit for bit;
+    the flash launches of the mesh's first prefill and both sides' ms
+    (the prefill's first call and a warm one). ``device`` as
+    :func:`sharded_train`'s."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM
+
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt),
+                         generator=g).to(device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pshape = ShapeCfg("p", prompt, batch, "prefill")
+    dshape = ShapeCfg("d", prompt, batch, "decode")
+    pre, pspecs, _ = steps.make_prefill_step(cfg, pshape, mesh)
+    dec = steps.make_decode_step(cfg, dshape, mesh)[0]
+    model = steps.place_params(LM(cfg, device=device), pspecs, mesh)
+    ref = LM(cfg, device=device)
+    rec = {"arch": cfg.name, "batch": batch, "prompt": prompt, "new": new}
+    with torch.no_grad():
+        build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = pre(model, toks)
+        sync()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["flash_launches"] = build.LAUNCHES["flash_attention"]
+        t0 = time.perf_counter()
+        r_logits, r_cache = ref.prefill(toks, seq_cap=prompt + 128)
+        sync()
+        rec["plain_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_equal"] = torch.equal(local(logits), r_logits)
+        rec["cache_equal"] = all(
+            torch.equal(local(a), b)
+            for k in r_cache if k != "len"
+            for a, b in zip(*(list(c[k].values()) if isinstance(c[k], dict)
+                              else list(c[k]) for c in (cache, r_cache))))
+        # once more each, warm: the mesh's first call pays DTensor's
+        # sharding propagation
+        for key, fn in (("prefill_ms_warm", lambda: pre(model, toks)),
+                        ("plain_prefill_ms_warm", lambda: ref.prefill(
+                            toks, seq_cap=prompt + 128))):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            rec[key] = (time.perf_counter() - t0) * 1e3
+        tok = r_logits.argmax(-1)[:, None]
+        equal, ms, p_ms = [], [], []
+        for _ in range(new):
+            t0 = time.perf_counter()
+            logits, cache = dec(model, tok, cache)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            r_logits, r_cache = ref.decode_step(tok, r_cache)
+            sync()
+            p_ms.append((time.perf_counter() - t0) * 1e3)
+            equal.append(torch.equal(local(logits), r_logits))
+            tok = r_logits.argmax(-1)[:, None]
+    rec.update({"decode_equal": equal, "decode_ms": ms,
+                "plain_decode_ms": p_ms,
+                "decode_ms_median": statistics.median(ms[1:] or ms),
+                "plain_decode_ms_median": statistics.median(p_ms[1:]
+                                                            or p_ms),
+                "len": [cache["len"], r_cache["len"]]})
+    del model, ref, cache, r_cache
+    return rec
+
+
+def sharded_phase(torch, seed: int) -> dict:
+    """The sharded path on a world-size-1 NCCL group's mesh
+    (``make_mesh_for(device_count)``: data 1 x model 1): SHARDED_TRAIN's
+    steps and SHARDED_CONTEXT's through the mesh against the one-device
+    step, and SHARDED_SERVE's prefill and decode against ``LM``'s, each
+    bit for bit (``sharded_train``, ``sharded_serve``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import make_mesh_for
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rec = {}
+    with process_group(torch):
+        mesh = make_mesh_for(torch.cuda.device_count())
+        rec["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        arch, b, s, n = SHARDED_TRAIN
+        rec["train"] = sharded_train(torch, mesh, get_config(arch), b, s, n,
+                                     seed)
+        arch, b, s, n = SHARDED_CONTEXT
+        rec["context"] = sharded_train(torch, mesh, get_config(arch), b, s,
+                                       n, seed + 1)
+        arch, b, s, n = SHARDED_SERVE
+        rec["serve"] = sharded_serve(torch, mesh, get_config(arch), b, s, n,
+                                     seed + 2)
+    rec["seconds"] = time.perf_counter() - t_phase
+    for key in ("train", "context"):
+        t = rec[key]
+        check(t["losses_equal"] and not t["unequal_leaves"],
+              f"sharded {key} step differs from the one-device step: "
+              f"losses {t['losses']} / {t['plain_losses']}, leaves "
+              f"{t['unequal_leaves'][:8]}")
+        check(t["launches"] == t["plain_launches"]
+              and t["launches"]["flash_attention_bwd"] > 0,
+              f"sharded {key} launches {t['launches']} / "
+              f"{t['plain_launches']}")
+    sv = rec["serve"]
+    check(sv["prefill_equal"] and sv["cache_equal"]
+          and all(sv["decode_equal"]) and sv["flash_launches"] > 0,
+          f"sharded serve differs: {sv}")
+    rec["flash_launches"] = rec["train"]["launches"]["flash_attention"] \
+        + rec["context"]["launches"]["flash_attention"] \
+        + sv["flash_launches"]
+    rec["bwd_launches"] = rec["train"]["launches"]["flash_attention_bwd"] \
+        + rec["context"]["launches"]["flash_attention_bwd"]
+    return rec
+
+
 def run_src(argv, **kw):
     """Run ``argv`` from the checkout's root with ``src`` on the path."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4543,6 +4819,9 @@ def main(argv=None) -> int:
         phase("train_models", **{k: v for k, v in models_trained.items()
                                  if k not in ("models", "card_vs_cpu")},
               archs=[m["arch"] for m in models_trained["models"]])
+        sharded = sharded_phase(torch, args.seed)
+        record["sharded"] = sharded
+        phase("sharded", **sharded)
         record["device_readings"] = phase(
             "device_readings", readings=len(DEVICE_READINGS),
             complete=sum(r["complete"] for r in DEVICE_READINGS),
@@ -4565,9 +4844,10 @@ def main(argv=None) -> int:
         + models["flash_launches"] + ssm["flash_launches"] \
         + cross["flash_launches"] \
         + trained["launches"]["flash_attention"] \
-        + models_trained["flash_launches"]
+        + models_trained["flash_launches"] + sharded["flash_launches"]
     launches["flash_attention_bwd"] = trained["launches"][
-        "flash_attention_bwd"] + models_trained["bwd_launches"]
+        "flash_attention_bwd"] + models_trained["bwd_launches"] \
+        + sharded["bwd_launches"]
     replaces = {
         "rowhash": "src/repro/kernels/rowhash.py:43",
         "searchsorted": "src/repro/kernels/searchsorted.py:48",

@@ -8,19 +8,84 @@ Prefill attention goes through ``kernels.ops.attention``: the flash
 kernel on the card, its plain block-pair version on the CPU. Decode
 attention and the MoE FFN are plain PyTorch, as the reference computes
 them outside any kernel.
+
+On DTensors (the sharded path of ``models.lm``) both attentions run their
+one-device code on local tensors through ``local_map``: the batch over
+the mesh's data-parallel axes, the heads over 'model' where both H and KV
+divide it, else replicated over 'model' (so the flash kernels and
+``FlashAttention`` see plain tensors). ``rope`` mixes its plain tables in
+under ``implicit_replication``. The MoE FFN, whose index dispatch and
+combine have no sharding rules, runs replicated (:func:`replicated`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import is_dtensor
 from ..kernels import ops
 from ..kernels.ref import NEG, attn_qk, attn_sv
 
 F32 = torch.float32
+
+
+def replicated(fn, *args, **kw):
+    """``fn(*args, **kw)``; where ``args`` (tensors, or dicts and tuples
+    of them) hold DTensors, every one is taken whole to each rank, ``fn``
+    runs on the local tensors and its tensor outputs come back as
+    DTensors replicated over the mesh: ``local_map`` with replicated
+    placements over trees. Correct for any ``fn``, and slow: each rank
+    does all the work."""
+    from torch.utils import _pytree as pytree
+    flat, tree = pytree.tree_flatten(args)
+    dts = [t for t in flat if is_dtensor(t)]
+    if not dts:
+        return fn(*args, **kw)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = dts[0].device_mesh
+    rep = [Replicate()] * mesh.ndim
+    local = [t.redistribute(mesh, rep).to_local() if is_dtensor(t) else t
+             for t in flat]
+    out = fn(*pytree.tree_unflatten(local, tree), **kw)
+    return pytree.tree_map(
+        lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
+        if isinstance(t, torch.Tensor) else t, out)
+
+
+def _head_placements(mesh, B: int, H: int, KV: int):
+    """Placements of a (B, S, heads, hd) attention operand: the batch over
+    the data-parallel axes where it divides them, the heads over 'model'
+    where both H and KV divide it; else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    n_dp = math.prod(mesh.size(i) for i in dp)
+    out = []
+    for i, a in enumerate(names):
+        n = mesh.size(i)
+        if i in dp and B % n_dp == 0:
+            out.append(Shard(0))
+        elif a == "model" and H % n == 0 and KV % n == 0:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _local_heads(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on DTensors through ``local_map`` at
+    :func:`_head_placements` (q's layout for the output)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = _head_placements(mesh, q.shape[0], q.shape[2], k.shape[2])
+    run = local_map(functools.partial(fn, **kw), out_placements=(pl,),
+                    in_placements=(pl, pl, pl), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(q, k, v)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -34,6 +99,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10_000.0) -> torch.Tensor:
     """Rotary embedding, half-split form. x: (..., S, H, hd); positions:
     (..., S) integer."""
+    if is_dtensor(x):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return _rope(x, positions, theta)
+    return _rope(x, positions, theta)
+
+
+def _rope(x, positions, theta):
     half = x.shape[-1] // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=F32,
                                           device=x.device) / half))
@@ -50,7 +124,11 @@ def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            causal: bool = True) -> torch.Tensor:
     """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) -> (B,S,H,hd): self (causal, in a
     sliding ``window`` when given) or all-pairs (``causal=False``)
-    attention through ``ops.attention``."""
+    attention through ``ops.attention`` (on DTensors through
+    ``local_map``, module docstring)."""
+    if is_dtensor(q):
+        return _local_heads(block_causal_attention, q, k, v, window=window,
+                            block=block, causal=causal)
     return ops.attention(q, k, v, causal=causal, block_q=block,
                          window=window)
 
@@ -63,6 +141,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B,1,H,hd); k/v_cache: (B,Sc,KV,hd); ``cache_len`` valid positions.
     With ``window`` the cache is a ring buffer of size Sc == window and all
     slots < min(cache_len, window) are valid."""
+    if is_dtensor(q):
+        return _local_heads(decode_attention, q, k_cache, v_cache,
+                            cache_len=cache_len, window=window)
     hd = q.shape[-1]
     Sc = k_cache.shape[1]
     s = attn_qk(q, k_cache) / math.sqrt(hd)               # (B,H,1,Sc)
@@ -151,7 +232,11 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     slots (empty ones hold zeros), and a token sums its kept choices'
     outputs times their gates, cast to x's dtype as the reference casts
     its combine tensor. Returns (out (B,S,d), aux), ``aux`` averaged over
-    the chunks."""
+    the chunks. On DTensors it runs replicated (:func:`replicated`)."""
+    if is_dtensor(x):
+        return replicated(moe_ffn, params, x, n_experts=n_experts,
+                          top_k=top_k, capacity_factor=capacity_factor,
+                          seq_chunk=seq_chunk)
     B, S, d = x.shape
     sc = min(S, seq_chunk)
     while S % sc:

@@ -60,6 +60,16 @@ The weights are created frozen, for serving. The forward is
 differentiable: a trainer turns gradients on with ``requires_grad_()``,
 and attention then runs through the flash kernel's autograd function
 (``kernels.ops.FlashAttention``), whose backward is a kernel too.
+
+Sharded: ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take
+``shd``, a ``distributed.sharding.ModelSharding``, at the reference's
+sites: each encoder layer's weights (``encslice``) and input (``act``),
+the embedding (``embed``, then ``act``), each layer's weights
+(``pslice``) and input (``act``), the head (``head``). The weights,
+tokens, context and cache are then DTensors on its mesh (``launch.steps``
+places them), and every op computes the global function, as the
+reference's partitioner does. ``shd=None`` is the one-device path,
+unchanged.
 """
 from __future__ import annotations
 
@@ -72,9 +82,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distributed.sharding import is_dtensor, write
 from . import ssm
 from .layers import (block_causal_attention, decode_attention, gated_mlp,
-                     moe_ffn, rms_norm, rope)
+                     moe_ffn, replicated, rms_norm, rope)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -183,57 +194,75 @@ class Layer(nn.Module):
             self.w3 = dense((d, cfg.d_ff))
             self.w2 = dense((cfg.d_ff, d))
 
-    def q(self, h: torch.Tensor, cross: bool = False):
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """The layer's own parameters by name (what ``ModelSharding``
+        puts at their at-use placements)."""
+        return dict(self.named_parameters(recurse=False))
+
+    def _w(self, w: Optional[Dict], name: str) -> torch.Tensor:
+        """Weight ``name``: from ``w`` (at-use weights) when given, else
+        the layer's own."""
+        return getattr(self, name) if w is None else w[name]
+
+    def q(self, h: torch.Tensor, cross: bool = False, w=None):
         """(B,S,d) -> q (B,S,H,hd): ``wq`` and its bias, or the cross
-        sublayer's ``xq`` (no bias, as in the reference)."""
+        sublayer's ``xq`` (no bias, as in the reference). ``w``: the
+        weights to use in place of the layer's (:meth:`weights`' keys),
+        here and in the methods below."""
         B, S, _ = h.shape
         H, _, hd = self.shape
         if cross:
-            return (h @ self.xq).reshape(B, S, H, hd)
-        q = h @ self.wq
+            return (h @ self._w(w, "xq")).reshape(B, S, H, hd)
+        q = h @ self._w(w, "wq")
         if self.qkv_bias:
-            q = q + self.bq
+            q = q + self._w(w, "bq")
         return q.reshape(B, S, H, hd)
 
-    def kv(self, src: torch.Tensor, cross: bool = False):
+    def kv(self, src: torch.Tensor, cross: bool = False, w=None):
         """(B,L,d) -> k and v (B,L,KV,hd): ``wk``/``wv`` and their
         biases, or the cross sublayer's ``xk``/``xv``."""
         B, L, _ = src.shape
         _, KV, hd = self.shape
         if cross:
-            k, v = src @ self.xk, src @ self.xv
+            k, v = src @ self._w(w, "xk"), src @ self._w(w, "xv")
         else:
-            k, v = src @ self.wk, src @ self.wv
+            k, v = src @ self._w(w, "wk"), src @ self._w(w, "wv")
             if self.qkv_bias:
-                k, v = k + self.bk, v + self.bv
+                k, v = k + self._w(w, "bk"), v + self._w(w, "bv")
         return k.reshape(B, L, KV, hd), v.reshape(B, L, KV, hd)
 
-    def qkv(self, h: torch.Tensor):
+    def qkv(self, h: torch.Tensor, w=None):
         """(B,S,d) -> q (B,S,H,hd), k and v (B,S,KV,hd)."""
-        return (self.q(h), *self.kv(h))
+        return (self.q(h, w=w), *self.kv(h, w=w))
 
-    def mix(self, h: torch.Tensor, state=None, *, decode: bool = False):
+    def mix(self, h: torch.Tensor, state=None, *, decode: bool = False,
+            w=None):
         """A state-space layer's mixer over h (B,S,d) from ``state`` (None:
-        zero), or over one token (``decode``). Returns (y, new state)."""
-        p = dict(self.named_parameters(recurse=False))
+        zero), or over one token (``decode``). Returns (y, new state). On
+        DTensors the mixer runs replicated (``layers.replicated``): its
+        chunk loops have no sharding rules."""
+        p = self.weights() if w is None else w
         s = self.ssm
         if self.kind == "mamba":
             kw = {"d_state": s.d_state, "head_dim": s.head_dim,
                   "d_conv": s.d_conv}
-            if decode:
-                return ssm.mamba_decode(p, h, state, **kw)
-            return ssm.mamba_mix(p, h, state, **kw)
-        if decode:
-            return ssm.rwkv6_decode(p, h, state, head_dim=s.head_dim)
-        return ssm.rwkv6_mix(p, h, state, head_dim=s.head_dim)
+            fn = ssm.mamba_decode if decode else ssm.mamba_mix
+        else:
+            kw = {"head_dim": s.head_dim}
+            fn = ssm.rwkv6_decode if decode else ssm.rwkv6_mix
+        if is_dtensor(h):
+            return replicated(fn, p, h, state, **kw)
+        return fn(p, h, state, **kw)
 
-    def ffn(self, h: torch.Tensor):
+    def ffn(self, h: torch.Tensor, w=None):
         """(B,S,d) -> (out (B,S,d), the MoE's aux loss or None)."""
         if self.moe is None:
-            return gated_mlp({"w1": self.w1, "w3": self.w3, "w2": self.w2},
-                             h), None
-        return moe_ffn({"router": self.router, "w1": self.moe_w1,
-                        "w3": self.moe_w3, "w2": self.moe_w2}, h,
+            return gated_mlp({"w1": self._w(w, "w1"), "w3": self._w(w, "w3"),
+                              "w2": self._w(w, "w2")}, h), None
+        return moe_ffn({"router": self._w(w, "router"),
+                        "w1": self._w(w, "moe_w1"),
+                        "w3": self._w(w, "moe_w3"),
+                        "w2": self._w(w, "moe_w2")}, h,
                        n_experts=self.moe.n_experts, top_k=self.moe.top_k,
                        capacity_factor=self.moe.capacity_factor)
 
@@ -263,7 +292,8 @@ class LM(nn.Module):
     encoder wq and wk from one key, wv and wo from another, w1, w3 and
     w2 from a third, and ``pos`` and ``enc_pos`` from one key, so that
     ``w1 == w3`` and ``pos == enc_pos`` there (and ``wk == wq``, ``wo ==
-    wv`` where KV = H and d = H * hd).
+    wv`` where KV = H and d = H * hd). On the ``meta`` device nothing is
+    drawn: the leaves have their shapes and dtypes only.
     """
 
     def __init__(self, cfg: ArchConfig, device=None,
@@ -273,11 +303,15 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        gen = generator if generator is not None else \
+        meta = dev.type == "meta"   # shapes and dtypes only, nothing drawn
+        gen = generator if generator is not None or meta else \
             torch.Generator(device=dev).manual_seed(0)
         w_scale = 1.0 / math.sqrt(cfg.n_periods)
 
         def dense(shape, scale=w_scale):
+            if meta:
+                return _frozen(torch.empty(shape, dtype=self.dtype,
+                                           device=dev))
             t = torch.randn(shape, generator=gen, dtype=F32,
                             device=gen.device) * scale
             return _frozen(t.to(BF16).to(device=dev, dtype=self.dtype))
@@ -318,7 +352,7 @@ class LM(nn.Module):
         slot."""
         return self.cfg.is_encdec or "cross" in self.cfg.slot_kinds()
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, shd=None) -> torch.Tensor:
         """The reference's ``_encoder``: frames (B, S, d) plus ``enc_pos``,
         then per encoder layer a norm, all-pairs self-attention (the
         kernel's block default, 1024, as the reference passes none), a
@@ -327,13 +361,19 @@ class LM(nn.Module):
         B, S, _ = frames.shape
         x = frames.to(self.dtype) + self.enc_pos[:S]
         for layer in self.encoder:
-            q, k, v = layer.qkv(rms_norm(x, layer.ln1, cfg.norm_eps))
+            w = None
+            if shd is not None:
+                w = shd.encslice(layer.weights())
+                x = shd.act(x)
+            q, k, v = layer.qkv(
+                rms_norm(x, layer._w(w, "ln1"), cfg.norm_eps), w=w)
             a = block_causal_attention(q, k, v, causal=False)
-            x = x + a.reshape(B, S, -1) @ layer.wo
-            x = x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))[0]
+            x = x + a.reshape(B, S, -1) @ layer._w(w, "wo")
+            x = x + layer.ffn(rms_norm(x, layer._w(w, "ln2"), cfg.norm_eps),
+                              w=w)[0]
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
-    def _context(self, ctx: Optional[torch.Tensor], batch: int):
+    def _context(self, ctx: Optional[torch.Tensor], batch: int, shd=None):
         """What the cross layers attend: None for a config without them;
         else ``ctx`` (B, L, d) in the model dtype, through the encoder for
         an encoder-decoder config. Raises ``ValueError`` on a missing
@@ -350,54 +390,61 @@ class LM(nn.Module):
             raise ValueError(f"{cfg.name}: context {tuple(ctx.shape)} is "
                              f"not ({batch}, L, {cfg.d_model})")
         ctx = ctx.to(self.dtype)
-        return self.encode(ctx) if cfg.is_encdec else ctx
+        return self.encode(ctx, shd) if cfg.is_encdec else ctx
 
     def _period(self, x: torch.Tensor, aux: torch.Tensor, layers,
                 positions: torch.Tensor, attn_block: int,
                 ctx: Optional[torch.Tensor] = None,
-                states: Optional[list] = None):
+                states: Optional[list] = None, shd=None):
         """One period's ``layers`` over the full sequence (the body of the
         reference's ``period``): returns x and aux with its layers added.
         ``ctx`` is what the cross layers attend (:meth:`_context`).
         ``states``, when given, gets each layer's cache entry in order: an
         attention layer's dict of k, v (and the cross sublayer's xk, xv),
         a cross layer's ck, cv, a state-space layer's final state (each
-        layer starts from a zero state, as in the reference)."""
+        layer starts from a zero state, as in the reference). ``shd``: each
+        layer's weights at their at-use placements and x constrained at
+        its start (module docstring)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        for layer in layers:
-            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+        for i, layer in enumerate(layers):
+            w = None
+            if shd is not None:
+                w = shd.pslice(f"slot{i}", layer.weights())
+                x = shd.act(x)
+            h = rms_norm(x, layer._w(w, "ln1"), cfg.norm_eps)
             if layer.kind == "attn":
-                q, k, v = layer.qkv(h)
+                q, k, v = layer.qkv(h, w=w)
                 if cfg.rope:
                     q = rope(q, positions, cfg.rope_theta)
                     k = rope(k, positions, cfg.rope_theta)
                 a = block_causal_attention(q, k, v,
                                            window=cfg.sliding_window,
                                            block=attn_block)
-                x = x + a.reshape(B, S, -1) @ layer.wo
+                x = x + a.reshape(B, S, -1) @ layer._w(w, "wo")
                 state = {"k": k, "v": v}
                 if layer.cross_sublayer:  # after self-attention, normed
-                    hx = rms_norm(x, layer.ln_x, cfg.norm_eps)
-                    kx, vx = layer.kv(ctx, cross=True)
-                    a = block_causal_attention(layer.q(hx, cross=True), kx,
-                                               vx, causal=False,
+                    hx = rms_norm(x, layer._w(w, "ln_x"), cfg.norm_eps)
+                    kx, vx = layer.kv(ctx, cross=True, w=w)
+                    a = block_causal_attention(layer.q(hx, cross=True, w=w),
+                                               kx, vx, causal=False,
                                                block=attn_block)
-                    x = x + a.reshape(B, S, -1) @ layer.xo
+                    x = x + a.reshape(B, S, -1) @ layer._w(w, "xo")
                     state.update(xk=kx, xv=vx)
             elif layer.kind == "cross":
                 # k/v from the raw context: no norm, no rope
-                k, v = layer.kv(ctx)
-                a = block_causal_attention(layer.q(h), k, v, causal=False,
-                                           block=attn_block)
-                x = x + a.reshape(B, S, -1) @ layer.wo
+                k, v = layer.kv(ctx, w=w)
+                a = block_causal_attention(layer.q(h, w=w), k, v,
+                                           causal=False, block=attn_block)
+                x = x + a.reshape(B, S, -1) @ layer._w(w, "wo")
                 state = {"ck": k, "cv": v}
             else:
-                y, state = layer.mix(h)
+                y, state = layer.mix(h, w=w)
                 x = x + y
             if states is not None:
                 states.append(state)
-            y, a_loss = layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))
+            y, a_loss = layer.ffn(rms_norm(x, layer._w(w, "ln2"),
+                                           cfg.norm_eps), w=w)
             x = x + y
             if a_loss is not None:
                 aux = aux + a_loss
@@ -405,7 +452,7 @@ class LM(nn.Module):
 
     def _trunk(self, tokens: torch.Tensor, attn_block: int,
                states: Optional[list] = None, remat: bool = False,
-               ctx: Optional[torch.Tensor] = None):
+               ctx: Optional[torch.Tensor] = None, shd=None):
         """Embed (plus the learned positions), the context
         (:meth:`_context`), every period over the full sequence, final
         norm. Returns the hidden states and the sum of the MoE layers' aux
@@ -414,26 +461,41 @@ class LM(nn.Module):
         reference's ``jax.checkpoint(period)``."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens].to(self.dtype)
+        x = self._embed(tokens, shd)
         if cfg.learned_pos:
             x = x + self.pos[:S]
-        ctx = self._context(ctx, B)
+        ctx = self._context(ctx, B, shd)
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux = torch.zeros((), dtype=F32, device=x.device)
+        if shd is not None:
+            positions, aux = shd.replicate(positions), shd.replicate(aux)
         for p0 in range(0, len(self.layers), cfg.period):
             layers = self.layers[p0:p0 + cfg.period]
             if remat:
                 x, aux = checkpoint(self._period, x, aux, layers, positions,
-                                    attn_block, ctx, use_reentrant=False)
+                                    attn_block, ctx, None, shd,
+                                    use_reentrant=False)
             else:
                 x, aux = self._period(x, aux, layers, positions, attn_block,
-                                      ctx, states)
+                                      ctx, states, shd)
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
+
+    def _embed(self, tokens: torch.Tensor, shd=None) -> torch.Tensor:
+        """The tokens' embedding rows in the model dtype. Sharded: the
+        at-use embedding (vocab over 'model') looked up shard by shard
+        (``ModelSharding.lookup``), then constrained by ``act``."""
+        if shd is None:
+            return self.embed[tokens].to(self.dtype)
+        return shd.act(shd.lookup(tokens, shd.embed(self.embed))
+                       ).to(self.dtype)
+
+    def _head(self, shd=None) -> torch.Tensor:
+        return self.lm_head if shd is None else shd.head(self.lm_head)
 
     def forward(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None, *,
                 attn_block: int = 1024, return_aux: bool = False,
-                remat: bool = False):
+                remat: bool = False, shd=None):
         """tokens (B, S) integer -> logits (B, S, V); with ``return_aux``
         (logits, aux), ``aux`` the MoE load-balance loss summed over the
         layers (float32 scalar), as the reference's ``forward`` returns.
@@ -441,31 +503,37 @@ class LM(nn.Module):
         cross slots (module docstring). ``remat`` recomputes each
         period's layers in the backward instead of keeping their
         activations (the reference's ``remat``): the same loss and
-        gradients, bit for bit, for less memory."""
-        x, aux = self._trunk(tokens, attn_block, remat=remat, ctx=ctx)
-        logits = x @ self.lm_head
+        gradients, bit for bit, for less memory. ``shd``: the sharded
+        path (module docstring)."""
+        x, aux = self._trunk(tokens, attn_block, remat=remat, ctx=ctx,
+                             shd=shd)
+        logits = x @ self._head(shd)
         return (logits, aux) if return_aux else logits
 
-    def init_cache(self, B: int, seq_cap: int, ctx_len: int = 0) -> Dict:
+    def init_cache(self, B: int, seq_cap: int, ctx_len: int = 0,
+                   shd=None) -> Dict:
         """A zero cache of the reference's layout (module docstring), its
         cross K/V for a context of ``ctx_len`` positions, on the model's
-        device (:func:`init_cache`)."""
-        return init_cache(self.cfg, B, seq_cap, ctx_len, device=self.device)
+        device (:func:`init_cache`); placed on ``shd``'s mesh by the
+        cache specs when given."""
+        cache = init_cache(self.cfg, B, seq_cap, ctx_len, device=self.device)
+        return cache if shd is None else shd.place_cache(cache)
 
     def prefill(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None, *, seq_cap: int,
-                attn_block: int = 1024):
+                attn_block: int = 1024, shd=None):
         """Full forward that fills a fresh cache of ``seq_cap`` positions
         (and the cross K/V of ``ctx``'s positions). Returns the logits of
-        the last position (B, V) and the cache."""
+        the last position (B, V) and the cache (placed by the cache specs
+        under ``shd``)."""
         B, S = tokens.shape
         if S > seq_cap:
             raise ValueError(f"prefill of {S} positions into a cache of "
                              f"{seq_cap}")
         states: list = []
-        x, _ = self._trunk(tokens, attn_block, states, ctx=ctx)
+        x, _ = self._trunk(tokens, attn_block, states, ctx=ctx, shd=shd)
         cache = self.init_cache(
-            B, seq_cap, ctx.shape[1] if self.needs_context else 0)
+            B, seq_cap, ctx.shape[1] if self.needs_context else 0, shd)
         cache["len"] = S
         period, W = self.cfg.period, self.cfg.sliding_window
         n = min(S, _cache_cap(self.cfg, seq_cap))
@@ -473,24 +541,25 @@ class LM(nn.Module):
             c, p = cache[f"slot{layer_idx % period}"], layer_idx // period
             if isinstance(state, tuple):        # a state-space layer
                 for stack, t in zip(c, state):
-                    stack[p] = t
+                    write(stack, (p,), t)
                 continue
             for key, t in state.items():
                 if key not in ("k", "v"):       # the context's K/V, whole
-                    c[key][p] = t
+                    write(c[key], (p,), t)
                     continue
                 if W and S > W:  # the last W positions, into slots 0..W-1
                     t = t[:, -W:]
-                c[key][p, :, :n] = t[:, :n]
-        return x[:, -1] @ self.lm_head, cache
+                write(c[key], (p, slice(None), slice(0, n)), t[:, :n])
+        return x[:, -1] @ self._head(shd), cache
 
-    def decode_step(self, token: torch.Tensor, cache: Dict):
+    def decode_step(self, token: torch.Tensor, cache: Dict, shd=None):
         """One serving step: token (B, 1) + cache -> (logits (B, V), cache
         with ``len + 1``). Position ``pos`` goes to k/v slot ``pos``, or to
         ``pos % cap`` in the ring of a sliding window, and takes the
         learned position row ``pos % max_seq``; the cross layers read the
         context's K/V that the prefill cached; a state-space layer steps
-        its state once."""
+        its state once. ``shd``: the sharded path (module docstring), the
+        cache placed by the cache specs."""
         cfg = self.cfg
         B = token.shape[0]
         pos = cache["len"]
@@ -504,43 +573,50 @@ class LM(nn.Module):
                 raise ValueError(f"decode at position {pos}: the cache "
                                  f"holds {cap}")
             slot = pos % cap if W else pos
-        x = self.embed[token[:, 0]][:, None].to(self.dtype)
+        x = self._embed(token[:, 0], shd)[:, None]
         if cfg.learned_pos:
             x = x + self.pos[pos % self.pos.shape[0]]
         pvec = torch.full((B, 1), pos, device=x.device)
         for layer_idx, layer in enumerate(self.layers):
             c = cache[f"slot{layer_idx % cfg.period}"]
             p = layer_idx // cfg.period
-            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            w = None
+            if shd is not None:
+                w = shd.pslice(f"slot{layer_idx % cfg.period}",
+                               layer.weights())
+            h = rms_norm(x, layer._w(w, "ln1"), cfg.norm_eps)
             if layer.kind == "attn":
-                kc, vc = c["k"][p], c["v"][p]
-                q, k, v = layer.qkv(h)
+                q, k, v = layer.qkv(h, w=w)
                 if cfg.rope:
                     q = rope(q, pvec, cfg.rope_theta)
                     k = rope(k, pvec, cfg.rope_theta)
-                kc[:, slot] = k[:, 0]
-                vc[:, slot] = v[:, 0]
+                write(c["k"], (p, slice(None), slot), k[:, 0])
+                write(c["v"], (p, slice(None), slot), v[:, 0])
+                kc, vc = c["k"][p], c["v"][p]
                 a = decode_attention(q, kc, vc, pos + 1, window=W)
-                x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.wo
+                x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer._w(w, "wo")
                 if layer.cross_sublayer:
-                    hx = rms_norm(x, layer.ln_x, cfg.norm_eps)
+                    hx = rms_norm(x, layer._w(w, "ln_x"), cfg.norm_eps)
                     kx = c["xk"][p]
-                    a = decode_attention(layer.q(hx, cross=True), kx,
+                    a = decode_attention(layer.q(hx, cross=True, w=w), kx,
                                          c["xv"][p], kx.shape[1])
-                    x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.xo
+                    x = x + a.reshape(B, 1, -1).to(x.dtype) \
+                        @ layer._w(w, "xo")
             elif layer.kind == "cross":
                 kx = c["ck"][p]
-                a = decode_attention(layer.q(h), kx, c["cv"][p],
+                a = decode_attention(layer.q(h, w=w), kx, c["cv"][p],
                                      kx.shape[1])
-                x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer.wo
+                x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer._w(w, "wo")
             else:
-                y, state = layer.mix(h, tuple(t[p] for t in c), decode=True)
+                y, state = layer.mix(h, tuple(t[p] for t in c), decode=True,
+                                     w=w)
                 for stack, t in zip(c, state):
-                    stack[p] = t
+                    write(stack, (p,), t)
                 x = x + y
-            x = x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))[0]
+            x = x + layer.ffn(rms_norm(x, layer._w(w, "ln2"), cfg.norm_eps),
+                              w=w)[0]
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x[:, 0] @ self.lm_head, {**cache, "len": pos + 1}
+        return x[:, 0] @ self._head(shd), {**cache, "len": pos + 1}
 
 
 
@@ -595,7 +671,7 @@ def init_cache(cfg: ArchConfig, B: int, seq_cap: int, ctx_len: int = 0,
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
             attn_block: int = 1024, aux_coef: float = 0.01,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, shd=None, params=None) -> torch.Tensor:
     """Causal LM loss, the reference's ``loss_fn``: next-token cross
     entropy over float32 logits, averaged over the targets >= 0 (a target
     < 0 is masked), plus ``aux_coef`` times the MoE load-balance loss
@@ -603,10 +679,21 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
     (B, S) integer tensors on the model's device, and for a config with
     an encoder or cross slots its context ``ctx`` (B, L, d), which goes to
     the forward as the reference's ``batch.get("ctx")`` does. ``remat`` as
-    in :meth:`LM.forward`."""
+    in :meth:`LM.forward`. ``shd``: the sharded path (module docstring;
+    the logits are gathered whole over 'model' before the loss, as
+    DTensor's masked gather over a vocab shard fails). ``params``: tensors
+    that stand in for the model's parameters of those names in this call
+    (``torch.func.functional_call``), such as the sharded step's embed and
+    head taken to their at-use placements once per step."""
     targets = batch["targets"]
-    logits, aux = model(batch["tokens"], batch.get("ctx"),
-                        attn_block=attn_block, return_aux=True, remat=remat)
+    args = (batch["tokens"], batch.get("ctx"))
+    kw = dict(attn_block=attn_block, return_aux=True, remat=remat, shd=shd)
+    if params:
+        logits, aux = torch.func.functional_call(model, params, args, kw)
+    else:
+        logits, aux = model(*args, **kw)
+    if shd is not None:
+        logits = shd.rows(logits)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,

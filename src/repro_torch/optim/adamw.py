@@ -13,14 +13,22 @@ Unlike the reference, which returns new trees, :func:`apply_updates`
 writes the parameters and the moments in place: at full width they are
 6.2 GB, and one copy of them is enough. The step count and the schedule
 stay tensors on the state's device, so a step needs no host sync.
+
+On DTensor leaves (the sharded step) the same arithmetic computes the
+global step: the clip's norm sums every shard's squares, the plain scalars
+(rate, bias corrections) mix in under ``implicit_replication``, and each
+new moment and parameter is written back at its own placement.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
+
+from ..distributed.sharding import is_dtensor
 
 F32 = torch.float32
 
@@ -74,6 +82,22 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
                           for g in tensors))
 
 
+def _mixing(sharded: bool):
+    """Plain tensors mix with DTensors as replicated (the sharded step's
+    scalars), or nothing changes."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _like(t, ref):
+    """``t`` at ``ref``'s placements (a DTensor), or as it is."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
@@ -93,16 +117,18 @@ def apply_updates(params: Dict[str, torch.Tensor],
     bc2 = 1.0 - torch.pow(b2, stepf)
     decay = set(n for n, p in params.items() if p.dim() >= 2) \
         if decay is None else set(decay)
-    for name, p in params.items():
-        m, v = state.mu[name], state.nu[name]
-        g = grads[name].to(F32) * scale
-        m32 = b1 * m.to(F32) + (1 - b1) * g
-        v32 = b2 * v.to(F32) + (1 - b2) * g * g
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if name in decay:
-            delta = delta + cfg.weight_decay * p.to(F32)
-        p.copy_(p.to(F32) - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
+    sharded = any(is_dtensor(p) for p in params.values())
+    with _mixing(sharded):
+        for name, p in params.items():
+            m, v = state.mu[name], state.nu[name]
+            g = grads[name].to(F32) * scale
+            m32 = b1 * m.to(F32) + (1 - b1) * g
+            v32 = b2 * v.to(F32) + (1 - b2) * g * g
+            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+            if name in decay:
+                delta = delta + cfg.weight_decay * p.to(F32)
+            p.copy_(_like(p.to(F32) - lr * delta, p))
+            m.copy_(_like(m32, m))
+            v.copy_(_like(v32, v))
     metrics = {"lr": lr, "grad_norm": gnorm, "clip_scale": scale}
     return params, OptState(step, state.mu, state.nu), metrics

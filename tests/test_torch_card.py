@@ -1577,3 +1577,54 @@ def test_cross_train_step_on_the_card_matches_the_cpu(cuda, arch, n_micro):
     assert all(np.isfinite([loss, gnorm]))
     assert abs(loss - cpu_loss) / cpu_loss <= TRAIN_LOSS_TOL
     assert abs(gnorm - cpu_gnorm) / cpu_gnorm <= TRAIN_GNORM_TOL
+
+
+# ------------------------------------------------------------ sharded
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """A world-size-1 NCCL group in this process and its 1 x 1 mesh
+    (``make_mesh_for(1)``), as chip_smoke's sharded phase starts them."""
+    import torch.distributed as dist
+    from chip_smoke import process_group
+    from repro_torch.distributed.elastic import make_mesh_for
+    if dist.is_initialized():
+        pytest.skip("a process group is running")
+    with process_group(torch, "nccl", tmp_path / "store"):
+        yield make_mesh_for(1)
+
+
+def _widened(arch):
+    """The reduced config at 4 heads of 64 (the kernels' head dim)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), d_model=256,
+                               head_dim=64, d_ff=512)
+
+
+@pytest.mark.parametrize("arch,batch,seq,n_micro", [
+    ("qwen1.5-0.5b", 4, 256, 1), ("whisper-medium", 4, 200, 2)])
+def test_sharded_train_step_on_the_card_equals_the_one_device_step(
+        card_mesh, arch, batch, seq, n_micro):
+    """chip_smoke's ``sharded_train`` at reduced widths on the card: two
+    steps over the NCCL 1 x 1 mesh against the one-device step from the
+    same init, losses and every parameter and moment bit for bit, the
+    flash kernels launched alike (whisper with its context, in two
+    microbatches)."""
+    from chip_smoke import sharded_train
+    rec = sharded_train(torch, card_mesh, _widened(arch), batch, seq, 2, 0,
+                        n_micro=n_micro)
+    assert rec["losses_equal"] and not rec["unequal_leaves"], rec
+    assert rec["launches"] == rec["plain_launches"]
+    assert rec["launches"]["flash_attention_bwd"] > 0
+
+
+def test_sharded_prefill_and_decode_on_the_card_equal_lm_s(card_mesh):
+    """chip_smoke's ``sharded_serve`` at reduced widths on the card: a
+    300-token prefill (flash kernel) and 4 decode steps over the mesh
+    equal ``LM.prefill`` and ``LM.decode_step`` bit for bit."""
+    from chip_smoke import sharded_serve
+    rec = sharded_serve(torch, card_mesh, _widened("qwen1.5-0.5b"), 2, 300,
+                        4, 0)
+    assert rec["prefill_equal"] and rec["cache_equal"], rec
+    assert rec["decode_equal"] == [True] * 4
+    assert rec["flash_launches"] == _widened("qwen1.5-0.5b").n_layers

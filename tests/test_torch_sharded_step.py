@@ -1,0 +1,427 @@
+"""The sharded step on a 4-rank gloo group: the port's ``launch.steps``
+over a ``DeviceMesh`` (DTensor) against the reference's sharded step on 4
+forced host devices, and against the port's own one-device path.
+
+One module fixture starts, side by side, one reference process (JAX on
+4 host devices, ``XLA_FLAGS=--xla_force_host_platform_device_count=4``)
+and the port's 4 ranks (``tests/_torch_mesh_jobs.py``; a ``file://``
+store under ``tmp_path``, no fixed ports). Both run one step of
+``make_train_step`` on a data 2 x model 2 mesh, in float32, with two
+microbatches, for reduced qwen1.5-0.5b and whisper-medium on the same
+numpy weights and batch
+(``test_torch_train_encdec``'s ``_weights`` and ``_batch``). Held:
+
+- the loss, the gradient norm, the rate and every leaf of the new
+  parameters and both moments, at ``test_torch_train_encdec``'s step
+  tolerances (``_close_params``, ``_close_trees``);
+- each rank's local shard of every leaf at the index of the reference's
+  shard at the same mesh coordinates (a per-layer leaf against its row of
+  the reference's stacked leaf);
+- for every reduced config, and once more on a pod 2 x data 2 x model 1
+  mesh (its train step in two microbatches, each kept over both
+  data-parallel axes), the sharded train, prefill and decode steps
+  against the port's one-device ones on the same weights
+  (``_torch_mesh_jobs._step_report`` says the tolerances);
+- ``remap_state`` from the 2 x 2 mesh (and the pod mesh) to a 1 x 2 one:
+  values equal, an axis the new mesh lacks dropped, a dim that no longer
+  divides replicated;
+- the chunk that each rank holds of a ``("data", "pod")`` dim: pod-major
+  in DTensor, data-major in the reference (ROADMAP Queue 3), the values
+  equal.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import all_arch_names, get_config
+from repro_torch.distributed import elastic
+from repro_torch.models.convert import params_to_numpy
+from repro_torch.models.lm import LM
+from repro_torch.configs import ShapeCfg
+from repro_torch.launch import steps
+from test_torch_train_encdec import (GRAD_RTOL, GRAD_SCALE_TOL, _cfgs,
+                                     _close_params, _close_trees, _weights)
+import _torch_mesh_jobs as jobs
+
+ROOT = Path(__file__).resolve().parents[1]
+REF_ARCHS = ("qwen1.5-0.5b", "whisper-medium")
+SHAPE = (64, 4)
+OPT = dict(warmup_steps=2, decay_steps=10)
+N_MICRO, ATTN_BLOCK = 2, 32
+POD_ARCH = "qwen1.5-0.5b"
+#: seconds the processes may take together: a guard against a hung
+#: collective (they take ~75 s alone, more beside other test workers)
+LIMIT_S = 600
+
+
+def _batch(cfg, seed=1):
+    """Numpy tokens, targets (the last 5 of row 0 masked) and, for a
+    config with one, the context, at ``input_specs``' shapes for SHAPE."""
+    specs = steps.input_specs(cfg, ShapeCfg("t", *SHAPE, "train"))["batch"]
+    rng = np.random.default_rng(seed)
+    out = {k: rng.integers(0, cfg.vocab, tuple(specs[k].shape))
+           .astype(np.int32) for k in ("tokens", "targets")}
+    if "ctx" in specs:
+        out["ctx"] = rng.standard_normal(tuple(specs["ctx"].shape)) \
+            .astype(np.float32)
+    out["targets"][0, -5:] = -1
+    return out
+
+
+def _env(extra=None):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), str(ROOT / "tests"),
+                    os.environ.get("PYTHONPATH", "")]))
+    env.update(extra or {})
+    return env
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Start the reference process and the 4 ranks, wait for all, and
+    return the work directory and each rank's report."""
+    work = tmp_path_factory.mktemp("mesh")
+    for arch in REF_ARCHS:
+        rcfg, tcfg = _cfgs(arch)
+        tree = _weights(rcfg, 1)
+        flat = {"w/" + "/".join(str(getattr(k, "key", k)) for k in path):
+                np.asarray(v) for path, v in
+                jax.tree_util.tree_flatten_with_path(tree)[0]}
+        flat.update({"b/" + k: v for k, v in _batch(tcfg).items()})
+        np.savez(work / f"{arch}.npz", **flat)
+    job = {"work": str(work), "ref_archs": list(REF_ARCHS),
+           "shape": list(SHAPE), "opt": OPT, "n_micro": N_MICRO,
+           "attn_block": ATTN_BLOCK, "archs": all_arch_names(),
+           "pod_arch": POD_ARCH}
+    (work / "job.json").write_text(json.dumps(job))
+    script = str(ROOT / "tests" / "_torch_mesh_jobs.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, "ref", str(work / "job.json")],
+        env=_env({"XLA_FLAGS": "--xla_force_host_platform_device_count=4"}),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(
+        [sys.executable, script, "rank", str(work / "job.json"), str(r)],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, LIMIT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    reports = [json.loads((work / f"rank{r}.json").read_text())
+               for r in range(4)]
+    return work, reports
+
+
+def _assemble(work, reports, arch):
+    """The port's new params and moments of ``arch`` as whole numpy
+    arrays from the 4 ranks' shards, keyed ``part/name``."""
+    pieces = {}
+    for r, rep in enumerate(reports):
+        with np.load(work / f"rank{r}.npz") as f:
+            for key, where in rep["shards"].items():
+                if key.startswith(arch + ":"):
+                    pieces.setdefault(key[len(arch) + 1:], []).append(
+                        (where, f[key]))
+    out = {}
+    for key, parts in pieces.items():
+        shape = [max(w[d][1] for w, _ in parts)
+                 for d in range(len(parts[0][0]))]
+        full = np.zeros(shape, parts[0][1].dtype)
+        for where, a in parts:
+            full[tuple(slice(*w) for w in where)] = a
+        out[key] = full
+    return out
+
+
+def _tree(tcfg, arrays, part):
+    return params_to_numpy(tcfg, {k[len(part) + 1:]: torch.from_numpy(v)
+                                  for k, v in arrays.items()
+                                  if k.startswith(part + "/")})
+
+
+def _ref_arrays(work, arch):
+    with np.load(work / f"{arch}.ref.npz") as f:
+        flat = dict(f)
+    meta = json.loads((work / f"{arch}.ref.json").read_text())
+    return ({part: jobs._unflatten(flat, part + "/")
+             for part in ("params", "mu", "nu")}, meta)
+
+
+@pytest.mark.parametrize("arch", REF_ARCHS)
+def test_the_sharded_step_matches_the_reference_s(runs, arch):
+    """One step on the 2 x 2 mesh against the reference's on 4 host
+    devices: loss, gradient norm and rate, then both moments and every
+    parameter (``_close_params``), whole."""
+    work, reports = runs
+    rcfg, tcfg = _cfgs(arch)
+    want, meta = _ref_arrays(work, arch)
+    got_m = reports[0]["ref"][arch]
+    np.testing.assert_allclose(got_m["loss"], meta["metrics"]["loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got_m["grad_norm"],
+                               meta["metrics"]["grad_norm"], rtol=GRAD_RTOL)
+    assert got_m["lr"] == meta["metrics"]["lr"] > 0
+    arrays = _assemble(work, reports, arch)
+    _close_trees(_tree(tcfg, arrays, "mu"), want["mu"], GRAD_RTOL,
+                 GRAD_SCALE_TOL, "mu")
+    _close_trees(_tree(tcfg, arrays, "nu"), want["nu"], 2 * GRAD_RTOL,
+                 2 * GRAD_SCALE_TOL, "nu")
+    before = _weights(rcfg, 1)
+    _close_params(_tree(tcfg, arrays, "params"), want["params"], before,
+                  want["mu"], meta["metrics"]["lr"])
+
+
+def _ref_key(tcfg, key):
+    """A port leaf ``part/name`` -> (the reference's key, its stacked row
+    or None)."""
+    part, name = key.split("/", 1)
+    bits = name.split(".")
+    if bits[0] == "layers":
+        layer = int(bits[1])
+        return (f"{part}/blocks/slot{layer % tcfg.period}/{bits[2]}",
+                layer // tcfg.period)
+    if bits[0] == "encoder":
+        return f"{part}/encoder/{bits[2]}", int(bits[1])
+    return f"{part}/{name}", None
+
+
+@pytest.mark.parametrize("arch", REF_ARCHS)
+def test_each_rank_holds_the_reference_s_shard(runs, arch):
+    """Every leaf's local shard on each rank sits at the index of the
+    reference's shard on the device at the same mesh coordinates (a
+    per-layer leaf against its row of the stacked leaf: the reference's
+    index minus its leading, whole, period dim), and holds its values."""
+    work, reports = runs
+    _, tcfg = _cfgs(arch)
+    _, meta = _ref_arrays(work, arch)
+    with np.load(work / f"{arch}.ref.npz") as f:
+        refs = dict(f)
+    n = 0
+    for r, rep in enumerate(reports):
+        coord = ",".join(map(str, rep["coord"]))
+        with np.load(work / f"rank{r}.npz") as f:
+            for key, where in rep["shards"].items():
+                if not key.startswith(arch + ":"):
+                    continue
+                leaf = key[len(arch) + 1:]
+                rkey, row = _ref_key(tcfg, leaf)
+                index = meta["index"][rkey][coord]
+                if row is not None:
+                    assert index[0] == [0, tcfg.n_periods
+                                        if rkey.split("/")[1] == "blocks"
+                                        else tcfg.encoder_layers], rkey
+                    index = index[1:]
+                assert where == index, (key, coord, where, index)
+                ref = refs[rkey] if row is None else refs[rkey][row]
+                leaf_max = np.abs(ref).max()
+                ref = ref[tuple(slice(*w) for w in where)]
+                part = leaf.split("/")[0]
+                atol = {"mu": GRAD_SCALE_TOL * leaf_max,
+                        "nu": 2 * GRAD_SCALE_TOL * leaf_max}.get(
+                    part, 2 * meta["metrics"]["lr"] + 1e-4 * leaf_max)
+                assert np.abs(f[key] - ref).max() <= atol, (key, coord)
+                n += 1
+    assert n == 4 * sum(1 for k in reports[0]["shards"]
+                        if k.startswith(arch + ":"))
+
+
+def _one_device(runs, arch, pod=False):
+    rows = [e for e in runs[1][0]["one_device"]
+            if e["arch"] == arch and e["pod"] == pod]
+    assert len(rows) == 1
+    return rows[0]
+
+
+CASES = [(a, False) for a in all_arch_names()] + [(POD_ARCH, True)]
+
+
+@pytest.mark.parametrize("arch,pod", CASES)
+def test_the_sharded_train_step_matches_the_one_device_step(runs, arch,
+                                                            pod):
+    """Loss, gradient norm, the first moment of every leaf and every
+    parameter after one step (``_step_report``'s tolerances; the noise
+    floor's elements fewer than 5%)."""
+    e = _one_device(runs, arch, pod)["train"]
+    np.testing.assert_allclose(*e["loss"], rtol=1e-5)
+    np.testing.assert_allclose(*e["grad_norm"], rtol=1e-4)
+    assert e["mu"] <= 1 and e["params"] <= 1, e
+    assert e["noise_share"] < 0.05
+    assert any("Shard" in p for p in e["placed"])
+
+
+def test_pod_mesh_microbatches_stay_over_both_data_parallel_axes(runs):
+    """On the pod 2 x data 2 x model 1 mesh, the batch arrives sharded
+    over pod and data (a dim over two mesh dims, gathered before the
+    split); each of its two microbatch slices leaves ``microbatches``
+    sharded over both again, as the reference's ``P(None, dp)`` keeps
+    them, and the step it feeds matches the one-device step
+    (``test_the_sharded_train_step_matches_the_one_device_step``)."""
+    e = _one_device(runs, POD_ARCH, pod=True)
+    assert e["slices"] == ["(Shard(dim=0), Shard(dim=0), Replicate())"], e
+
+
+@pytest.mark.parametrize("arch", all_arch_names())
+def test_sharded_prefill_and_decode_match_the_one_device_path(runs, arch):
+    """The prefill's last logits and every cache leaf, then each of the
+    greedy decode steps' logits, within 1e-4 (and 1e-4 of the largest)."""
+    e = _one_device(runs, arch)["serve"]
+    assert max(e["logits"]) <= 1 and e["cache"] <= 1, e
+    assert len(e["logits"]) == 1 + jobs.DECODE_STEPS
+    assert e["len"][0] == e["len"][1]
+
+
+def test_remap_state_moves_a_state_to_a_smaller_mesh(runs):
+    """From the 2 x 2 mesh and the pod mesh to a 1 x 2 mesh: every value
+    equal; 'pod' dropped from the moments' ('data', 'pod') dims; the
+    3-row tensor whose new spec puts 'model' on its rows replicated; every
+    tensor placed by its spec less the axes the new mesh lacks and the
+    dims they no longer divide (``elastic._clean``): the moments' embed
+    ('model', ('data', 'pod')) goes to ('model', None)."""
+    rem = runs[1][0]["remap"]
+    assert rem["equal"] and all(rem["equal"])
+    assert rem["pod_extended"]
+    assert rem["placed_by_clean_specs"]
+    assert rem["odd"] == "(Replicate(), Replicate())"
+    assert rem["mu_embed"] == "(Replicate(), Shard(dim=0))"
+
+
+def test_the_data_pod_chunk_order_departs_from_the_reference(runs):
+    """A ('data', 'pod') dim on the pod 2 x data 2 mesh: DTensor gives the
+    rank at (pod p, data d) chunk p * 2 + d (mesh order); the reference's
+    spec order gives d * 2 + p. The values are the same
+    (``test_remap_state_moves_a_state_to_a_smaller_mesh``); the chunks
+    at (0, 1) and (1, 0) swap."""
+    got = {}
+    for rep in runs[1]:
+        c = rep["remap"]["chunks"]
+        assert c["layout"] == {"pod": 2, "data": 2, "model": 1}
+        got[tuple(c["coord"][:2])] = c["chunk"]
+    assert got == {(p, d): p * 2 + d for p in range(2) for d in range(2)}
+    assert got[(0, 1)] != 1 * 2 + 0 and got[(1, 0)] != 0 * 2 + 1
+
+
+def test_the_mesh_wants_a_process_group_and_the_card():
+    """``make_mesh_for`` builds nothing without a started process group,
+    and without a card unless the CPU is asked for: it raises."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is running")
+    with pytest.raises(RuntimeError, match="process group"):
+        elastic.make_mesh_for(1, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            elastic.make_mesh_for(1)
+
+
+@pytest.fixture
+def one_rank(tmp_path):
+    """A gloo group of world size 1 in this process, and its 1 x 1 mesh
+    (``make_mesh_for(1, device="cpu")``)."""
+    import torch.distributed as dist
+    from chip_smoke import process_group
+    if dist.is_initialized():
+        pytest.skip("a process group is running")
+    with process_group(torch, "gloo", tmp_path / "store"):
+        yield elastic.make_mesh_for(1, device="cpu")
+
+
+@pytest.mark.parametrize("arch,batch,seq,n_micro", [
+    ("qwen1.5-0.5b", 4, 32, None), ("whisper-medium", 4, 24, 2)])
+def test_a_one_rank_mesh_gives_the_one_device_bits(one_rank, arch, batch,
+                                                   seq, n_micro):
+    """``chip_smoke.sharded_train`` on the CPU: the sharded step over the
+    1 x 1 mesh runs the one-device step's local ops, so two steps (the
+    losses, every parameter and moment) are bit for bit the one-device
+    step's, at ``pick_microbatches``' factor (qwen) and in two
+    microbatches (whisper, with its context)."""
+    from chip_smoke import sharded_train
+    assert dict(zip(one_rank.mesh_dim_names, one_rank.shape)) == \
+        {"data": 1, "model": 1}
+    cfg = get_config(arch).reduced()
+    rec = sharded_train(torch, one_rank, cfg, batch, seq, 2, 0,
+                        device="cpu", n_micro=n_micro)
+    assert rec["n_micro"] == (n_micro or 1)
+    assert rec["losses_equal"] and not rec["unequal_leaves"], rec
+    assert rec["leaves"] == 3 * len(dict(LM(cfg, device="meta")
+                                         .named_parameters()))
+
+
+def test_the_bf16_cast_has_one_knob(one_rank):
+    """``grad_compress_bf16=True`` casts on a mesh as on one device (it
+    sets the ``ShardCfg`` field): one step over the 1 x 1 mesh with it,
+    and one with ``ShardCfg(grad_compress_bf16=True)``, both equal the
+    one-device step with the cast bit for bit, and differ from the
+    uncast one (float32 weights, so that the cast rounds; the
+    parameters and the first moment compared). A ``ShardCfg`` without a
+    mesh, and a ``device`` with one, are refused rather than dropped."""
+    from repro_torch.distributed.sharding import ShardCfg
+    from repro_torch.optim import AdamWCfg
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              dtype="float32")
+    shape = ShapeCfg("t", 16, 2, "train")
+    opt = AdamWCfg(warmup_steps=2, decay_steps=10)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+    batch = {"tokens": toks, "targets": toks.roll(-1, dims=1)}
+
+    def params_after(**kw):
+        torch.manual_seed(0)
+        model = LM(cfg, device="cpu")
+        if kw.pop("mesh", False):
+            step, st, bs = steps.make_train_step(cfg, shape, one_rank,
+                                                 opt_cfg=opt, **kw)
+            state, b = steps.place_inputs(steps.init_state(model, opt),
+                                          batch, st, bs, one_rank)
+            state, _ = step(state, b)
+            return {**{n: p.to_local().detach()
+                       for n, p in state["params"].items()},
+                    **{"mu/" + n: t.to_local()
+                       for n, t in state["opt"].mu.items()}}
+        step = steps.make_train_step(cfg, shape, opt_cfg=opt,
+                                     device="cpu", **kw)
+        state, _ = step(steps.init_state(model, opt), batch)
+        return {**{n: p.detach() for n, p in state["params"].items()},
+                **{"mu/" + n: t for n, t in state["opt"].mu.items()}}
+
+    want = params_after(grad_compress_bf16=True)
+    plain = params_after()
+    for got in (params_after(mesh=True, grad_compress_bf16=True),
+                params_after(mesh=True, sc=ShardCfg(grad_compress_bf16=True))):
+        assert all(torch.equal(got[n], w) for n, w in want.items())
+    assert not all(torch.equal(plain[n], w) for n, w in want.items())
+    with pytest.raises(ValueError, match="ShardCfg"):
+        steps.make_train_step(cfg, shape, sc=ShardCfg(), device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        steps.make_train_step(cfg, shape, one_rank, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b"])
+def test_a_one_rank_mesh_serves_the_one_device_bits(one_rank, arch):
+    """``chip_smoke.sharded_serve`` on the CPU: a 40-token prefill and 4
+    greedy decode steps over the 1 x 1 mesh equal ``LM``'s bit for bit,
+    logits and every cache leaf."""
+    from chip_smoke import sharded_serve
+    rec = sharded_serve(torch, one_rank, get_config(arch).reduced(), 2, 40,
+                        4, 0, device="cpu")
+    assert rec["prefill_equal"] and rec["cache_equal"], rec
+    assert rec["decode_equal"] == [True] * 4
+    assert rec["len"] == [44, 44]
