@@ -94,7 +94,12 @@ Phases, one line each:
                 launch_cost, the host cost of one searchsorted call at
                 100,000 x 1 step by step: the stream read, the
                 allocation, the checks, the C call that launches, the
-                whole wrapper, and torch.searchsorted
+                whole wrapper, and torch.searchsorted; and one flash
+                forward's (1 x 64, H 2, hd 64) launched directly and
+                through the op repro_torch::flash_attention, beside SDPA;
+                and a prefill and a train step of qwen1.5-0.5b's first 4
+                layers over 512 tokens through the flash ops and with
+                the wrappers bound to the launches, in turns
      workflow — after each main path, on its engine: the workflow
                 porcelain at SF1 — a branch, a C4 edit on it, then a pull
                 request's review diff, CI checks on the merged preview,
@@ -238,7 +243,24 @@ Phases, one line each:
                 through make_prefill_step / make_decode_step against
                 LM.prefill / decode_step, logits and cache bit for bit;
                 step ms with and without the mesh, peak memory and the
-                attention kernels' launches in the mesh's windows
+                attention kernels' launches in the mesh's windows; the
+                mesh's first qwen step under FlopCounterMode
+     dryrun   — the dry run (launch.dryrun), traced in a child process
+                started after train_models' timed steps, beside its
+                card-vs-CPU checks, which are not timed, and joined before
+                the sharded phase (fake process groups cannot share one
+                with the sharded phase's NCCL group; the trace takes the
+                host's CPU): internlm2-1.8b train_4k, mixtral
+                decode_32k, rwkv6-7b long_500k and whisper-medium
+                prefill_32k on a fake 256-rank 16 x 16 mesh and internlm2
+                train_4k on a fake 512-rank 2 x 16 x 16 one, at published
+                widths with fake CUDA tensors (the reference's keys and
+                each cell's trace seconds); no kernel launched and no byte
+                allocated on the card during the traces; qwen's 4 x 2,048
+                train step traced on a fake 1 x 1 mesh against the
+                sharded phase's real step: FLOPs within 1% of
+                FlopCounterMode's count, and the tracked peak and the
+                roofline's compute time over the real peak and warm step
 
 It exits non-zero (and prints no result) without a CUDA device or
 without the repository's sources, and on any failed check. Its last line
@@ -512,6 +534,19 @@ TRAIN_MODELS_STEPS = 4
 SHARDED_TRAIN = (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, 2)
 SHARDED_CONTEXT = ("whisper-medium", 16, 1500, 2)
 SHARDED_SERVE = (TRAIN_ARCH, 1, 2048, 8)
+# The dry-run phase: the reference's four test cells and internlm2's
+# train cell on the two-pod mesh, traced at published widths on fake 256-
+# and 512-rank meshes with fake CUDA tensors; then the sharded phase's
+# qwen train step (4 x 2,048 tokens) on a fake 1 x 1 mesh, held against
+# the real step's FLOPs (within DRYRUN_FLOPS_TOL), memory and time
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+                ("mixtral-8x7b", "decode_32k", False),
+                ("rwkv6-7b", "long_500k", False),
+                ("whisper-medium", "prefill_32k", False),
+                ("internlm2-1.8b", "train_4k", True))
+DRYRUN_FLOPS_TOL = 0.01
+# seconds the parent waits for the dry-run child after its other phases
+DRYRUN_WAIT_S = 300
 TRAIN_MODELS_SAMPLES = 64   # samples of each config's pinned corpus
 # mixtral's window in its card-vs-CPU step, cut so that it binds at
 # TRAIN_MODELS_CHECK's 128 tokens
@@ -529,6 +564,12 @@ PROBE_GROUPS = (("1-32 queries", 1, 32), ("33-1023 queries", 33, 1023),
                 (">= 65,536 queries", 65_536, None))
 # table rows, queries: one query, so the launch is all of a call's cost
 LAUNCH_COST_SHAPE = (100_000, 1)
+# (B, S, H, hd) of the flash launch-cost call: one query tile per head
+FLASH_COST_SHAPE = (1, 64, 2, 64)
+# the flash ops' dispatch end to end (flash_path_steps): a prefill and a
+# train step of this config's first layers, at its widths
+FLASH_STEP_ARCH, FLASH_STEP_LAYERS, FLASH_STEP_TOKENS = \
+    "qwen1.5-0.5b", 4, 512
 # SQL diff re-runs after the main path, plain and split into steps
 SQL_DIFF_REPEATS = 6
 # the segsum kernel's name in a profiler trace
@@ -1814,6 +1855,130 @@ def launch_cost(torch, seed: int, iters: int = 2000) -> dict:
                       torch.searchsorted(lib_tab, lib_q)),
           "searchsorted differs from torch.searchsorted at the launch-cost "
           "shape")
+    rec["flash"] = flash_launch_cost(torch, seed, iters)
+    return rec
+
+
+def flash_launch_cost(torch, seed: int, iters: int) -> dict:
+    """Host cost of one flash forward at FLASH_COST_SHAPE, before and
+    after the kernel went behind the op ``repro_torch::flash_attention``:
+    ``direct`` is the wrapper's former body (the checks, the outputs and
+    the launch: ``flash_attention._launch``, which the op's CUDA
+    registration runs), ``op`` the wrapper through the op's dispatch,
+    and SDPA's call beside them; host µs per call over ``iters``
+    back-to-back calls, and per call with a synchronize each. The two
+    paths' outputs must be equal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    b, sq, h, hd = FLASH_COST_SHAPE
+    q, k, v = (torch.randn((b, sq, h, hd), generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    calls = {
+        "direct": lambda: fa._launch(q, k, v, True, None, None, False),
+        "op": lambda: fa.flash_attention(q, k, v),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)}
+
+    def host_us(fn, sync=False):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    rec = {"shape": list(FLASH_COST_SHAPE), "iters": iters,
+           "host_us": {k: host_us(f) for k, f in calls.items()},
+           "synced_host_us": {k: host_us(f, True) for k, f in calls.items()}}
+    rec["op_minus_direct_us"] = rec["host_us"]["op"] \
+        - rec["host_us"]["direct"]
+    check(torch.equal(calls["direct"]()[0], calls["op"]()),
+          "the flash op's output differs from the direct launch's")
+    rec["steps"] = flash_path_steps(torch, seed)
+    return rec
+
+
+def flash_path_steps(torch, seed: int, rounds: int = 4,
+                     reps: int = 5) -> dict:
+    """The flash ops' dispatch end to end: a prefill and a train step
+    (the loss's forward and backward, recomputed layers included) of
+    FLASH_STEP_ARCH's first FLASH_STEP_LAYERS layers at its widths, over
+    FLASH_STEP_TOKENS tokens, each timed through the ops (``op``) and
+    with the wrappers bound to the kernels' launches as they were before
+    the ops (``direct``), in turns (op, direct, direct, op, ...) over
+    ``rounds``: ms per call to a synchronize, the median of ``reps``
+    calls each turn. Both paths' logits and gradients must be equal."""
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.models import lm
+    from repro_torch.models.lm import LM
+
+    cfg = first_layers(get_config(FLASH_STEP_ARCH), FLASH_STEP_LAYERS)
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator("cuda").manual_seed(seed))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (1, FLASH_STEP_TOKENS + 1),
+                           generator=g, device="cuda")
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    params = list(model.requires_grad_().parameters())
+    paths = {
+        "op": (fa._flash_op, fab._bwd_op),
+        "direct": (lambda q, k, v, causal, window, block, block_m, lse:
+                   fa._launch(q, k, v, causal, window, block_m, lse),
+                   lambda q, k, v, o, lse, do, causal, window:
+                   fab._launch(q, k, v, o, lse, do, causal, window))}
+    runs = {
+        "prefill": lambda: prefill(batch["tokens"]),
+        "train": lambda: torch.autograd.grad(
+            lm.loss_fn(model, batch, remat=True), params)}
+
+    def use(path):
+        fa._flash_op, fab._bwd_op = paths[path]
+
+    def prefill(tokens):
+        with torch.no_grad():
+            return model.prefill(tokens, seq_cap=FLASH_STEP_TOKENS)[0]
+
+    def ms(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    rec = {"arch": FLASH_STEP_ARCH, "layers": FLASH_STEP_LAYERS,
+           "tokens": FLASH_STEP_TOKENS,
+           "ms": {r: {"op": [], "direct": []} for r in runs}}
+    try:
+        got = {}
+        for path in paths:
+            use(path)
+            got[path] = [runs["prefill"]()] + list(runs["train"]())
+        check(all(torch.equal(a, b) for a, b in zip(got["op"],
+                                                   got["direct"])),
+              "the flash ops' prefill or gradients differ from the direct "
+              "launches'")
+        for i in range(rounds):
+            for path in (("op", "direct") if i % 2 == 0
+                         else ("direct", "op")):
+                use(path)
+                for r, fn in runs.items():
+                    rec["ms"][r][path].append(ms(fn))
+    finally:
+        use("op")
+    rec["median_ms"] = {r: {p: statistics.median(v) for p, v in d.items()}
+                        for r, d in rec["ms"].items()}
     return rec
 
 
@@ -4105,7 +4270,7 @@ def train_model(torch, arch: str, layers, batch: int, seq: int,
     return rec
 
 
-def train_models_phase(torch, seed: int) -> dict:
+def train_models_phase(torch, seed: int, before_checks=None) -> dict:
     """Every config of TRAIN_MODELS through ``train_model``, each trained
     and freed before the next; then the card-vs-CPU step with remat for
     each MoE config at one layer, the card's routes replayed on the CPU
@@ -4115,7 +4280,8 @@ def train_models_phase(torch, seed: int) -> dict:
     MLP); and for each config with a context, over a context of its
     row's length: whisper-medium at one encoder and one decoder layer,
     llama-3.2-vision-90b at its cross layer (slot 0), their queries
-    scaled by ``unit_scores``."""
+    scaled by ``unit_scores``. ``before_checks`` (a callable, or None)
+    runs between the timed training and the checks."""
     import dataclasses
 
     from repro_torch.configs import get_config, period_slots
@@ -4132,6 +4298,8 @@ def train_models_phase(torch, seed: int) -> dict:
               profile_step={k: v for k, v in recs[-1]["profile_step"].items()
                             if k != "top_kernels"},
               top_kernels=recs[-1]["profile_step"]["top_kernels"][:5])
+    if before_checks is not None:
+        before_checks()
     for arch, layers, _, seq in TRAIN_MODELS:
         cfg = get_config(arch)
         if cfg.is_encdec:
@@ -4237,7 +4405,8 @@ def unequal_leaves(torch, got: dict, want: dict) -> list:
 
 def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
                   seed: int, device: str = "cuda",
-                  n_micro: Optional[int] = None) -> dict:
+                  n_micro: Optional[int] = None,
+                  count_flops: bool = False) -> dict:
     """``n_steps`` of ``launch.steps.make_train_step`` over ``mesh`` and
     the same steps of its one-device form, each from ``LM(cfg)``'s own
     init on the card, at ``pick_microbatches``' factor on the mesh (or
@@ -4246,7 +4415,9 @@ def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
     from ``seed``): the losses, and every parameter and AdamW moment after
     the last step, bit for bit; each side's step ms (the median after the
     first), the attention kernels' launches and peak memory (above what
-    was allocated when the run began). ``device`` "cpu" runs both on the CPU (the tests)."""
+    was allocated when the run began). ``device`` "cpu" runs both on the CPU (the tests).
+    ``count_flops``: the mesh's first step runs under ``FlopCounterMode``
+    (its FLOPs in ``flops``; its time is not among the medians')."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.distributed.sharding import place_tree
     from repro_torch.kernels import build
@@ -4287,13 +4458,19 @@ def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
             step = steps.make_train_step(cfg, shape, n_micro=n_micro,
                                          device=device)
         build.reset_launches()
-        losses, ms = [], []
-        for b in batches:
+        losses, ms, flops = [], [], None
+        for i, b in enumerate(batches):
             if on_mesh:
                 b = place_tree(b, b_specs, mesh)
             sync()
             t0 = time.perf_counter()
-            state, m = step(state, b)
+            if on_mesh and count_flops and i == 0:
+                from torch.utils.flop_counter import FlopCounterMode
+                with FlopCounterMode(display=False) as fc:
+                    state, m = step(state, b)
+                flops = float(fc.get_total_flops())
+            else:
+                state, m = step(state, b)
             losses.append(local(m["loss"]).item())
             ms.append((time.perf_counter() - t0) * 1e3)
         launches = {k: build.LAUNCHES[k] for k in
@@ -4305,10 +4482,10 @@ def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
             leaves.update({f"{part}/{n}": local(t) for n, t in
                            getattr(state["opt"], part).items()})
         del state, step
-        return losses, ms, launches, peak, leaves
+        return losses, ms, launches, peak, leaves, flops
 
-    losses, ms, launches, peak, got = run(True)
-    p_losses, p_ms, p_launches, p_peak, want = run(False)
+    losses, ms, launches, peak, got, flops = run(True)
+    p_losses, p_ms, p_launches, p_peak, want, _ = run(False)
     check(all(math.isfinite(x) for x in losses), f"sharded losses {losses}")
     unequal = unequal_leaves(torch, got, want)
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -4320,7 +4497,7 @@ def sharded_train(torch, mesh, cfg, batch: int, seq: int, n_steps: int,
            "step_ms_median": statistics.median(ms[1:] or ms),
            "plain_step_ms_median": statistics.median(p_ms[1:] or p_ms),
            "launches": launches, "plain_launches": p_launches,
-           "peak_gb": peak, "plain_peak_gb": p_peak}
+           "peak_gb": peak, "plain_peak_gb": p_peak, "flops": flops}
     rec["dtensor_host_ms"] = rec["step_ms_median"] \
         - rec["plain_step_ms_median"]
     del got, want
@@ -4420,7 +4597,7 @@ def sharded_phase(torch, seed: int) -> dict:
         rec["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
         arch, b, s, n = SHARDED_TRAIN
         rec["train"] = sharded_train(torch, mesh, get_config(arch), b, s, n,
-                                     seed)
+                                     seed, count_flops=True)
         arch, b, s, n = SHARDED_CONTEXT
         rec["context"] = sharded_train(torch, mesh, get_config(arch), b, s,
                                        n, seed + 1)
@@ -4447,6 +4624,116 @@ def sharded_phase(torch, seed: int) -> dict:
         + sv["flash_launches"]
     rec["bwd_launches"] = rec["train"]["launches"]["flash_attention_bwd"] \
         + rec["context"]["launches"]["flash_attention_bwd"]
+    return rec
+
+
+# ------------------------------------------------------------ dry run
+
+def dryrun_child(out: str) -> int:
+    """The dry-run phase's trace, in a process of its own (a fake group
+    cannot share one with the sharded phase's NCCL group): DRYRUN_CELLS
+    through ``launch.dryrun.analyze_cell`` on the production meshes of
+    fake 256- and 512-rank groups, then qwen's 4 x 2,048-token train step
+    on a fake 1 x 1 mesh, all with fake CUDA tensors; the kernel launches
+    and the bytes allocated on the card across the traces. Writes its
+    record to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    before = dict(build.LAUNCHES)
+    cuda_before = torch.cuda.is_initialized()
+    rec = {"cells": []}
+    t_all = time.perf_counter()
+    for mp in (False, True):
+        with dryrun.fake_group(512 if mp else 256):
+            mesh = make_production_mesh(multi_pod=mp)
+            for arch, shape, m in DRYRUN_CELLS:
+                if m != mp:
+                    continue
+                t0 = time.perf_counter()
+                r = dryrun.analyze_cell(arch, shape, multi_pod=mp, mesh=mesh)
+                r["seconds"] = time.perf_counter() - t0
+                rec["cells"].append(r)
+    arch, b, s, _ = SHARDED_TRAIN
+    with dryrun.fake_group(1):
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        rec["qwen"] = dryrun.analyze_cell(
+            arch, ShapeCfg(f"train_{b}x{s}", s, b, "train"), multi_pod=False,
+            mesh=mesh)
+        rec["qwen"]["seconds"] = time.perf_counter() - t0
+    rec["seconds"] = time.perf_counter() - t_all
+    rec["launches"] = {k: build.LAUNCHES[k] - before[k] for k in before}
+    rec["cuda_initialized_before"] = cuda_before
+    rec["cuda_initialized_after_traces"] = torch.cuda.is_initialized()
+    rec["memory_allocated"] = torch.cuda.memory_allocated()
+    Path(out).write_text(json.dumps(rec, indent=1))
+    return 0
+
+
+def start_dryrun():
+    """Start :func:`dryrun_child` (it uses the host's CPU alone):
+    (process, its record's path, its log's path)."""
+    out = ROOT / "build" / "dryrun_child.json"
+    log = ROOT / "build" / "dryrun_child.log"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             str(out)], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def join_dryrun(child) -> float:
+    """Wait for the dry-run child, at most DRYRUN_WAIT_S (it is killed
+    past that): the seconds waited."""
+    t0 = time.perf_counter()
+    try:
+        child[0].wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        child[0].kill()
+        child[0].wait()
+    return time.perf_counter() - t0
+
+
+def dryrun_phase(child, waited: float, sharded: dict) -> dict:
+    """Hold the joined dry-run child's record (``waited``: the seconds
+    :func:`join_dryrun` waited): every cell traced (the reference's keys,
+    its trace seconds), no launch and no byte allocated on the card
+    during the traces, and qwen's fake step against the sharded phase's
+    real one on the real 1 x 1 mesh: FLOPs within DRYRUN_FLOPS_TOL (the
+    same program under the same conventions), the tracked peak over the
+    real peak above the run's start, and the roofline's compute time
+    over the measured warm step."""
+    proc, out, log = child
+    rc = proc.returncode
+    check(rc == 0 and out.exists(),
+          f"dry-run child exit {rc}: {log.read_text()[-3000:]}")
+    rec = json.loads(out.read_text())
+    rec["waited_s"] = waited
+    check(not any(rec["launches"].values()) and rec["memory_allocated"] == 0,
+          f"the dry run touched the card: launches {rec['launches']}, "
+          f"{rec['memory_allocated']} bytes")
+    real = sharded["train"]
+    q = rec["qwen"]
+    rec["flops_ratio"] = q["hlo_flops"] / real["flops"]
+    rec["memory_ratio"] = q["per_device_bytes"] / (real["peak_gb"] * 1e9)
+    rec["time_ratio"] = q["t_compute_s"] / (real["step_ms_median"] / 1e3)
+    check(abs(rec["flops_ratio"] - 1) <= DRYRUN_FLOPS_TOL,
+          f"dry-run FLOPs {q['hlo_flops']} against the real step's "
+          f"{real['flops']}")
+    check(len(rec["cells"]) == len(DRYRUN_CELLS)
+          and all(c["hlo_flops"] > 0 and c["per_device_bytes"] > 0
+                  for c in rec["cells"]), "a dry-run cell counted nothing")
     return rec
 
 
@@ -4615,6 +4902,8 @@ def main(argv=None) -> int:
     ap.add_argument("--change", type=int, default=C4_ROWS,
                     help="updated rows (default: change set C4)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-child", metavar="OUT", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4626,10 +4915,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
               file=sys.stderr)
         return 3
+    if args.dryrun_child:
+        return dryrun_child(args.dryrun_child)
     from repro_torch.kernels import build
     from repro_torch.benchmarks import digests
 
     record = {}
+    started = []    # the dry-run child, once train_models starts it
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4814,7 +5106,14 @@ def main(argv=None) -> int:
         phase("train", **{k: v for k, v in trained.items()
                           if k != "profile_step"})
         phase("train_profile", profile_step=trained["profile_step"])
-        models_trained = train_models_phase(torch, args.seed)
+        # the dry-run child traces on the host's CPU beside train_models'
+        # card-vs-CPU checks, which are not timed, and is joined before
+        # the sharded phase: no timed phase shares the host with it
+        models_trained = train_models_phase(
+            torch, args.seed,
+            before_checks=lambda: started.append(start_dryrun()))
+        child = started[0]
+        waited = join_dryrun(child)
         record["train_models"] = models_trained
         phase("train_models", **{k: v for k, v in models_trained.items()
                                  if k not in ("models", "card_vs_cpu")},
@@ -4822,6 +5121,9 @@ def main(argv=None) -> int:
         sharded = sharded_phase(torch, args.seed)
         record["sharded"] = sharded
         phase("sharded", **sharded)
+        dry = dryrun_phase(child, waited, sharded)
+        record["dryrun"] = dry
+        phase("dryrun", **dry)
         record["device_readings"] = phase(
             "device_readings", readings=len(DEVICE_READINGS),
             complete=sum(r["complete"] for r in DEVICE_READINGS),
@@ -4831,6 +5133,11 @@ def main(argv=None) -> int:
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     # every path's window: the main path's, the workflow's, the doors' and
     # the tiers', both modes, and both examples'

@@ -208,6 +208,26 @@ class ShapeCfg:
     kind: str
 
 
+#: the dry run's (arch x shape) cells: the reference's shapes, in its order
+LM_SHAPES: Dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+# archs whose attention is sub-quadratic in context (SSM state, hybrid with
+# sparse attention, or bounded sliding window): eligible for long_500k
+SUBQUADRATIC = {"rwkv6-7b", "jamba-1.5-large-398b", "mixtral-8x7b"}
+
+
+def cells_for(arch: ArchConfig):
+    """The (arch x shape) dry-run cells of ``arch``: every shape of
+    :data:`LM_SHAPES` in order, long_500k only if it is sub-quadratic."""
+    return [s for s in LM_SHAPES.values()
+            if s.name != "long_500k" or arch.name in SUBQUADRATIC]
+
+
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 

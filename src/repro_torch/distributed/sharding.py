@@ -290,6 +290,59 @@ def place_tree(tree, specs, mesh):
     return tree
 
 
+def zeros_tree(tree, specs, mesh, device):
+    """Zeros shaped like ``tree``'s tensors (``meta`` ones will do), on
+    ``device``, each a DTensor on ``mesh`` placed by its spec in
+    ``specs``, leaves that are not tensors passing as they are: each rank
+    allocates only its shards (:func:`place_tree` of whole zeros would
+    first make the whole tree on every rank)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, torch.Tensor):
+        pls = placements(specs, mesh)
+        lshape, _ = local_shape_and_offset(tree.shape, mesh, pls)
+        return DTensor.from_local(
+            torch.zeros(lshape, dtype=tree.dtype, device=device), mesh, pls,
+            run_check=False, shape=tree.shape,
+            stride=torch.empty(tree.shape, device="meta").stride())
+    if isinstance(tree, dict):
+        return {k: zeros_tree(v, specs[k], mesh, device)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = [zeros_tree(v, sp, mesh, device) for v, sp in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return tree
+
+
+def local_shape_and_offset(shape, mesh, pls):
+    """This rank's shard shape and its offset in a tensor of global
+    ``shape`` placed by ``pls`` on ``mesh`` (DTensor's
+    ``compute_local_shape_and_global_offset``). DTensor reads the offsets
+    from small index tensors; under ``FakeTensorMode`` (the dry run) those
+    would be fake and unreadable, so they are made with the fake mode set
+    aside."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(shape, mesh, pls)
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``t`` (..., n * hd) as (..., n, hd). On a DTensor whose last dim
+    is split over a mesh dim that ``n`` does not divide (8 KV heads over
+    a 16-wide 'model' axis), that mesh dim is gathered first: DTensor
+    cannot unflatten an uneven split (the reference's GSPMD reshards
+    alike). The values are the same either way."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh, last = t.device_mesh, t.ndim - 1
+        pl = [Replicate() if p.is_shard(last) and n % mesh.size(i) else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def write(dst: torch.Tensor, idx: tuple, src: torch.Tensor) -> None:
     """``dst[idx] = src`` in place, ``idx`` a tuple of ints and step-1
     slices over ``dst``'s leading dims. On a DTensor ``dst`` each rank
@@ -299,11 +352,9 @@ def write(dst: torch.Tensor, idx: tuple, src: torch.Tensor) -> None:
     if not is_dtensor(dst):
         dst[idx] = src
         return
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     whole = src.full_tensor() if is_dtensor(src) else src
-    lshape, off = compute_local_shape_and_global_offset(
-        dst.shape, dst.device_mesh, dst.placements)
+    lshape, off = local_shape_and_offset(dst.shape, dst.device_mesh,
+                                         dst.placements)
     lidx, sidx = [], []
     for d, ix in enumerate(idx):
         lo, n = off[d], lshape[d]
@@ -384,8 +435,6 @@ class ModelSharding:
         indexes its whole table, the one-device path's op, so the
         gradient sums its rows in the same order."""
         from torch.distributed.tensor import Partial, Replicate, Shard
-        from torch.distributed.tensor._utils import \
-            compute_local_shape_and_global_offset
         from torch.distributed.tensor.experimental import local_map
         mesh = self.mesh
         dp = self.dp if tokens.shape[0] % dp_size(mesh) == 0 else ()
@@ -400,8 +449,7 @@ class ModelSharding:
         # each batch shard's rows give a part of the table's gradient
         grad_pl = tuple(Partial() if tok_pl[i].is_shard(0) else w_pl[i]
                         for i in range(mesh.ndim))
-        lo = compute_local_shape_and_global_offset(w.shape, mesh,
-                                                   w_pl)[1][0]
+        lo = local_shape_and_offset(w.shape, mesh, w_pl)[1][0]
 
         def rows(tok, table):
             if not split:
@@ -422,6 +470,27 @@ class ModelSharding:
         every other dim whole: the loss's logits."""
         dp = self.dp if x.shape[0] % dp_size(self.mesh) == 0 else None
         return self._wsc(x, spec(dp, *([None] * (x.ndim - 1))))
+
+    def row_sums(self, fn, logits, targets):
+        """``fn(logits, targets) -> (a, b)``, two sums over the rows, run
+        by each rank on its rows of :meth:`rows`' placement (every vocab
+        column whole) through ``local_map``: the sums come back
+        replicated. DTensor's own ``gather`` over the logits would take
+        its gradient through ``new_zeros`` of the global logits' shape,
+        which DTensor makes replicated: the whole batch's float32 logits
+        on every rank."""
+        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor.experimental import local_map
+        logits = self.rows(logits)
+        pl = tuple(logits.placements)
+        summed = tuple(Partial() if p.is_shard(0) else Replicate()
+                       for p in pl)
+        run = local_map(fn, out_placements=(summed, summed),
+                        in_placements=(pl, pl), device_mesh=self.mesh,
+                        redistribute_inputs=True)
+        whole = [Replicate()] * self.mesh.ndim
+        return tuple(x.redistribute(self.mesh, whole)
+                     for x in run(logits, targets))
 
     def pslice(self, slot: str, tree):
         use = self.block_use.get(slot)
@@ -447,6 +516,14 @@ class ModelSharding:
         :func:`tree_cache_specs` of this strategy."""
         return place_tree(cache, tree_cache_specs(self.cfg, self.sc, cache,
                                                   self.mesh), self.mesh)
+
+    def zero_cache(self, cache, device):
+        """A zero cache shaped like ``cache`` (``lm.init_cache``'s layout,
+        ``meta`` tensors will do) on ``device``, placed as
+        :meth:`place_cache` places one; each rank makes only its shards."""
+        return zeros_tree(cache, tree_cache_specs(self.cfg, self.sc, cache,
+                                                  self.mesh), self.mesh,
+                          device)
 
     def replicate(self, t: torch.Tensor):
         """A plain tensor (the same on every rank) as a DTensor replicated

@@ -6,6 +6,11 @@ differentiation of ``repro/models/layers.py::block_causal_attention``. A
 CUDA tensor launches the kernel (three launches a call, counted once: D,
 the main kernel with dK, dV and dQ's parts, the dq conversion); a CPU
 tensor runs the plain version, :func:`ref.attention_bwd`.
+
+The wrapper calls the op ``repro_torch::flash_attention_bwd`` (a
+``torch.library.Library`` op, as the forward's: CUDA and CPU
+registrations, a fake one that gives dq, dk and dv's shapes alone, and a
+FLOP formula of 2.5 times the forward's count, :func:`flops`).
 """
 from __future__ import annotations
 
@@ -13,9 +18,11 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
-from .flash_attention import HEAD_DIMS, check_inputs
+from .flash_attention import HEAD_DIMS, LIB, check_inputs
+from .flash_attention import flops as fwd_flops
 
 NAME = "flash_attention_bwd"
 #: fields of :func:`config`, in the order ``rt_flash_attention_bwd_config``
@@ -54,10 +61,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row that sees no key under it (past Sk + W - 1) gets dq = 0."""
     if window is not None and window < 1:
         raise ValueError(f"{NAME}: window {window} is not >= 1")
-    if q.device.type == "cpu":
-        dq, dk, dv = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                       window=window)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return tuple(_bwd_op(q, k, v, o, lse, do, causal,
+                         window if causal else None))
+
+
+def flops(q_shape, k_shape, causal: bool,
+          window: Optional[int] = None) -> float:
+    """Operations of one backward: 2.5 times the forward's
+    (:func:`flash_attention.flops`: S = QK^T, dP = dO V^T, dV += P^T dO,
+    dQ += dS K, dK += dS^T Q against the forward's two products)."""
+    return 2.5 * fwd_flops(q_shape, k_shape, causal, window)
+
+
+def _launch(q, k, v, o, lse, do, causal, window):
+    """The kernel's launches on CUDA tensors: checks, outputs and scratch,
+    the D pass, the main kernel and the dq conversion (counted once)."""
     B, Sq, Sk, H, KV, hd = check_inputs(NAME, q, k, v, o, do)
     build.check_cuda(lse, torch.float32, 3, f"{NAME} lse")
     if lse.shape != (B, H, Sq) or lse.device != q.device:
@@ -92,6 +110,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
+
+
+LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+           "Tensor lse, Tensor do, bool causal, int? window) "
+           "-> (Tensor, Tensor, Tensor)")
+
+
+def _bwd_cpu(q, k, v, o, lse, do, causal, window):
+    dq, dk, dv = ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+LIB.impl("flash_attention_bwd", _launch, "CUDA")
+LIB.impl("flash_attention_bwd", _bwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_attention_bwd", _bwd_fake,
+                            lib=LIB)
+_bwd_op = torch.ops.repro_torch.flash_attention_bwd.default
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, window, *args, out_shape=None, **kw) -> float:
+    return flops(q_shape, k_shape, causal, window)
 
 
 def config(hd: int, device=None) -> dict:

@@ -313,12 +313,13 @@ def microbatches(batch: Dict[str, torch.Tensor], n_micro: int,
     """``batch`` split into ``n_micro`` leading slices, a list of dicts.
     On a ``mesh`` each slice stays sharded over the data-parallel axes
     (the reference's ``P(None, dp)`` before the slice is taken) where its
-    rows divide their size, else replicated; a batch dim sharded over
-    two mesh dims (pod and data) is gathered before the split, as DTensor
-    cannot reshape it."""
+    rows divide their size, else replicated; a sharded batch dim is
+    gathered before the split, as DTensor cannot reshape it into slices
+    of its shards (a dim over two mesh dims in any version of torch,
+    over one in some)."""
     def split(x):
         b = x.shape[0]
-        if mesh is not None and sum(p.is_shard(0) for p in x.placements) > 1:
+        if mesh is not None and any(p.is_shard(0) for p in x.placements):
             x = to_spec(x, spec(*([None] * x.ndim)), mesh)
         x = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
         if mesh is None:

@@ -82,7 +82,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..distributed.sharding import is_dtensor, write
+from ..distributed.sharding import is_dtensor, split_heads, write
 from . import ssm
 from .layers import (block_causal_attention, decode_attention, gated_mlp,
                      moe_ffn, replicated, rms_norm, rope)
@@ -209,19 +209,17 @@ class Layer(nn.Module):
         sublayer's ``xq`` (no bias, as in the reference). ``w``: the
         weights to use in place of the layer's (:meth:`weights`' keys),
         here and in the methods below."""
-        B, S, _ = h.shape
         H, _, hd = self.shape
         if cross:
-            return (h @ self._w(w, "xq")).reshape(B, S, H, hd)
+            return split_heads(h @ self._w(w, "xq"), H, hd)
         q = h @ self._w(w, "wq")
         if self.qkv_bias:
             q = q + self._w(w, "bq")
-        return q.reshape(B, S, H, hd)
+        return split_heads(q, H, hd)
 
     def kv(self, src: torch.Tensor, cross: bool = False, w=None):
         """(B,L,d) -> k and v (B,L,KV,hd): ``wk``/``wv`` and their
         biases, or the cross sublayer's ``xk``/``xv``."""
-        B, L, _ = src.shape
         _, KV, hd = self.shape
         if cross:
             k, v = src @ self._w(w, "xk"), src @ self._w(w, "xv")
@@ -229,7 +227,7 @@ class Layer(nn.Module):
             k, v = src @ self._w(w, "wk"), src @ self._w(w, "wv")
             if self.qkv_bias:
                 k, v = k + self._w(w, "bk"), v + self._w(w, "bv")
-        return k.reshape(B, L, KV, hd), v.reshape(B, L, KV, hd)
+        return split_heads(k, KV, hd), split_heads(v, KV, hd)
 
     def qkv(self, h: torch.Tensor, w=None):
         """(B,S,d) -> q (B,S,H,hd), k and v (B,S,KV,hd)."""
@@ -368,10 +366,10 @@ class LM(nn.Module):
             q, k, v = layer.qkv(
                 rms_norm(x, layer._w(w, "ln1"), cfg.norm_eps), w=w)
             a = block_causal_attention(q, k, v, causal=False)
-            x = x + a.reshape(B, S, -1) @ layer._w(w, "wo")
+            x = _settle(x + a.reshape(B, S, -1) @ layer._w(w, "wo"), shd)
             x = x + layer.ffn(rms_norm(x, layer._w(w, "ln2"), cfg.norm_eps),
                               w=w)[0]
-        return rms_norm(x, self.enc_norm, cfg.norm_eps)
+        return rms_norm(_settle(x, shd), self.enc_norm, cfg.norm_eps)
 
     def _context(self, ctx: Optional[torch.Tensor], batch: int, shd=None):
         """What the cross layers attend: None for a config without them;
@@ -424,6 +422,7 @@ class LM(nn.Module):
                 x = x + a.reshape(B, S, -1) @ layer._w(w, "wo")
                 state = {"k": k, "v": v}
                 if layer.cross_sublayer:  # after self-attention, normed
+                    x = _settle(x, shd)
                     hx = rms_norm(x, layer._w(w, "ln_x"), cfg.norm_eps)
                     kx, vx = layer.kv(ctx, cross=True, w=w)
                     a = block_causal_attention(layer.q(hx, cross=True, w=w),
@@ -443,12 +442,13 @@ class LM(nn.Module):
                 x = x + y
             if states is not None:
                 states.append(state)
+            x = _settle(x, shd)
             y, a_loss = layer.ffn(rms_norm(x, layer._w(w, "ln2"),
                                            cfg.norm_eps), w=w)
             x = x + y
             if a_loss is not None:
                 aux = aux + a_loss
-        return x, aux
+        return _settle(x, shd), aux
 
     def _trunk(self, tokens: torch.Tensor, attn_block: int,
                states: Optional[list] = None, remat: bool = False,
@@ -515,9 +515,12 @@ class LM(nn.Module):
         """A zero cache of the reference's layout (module docstring), its
         cross K/V for a context of ``ctx_len`` positions, on the model's
         device (:func:`init_cache`); placed on ``shd``'s mesh by the
-        cache specs when given."""
-        cache = init_cache(self.cfg, B, seq_cap, ctx_len, device=self.device)
-        return cache if shd is None else shd.place_cache(cache)
+        cache specs when given, each rank making only its shards."""
+        if shd is None:
+            return init_cache(self.cfg, B, seq_cap, ctx_len,
+                              device=self.device)
+        return shd.zero_cache(init_cache(self.cfg, B, seq_cap, ctx_len,
+                                         device="meta"), self.device)
 
     def prefill(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None, *, seq_cap: int,
@@ -584,6 +587,7 @@ class LM(nn.Module):
             if shd is not None:
                 w = shd.pslice(f"slot{layer_idx % cfg.period}",
                                layer.weights())
+            x = _settle(x, shd)
             h = rms_norm(x, layer._w(w, "ln1"), cfg.norm_eps)
             if layer.kind == "attn":
                 q, k, v = layer.qkv(h, w=w)
@@ -596,6 +600,7 @@ class LM(nn.Module):
                 a = decode_attention(q, kc, vc, pos + 1, window=W)
                 x = x + a.reshape(B, 1, -1).to(x.dtype) @ layer._w(w, "wo")
                 if layer.cross_sublayer:
+                    x = _settle(x, shd)
                     hx = rms_norm(x, layer._w(w, "ln_x"), cfg.norm_eps)
                     kx = c["xk"][p]
                     a = decode_attention(layer.q(hx, cross=True, w=w), kx,
@@ -613,11 +618,23 @@ class LM(nn.Module):
                 for stack, t in zip(c, state):
                     write(stack, (p,), t)
                 x = x + y
+            x = _settle(x, shd)
             x = x + layer.ffn(rms_norm(x, layer._w(w, "ln2"), cfg.norm_eps),
                               w=w)[0]
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        x = rms_norm(_settle(x, shd), self.final_norm, cfg.norm_eps)
         return x[:, 0] @ self._head(shd), {**cache, "len": pos + 1}
 
+
+
+def _settle(x: torch.Tensor, shd) -> torch.Tensor:
+    """The residual ``x`` after a row-parallel projection (attention's
+    output, an FFN's, a mixer's), placed as at a layer's start on the
+    sharded path (``shd.act``): DTensor would keep it a partial sum over
+    'model' through the next norm and multiply the partial sums by the
+    next projection's whole gathered weight on every 'model' rank (the
+    FFN's gate and up, the head), where the reference's GSPMD reduces it
+    first. ``shd=None``: ``x`` as it is."""
+    return x if shd is None else shd.act(x)
 
 
 def _cache_cap(cfg: ArchConfig, seq_cap: int) -> int:
@@ -681,7 +698,8 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
     the forward as the reference's ``batch.get("ctx")`` does. ``remat`` as
     in :meth:`LM.forward`. ``shd``: the sharded path (module docstring;
     the logits are gathered whole over 'model' before the loss, as
-    DTensor's masked gather over a vocab shard fails). ``params``: tensors
+    DTensor's masked gather over a vocab shard fails, and each rank sums
+    its own rows: ``ModelSharding.row_sums``). ``params``: tensors
     that stand in for the model's parameters of those names in this call
     (``torch.func.functional_call``), such as the sharded step's embed and
     head taken to their at-use placements once per step."""
@@ -692,12 +710,18 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
         logits, aux = torch.func.functional_call(model, params, args, kw)
     else:
         logits, aux = model(*args, **kw)
-    if shd is not None:
-        logits = shd.rows(logits)
+    total, count = _nll_sums(logits, targets) if shd is None \
+        else shd.row_sums(_nll_sums, logits, targets)
+    nll = total / torch.clamp(count, min=1.0)
+    return nll + aux_coef * aux
+
+
+def _nll_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """(the next-token cross entropy summed over the targets >= 0, their
+    count), over float32 logits."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         targets.clamp(min=0)[..., None].long())[..., 0]
     mask = (targets >= 0).float()
-    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll + aux_coef * aux
+    return ((logz - gold) * mask).sum(), mask.sum()

@@ -253,7 +253,9 @@ def test_port_never_imports_jax_or_the_reference():
             "repro_torch.benchmarks.serve_consistency, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.launch.train, repro_torch.examples.train_versioned, "
-            "repro_torch.kernels.flash_attention_bwd; "
+            "repro_torch.kernels.flash_attention_bwd, "
+            "repro_torch.launch.mesh, repro_torch.launch.op_analysis, "
+            "repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
