@@ -162,7 +162,7 @@ Phases, one line each:
                 positions, and its ring fault measured at 6,144),
                 parameters, peak and free memory, prefill tokens/s,
                 decode ms a token beside its weight-read bound
-     serve_ssm — rwkv6-7b (all 32 layers: recurrent, no attention) and
+     serve_ssm — rwkv6-7b (8 of 32 layers: recurrent, no attention) and
                 jamba-1.5-large-398b cut to the stack's first 5 layers
                 (four mamba layers and the attention layer, two MoE
                 FFNs of 16 experts) at their published widths, the cut's
@@ -225,7 +225,7 @@ Phases, one line each:
                 for each MoE config at one layer (its matrices at the
                 32-layer scale; mixtral's window cut to 64) with
                 the card's routes replayed on the CPU, each side's own
-                routing recorded unheld. rwkv6-7b (16 of 32) and jamba's
+                routing recorded unheld. rwkv6-7b (8 of 32) and jamba's
                 slots 0, 2, 4 likewise; whisper-medium whole (16 x 1,500
                 frames, 448 tokens, two microbatches) and
                 llama-3.2-vision-90b's slots 0 and 1 (1 x 2,048 tokens
@@ -237,9 +237,11 @@ Phases, one line each:
                 launch.steps.make_train_step over the mesh for
                 qwen1.5-0.5b at full width (4 x 2,048 tokens) and one of
                 whisper-medium whole (16 x 1,500 frames, two
-                microbatches), each against the one-device step from the
-                same init: losses and every parameter and moment bit for
-                bit; a 2,048-token prefill and 8 decode steps of qwen
+                microbatches), and 2 of phi3.5-moe-42b-a6.6b and rwkv6-7b
+                at their first layer (2 x 256 tokens: the MoE FFN and the
+                rwkv mixer on local tensors), each against the one-device
+                step from the same init: losses and every parameter and
+                moment bit for bit; a 2,048-token prefill and 8 decode steps of qwen
                 through make_prefill_step / make_decode_step against
                 LM.prefill / decode_step, logits and cache bit for bit;
                 step ms with and without the mesh, peak memory and the
@@ -251,8 +253,9 @@ Phases, one line each:
                 the sharded phase (fake process groups cannot share one
                 with the sharded phase's NCCL group; the trace takes the
                 host's CPU): internlm2-1.8b train_4k, mixtral
-                decode_32k, rwkv6-7b long_500k and whisper-medium
-                prefill_32k on a fake 256-rank 16 x 16 mesh and internlm2
+                decode_32k, rwkv6-7b long_500k, whisper-medium
+                prefill_32k and mixtral train_4k (below 42.73 GB a
+                device) on a fake 256-rank 16 x 16 mesh and internlm2
                 train_4k on a fake 512-rank 2 x 16 x 16 one, at published
                 widths with fake CUDA tensors (the reference's keys and
                 each cell's trace seconds); no kernel launched and no byte
@@ -371,11 +374,13 @@ SERVE_MODELS = (("deepseek-7b", None), ("internlm2-1.8b", None),
                 ("granite-20b", None), ("phi3.5-moe-42b-a6.6b", 24),
                 ("mixtral-8x7b", 20))
 # The state-space and hybrid configs, served alike, each with its layer
-# matrices at the published depth's init scale: rwkv6-7b whole (32
-# layers), jamba-1.5-large-398b cut to the stack's first 5 layers (slots
+# matrices at the published depth's init scale: rwkv6-7b cut to its
+# first 8 of 32 layers (its host-bound serving took 46 s of the script
+# whole; cut to keep the script within its time as the sharded phase
+# grew), jamba-1.5-large-398b cut to the stack's first 5 layers (slots
 # 0-4: four mamba layers and the attention layer, FFNs mlp/moe/mlp/moe/
 # mlp; one published period of 8 holds ~45 B parameters, 90 GB in bf16)
-SERVE_SSM_MODELS = (("rwkv6-7b", None), ("jamba-1.5-large-398b", 5))
+SERVE_SSM_MODELS = (("rwkv6-7b", 8), ("jamba-1.5-large-398b", 5))
 # The encoder-decoder and cross-attention configs, served alike, at the
 # published depth's init scale: whisper-medium whole (1.15 B parameters
 # with its two 65,536-row position tables), llama-3.2-vision-90b cut to
@@ -501,7 +506,8 @@ TRAIN_LEAF_ERR_RATIO = 2.0
 # and mixtral-8x7b 3 of 32 (~55 GB); mixtral takes one 8,192-token row,
 # so its 4,096-token window binds. The state-space and hybrid configs
 # (their layer matrices at the published depth's init scale): rwkv6-7b
-# keeps 16 of 32 layers (4.97 B parameters, ~60 GB of state), and jamba
+# keeps 8 of 32 layers (2.75 B parameters, ~33 GB of state; its host-
+# bound steps took 43 s of the script at 16 layers), and jamba
 # the slots 0, 2 and 4 of its first period (a tuple: slots, not a
 # count): mamba, mamba and attention, each with its MLP, its first five
 # layers less the two MoE layers, whose 16 experts hold 9.66 B
@@ -521,7 +527,7 @@ TRAIN_MODELS = (("internlm2-1.8b", None, 4, 2048),
                 ("granite-20b", 6, 4, 2048),
                 ("phi3.5-moe-42b-a6.6b", 3, 4, 2048),
                 ("mixtral-8x7b", 3, 1, 8192),
-                ("rwkv6-7b", 16, 4, 2048),
+                ("rwkv6-7b", 8, 4, 2048),
                 ("jamba-1.5-large-398b", (0, 2, 4), 4, 2048),
                 ("whisper-medium", None, 16, 1500),
                 ("llama-3.2-vision-90b", (0, 1), 1, 2048))
@@ -534,8 +540,15 @@ TRAIN_MODELS_STEPS = 4
 SHARDED_TRAIN = (TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, 2)
 SHARDED_CONTEXT = ("whisper-medium", 16, 1500, 2)
 SHARDED_SERVE = (TRAIN_ARCH, 1, 2048, 8)
-# The dry-run phase: the reference's four test cells and internlm2's
-# train cell on the two-pod mesh, traced at published widths on fake 256-
+# the sharded mixers, each at its first layer and published widths:
+# (arch, layers, batch, tokens, steps) of the train step through the mesh
+# (the MoE FFN's experts and the rwkv mixer's heads on local tensors)
+# against the one-device step
+SHARDED_MIXERS = (("phi3.5-moe-42b-a6.6b", 1, 2, 256, 2),
+                  ("rwkv6-7b", 1, 2, 256, 2))
+# The dry-run phase: the reference's four test cells, mixtral's train
+# cell (its MoE FFN sharded) and internlm2's train cell on the two-pod
+# mesh, traced at published widths on fake 256-
 # and 512-rank meshes with fake CUDA tensors; then the sharded phase's
 # qwen train step (4 x 2,048 tokens) on a fake 1 x 1 mesh, held against
 # the real step's FLOPs (within DRYRUN_FLOPS_TOL), memory and time
@@ -543,7 +556,12 @@ DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("mixtral-8x7b", "decode_32k", False),
                 ("rwkv6-7b", "long_500k", False),
                 ("whisper-medium", "prefill_32k", False),
+                ("mixtral-8x7b", "train_4k", False),
                 ("internlm2-1.8b", "train_4k", True))
+# mixtral's train_4k on 16 x 16 must stay below its GB a device with the
+# MoE FFN replicated on every rank (the dry-run table's 42.73, on an H100
+# 80GB HBM3 at 700 W): its experts' FFN dim now split over 'model'
+DRYRUN_MIXTRAL_TRAIN_GB = 42.73
 DRYRUN_FLOPS_TOL = 0.01
 # seconds the parent waits for the dry-run child after its other phases
 DRYRUN_WAIT_S = 300
@@ -4582,10 +4600,10 @@ def sharded_serve(torch, mesh, cfg, batch: int, prompt: int, new: int,
 def sharded_phase(torch, seed: int) -> dict:
     """The sharded path on a world-size-1 NCCL group's mesh
     (``make_mesh_for(device_count)``: data 1 x model 1): SHARDED_TRAIN's
-    steps and SHARDED_CONTEXT's through the mesh against the one-device
-    step, and SHARDED_SERVE's prefill and decode against ``LM``'s, each
-    bit for bit (``sharded_train``, ``sharded_serve``)."""
-    from repro_torch.configs import get_config
+    steps, SHARDED_CONTEXT's and SHARDED_MIXERS' through the mesh against
+    the one-device step, and SHARDED_SERVE's prefill and decode against
+    ``LM``'s, each bit for bit (``sharded_train``, ``sharded_serve``)."""
+    from repro_torch.configs import first_layers, get_config
     from repro_torch.distributed.elastic import make_mesh_for
 
     gc.collect()
@@ -4601,29 +4619,36 @@ def sharded_phase(torch, seed: int) -> dict:
         arch, b, s, n = SHARDED_CONTEXT
         rec["context"] = sharded_train(torch, mesh, get_config(arch), b, s,
                                        n, seed + 1)
+        rec["mixers"] = [sharded_train(torch, mesh,
+                                       first_layers(get_config(arch), n_l),
+                                       b, s, n, seed + 3 + i)
+                         for i, (arch, n_l, b, s, n)
+                         in enumerate(SHARDED_MIXERS)]
         arch, b, s, n = SHARDED_SERVE
         rec["serve"] = sharded_serve(torch, mesh, get_config(arch), b, s, n,
                                      seed + 2)
     rec["seconds"] = time.perf_counter() - t_phase
-    for key in ("train", "context"):
-        t = rec[key]
+    rows = [(k, rec[k]) for k in ("train", "context")] \
+        + [(t["arch"], t) for t in rec["mixers"]]
+    for key, t in rows:
         check(t["losses_equal"] and not t["unequal_leaves"],
               f"sharded {key} step differs from the one-device step: "
               f"losses {t['losses']} / {t['plain_losses']}, leaves "
               f"{t['unequal_leaves'][:8]}")
+        # rwkv has no attention layer
+        attn = "attn" in get_config(t["arch"]).slot_kinds()
         check(t["launches"] == t["plain_launches"]
-              and t["launches"]["flash_attention_bwd"] > 0,
+              and (t["launches"]["flash_attention_bwd"] > 0) == attn,
               f"sharded {key} launches {t['launches']} / "
               f"{t['plain_launches']}")
     sv = rec["serve"]
     check(sv["prefill_equal"] and sv["cache_equal"]
           and all(sv["decode_equal"]) and sv["flash_launches"] > 0,
           f"sharded serve differs: {sv}")
-    rec["flash_launches"] = rec["train"]["launches"]["flash_attention"] \
-        + rec["context"]["launches"]["flash_attention"] \
-        + sv["flash_launches"]
-    rec["bwd_launches"] = rec["train"]["launches"]["flash_attention_bwd"] \
-        + rec["context"]["launches"]["flash_attention_bwd"]
+    rec["flash_launches"] = sum(t["launches"]["flash_attention"]
+                                for _, t in rows) + sv["flash_launches"]
+    rec["bwd_launches"] = sum(t["launches"]["flash_attention_bwd"]
+                              for _, t in rows)
     return rec
 
 
@@ -4734,6 +4759,12 @@ def dryrun_phase(child, waited: float, sharded: dict) -> dict:
     check(len(rec["cells"]) == len(DRYRUN_CELLS)
           and all(c["hlo_flops"] > 0 and c["per_device_bytes"] > 0
                   for c in rec["cells"]), "a dry-run cell counted nothing")
+    mixtral = [c for c in rec["cells"] if c["arch"] == "mixtral-8x7b"
+               and c["shape"] == "train_4k" and c["mesh"] == "16x16"]
+    rec["mixtral_train_gb"] = mixtral[0]["per_device_bytes"] / 1e9
+    check(rec["mixtral_train_gb"] < DRYRUN_MIXTRAL_TRAIN_GB,
+          f"mixtral's train_4k holds {rec['mixtral_train_gb']} GB a device "
+          f"(with the MoE FFN replicated: {DRYRUN_MIXTRAL_TRAIN_GB})")
     return rec
 
 

@@ -346,15 +346,38 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 def write(dst: torch.Tensor, idx: tuple, src: torch.Tensor) -> None:
     """``dst[idx] = src`` in place, ``idx`` a tuple of ints and step-1
     slices over ``dst``'s leading dims. On a DTensor ``dst`` each rank
-    writes the part of ``src`` (taken whole) that falls in its own shard,
-    so a write along a sharded dim (a cache's sequence over 'model') lands
-    where DTensor's own indexing would copy."""
+    writes the part of ``src`` that falls in its own shard, so a write
+    along a sharded dim (a cache's sequence over 'model') lands where
+    DTensor's own indexing would copy. A DTensor ``src`` is first placed
+    as ``dst`` is over the dims the two share whole (dst's trailing dims,
+    and a slice over all of one of its dims): split alike there, and
+    whole over every other mesh dim, so no rank gathers more of it than
+    its shard of ``dst`` needs."""
     if not is_dtensor(dst):
         dst[idx] = src
         return
-    whole = src.full_tensor() if is_dtensor(src) else src
-    lshape, off = local_shape_and_offset(dst.shape, dst.device_mesh,
-                                         dst.placements)
+    mesh = dst.device_mesh
+    lshape, off = local_shape_and_offset(dst.shape, mesh, dst.placements)
+    # src's dim for each dst dim (None: an int index)
+    to_src, j = [], 0
+    for ix in idx:
+        to_src.append(None if isinstance(ix, int) else j)
+        j += not isinstance(ix, int)
+    to_src += range(j, j + dst.ndim - len(idx))
+    aligned = set()                 # dst dims that src holds whole
+    for d, sd in enumerate(to_src):
+        if sd is not None and src.shape[sd] == dst.shape[d] and (
+                d >= len(idx) or idx[d].indices(dst.shape[d])[0] == 0):
+            aligned.add(d)
+    if is_dtensor(src):
+        from torch.distributed.tensor import Replicate, Shard
+        pls = tuple(Shard(to_src[p.dim]) if p.is_shard() and p.dim in aligned
+                    else Replicate() for p in dst.placements)
+        src = src.redistribute(mesh, pls).to_local()
+        local = {d for d in aligned
+                 if any(p.is_shard(d) for p in dst.placements)}
+    else:
+        local = set()
     lidx, sidx = [], []
     for d, ix in enumerate(idx):
         lo, n = off[d], lshape[d]
@@ -368,11 +391,11 @@ def write(dst: torch.Tensor, idx: tuple, src: torch.Tensor) -> None:
         if a2 >= b2:
             return
         lidx.append(slice(a2 - lo, b2 - lo))
-        sidx.append(slice(a2 - a, b2 - a))
-    rest = dst.ndim - len(idx)      # trailing dims: this rank's part
-    for d in range(dst.ndim - rest, dst.ndim):
-        sidx.append(slice(off[d], off[d] + lshape[d]))
-    dst.to_local()[tuple(lidx)] = whole[tuple(sidx)].to(dst.dtype)
+        sidx.append(slice(None) if d in local else slice(a2 - a, b2 - a))
+    for d in range(len(idx), dst.ndim):     # trailing dims: this rank's part
+        sidx.append(slice(None) if d in local
+                    else slice(off[d], off[d] + lshape[d]))
+    dst.to_local()[tuple(lidx)] = src[tuple(sidx)].to(dst.dtype)
 
 
 def to_spec(t, sp: Spec, mesh):
@@ -380,6 +403,50 @@ def to_spec(t, sp: Spec, mesh):
     the reference's ``with_sharding_constraint``)."""
     want = placements(sp, mesh)
     return t if tuple(t.placements) == want else t.redistribute(mesh, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor at ``pls``, and its gradient at ``pls`` too."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, pls):
+        ctx.mesh, ctx.pls = mesh, pls
+        if tuple(t.placements) != pls:
+            t = t.redistribute(mesh, pls)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.pls:
+            g = g.redistribute(ctx.mesh, ctx.pls)
+        return g, None, None
+
+
+def constrain(t, sp: Spec, mesh):
+    """:func:`to_spec` whose backward also places the gradient by ``sp``,
+    as the reference's ``with_sharding_constraint`` constrains the
+    cotangent: a residual's gradient, which DTensor would keep a partial
+    sum over 'model' after a column-parallel projection's backward, is
+    reduced there, so the row-parallel projection before it (the FFN's
+    down projection) takes its backward on its own shard of the weight
+    rather than on the whole weight gathered."""
+    return _Constrain.apply(t, mesh, placements(sp, mesh))
+
+
+class _ShardLogSumExp(torch.autograd.Function):
+    """``logz`` (the whole rows' logsumexp, reduced over the vocab shards)
+    as a function of one vocab shard ``x``: its gradient on the shard is
+    ``torch.logsumexp``'s, grad x exp(x - logz)."""
+
+    @staticmethod
+    def forward(ctx, x, logz):
+        ctx.save_for_backward(x, logz)
+        return logz.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz = ctx.saved_tensors
+        return g[..., None] * (x - logz[..., None]).exp(), None
 
 
 class ModelSharding:
@@ -415,7 +482,8 @@ class ModelSharding:
 
     def act(self, x):
         """(B, S, d) activations: batch over DP axes; with seq_parallel the
-        sequence dim additionally shards over 'model'."""
+        sequence dim additionally shards over 'model'. The gradient is
+        placed alike in the backward (:func:`constrain`)."""
         if x.shape[0] % dp_size(self.mesh):
             return x
         sp = None
@@ -423,7 +491,8 @@ class ModelSharding:
                 and x.shape[1] % layout(self.mesh).shape.get("model", 1)
                 == 0):
             sp = "model"
-        return self._wsc(x, spec(self.dp, sp, *([None] * (x.ndim - 2))))
+        return constrain(x, spec(self.dp, sp, *([None] * (x.ndim - 2))),
+                         self.mesh)
 
     def lookup(self, tokens, w):
         """``w[tokens]`` for a DTensor ``w`` (vocab, d) at its at-use
@@ -465,32 +534,69 @@ class ModelSharding:
                         device_mesh=mesh, redistribute_inputs=True)
         return run(tokens, w)
 
-    def rows(self, x):
-        """``x`` with its batch over the DP axes (where it divides) and
-        every other dim whole: the loss's logits."""
-        dp = self.dp if x.shape[0] % dp_size(self.mesh) == 0 else None
-        return self._wsc(x, spec(dp, *([None] * (x.ndim - 1))))
-
-    def row_sums(self, fn, logits, targets):
-        """``fn(logits, targets) -> (a, b)``, two sums over the rows, run
-        by each rank on its rows of :meth:`rows`' placement (every vocab
-        column whole) through ``local_map``: the sums come back
-        replicated. DTensor's own ``gather`` over the logits would take
-        its gradient through ``new_zeros`` of the global logits' shape,
-        which DTensor makes replicated: the whole batch's float32 logits
-        on every rank."""
-        from torch.distributed.tensor import Partial, Replicate
+    def nll_sums(self, logits, targets):
+        """(the next-token cross entropy summed over the targets >= 0,
+        their count), ``lm._nll_sums`` of float32 logits, on the logits as
+        the head makes them: rows over the DP axes (where they divide),
+        vocab over 'model' where the head splits it (the reference's
+        ``lm_head`` spec). A vocab-parallel cross entropy, each rank on its
+        own rows and vocab shard through ``local_map``: the rows' max (no
+        gradient, reduced by max over the vocab shards), then the sum of
+        exp(logits - max) (a partial sum over them), so that logz =
+        log(sum) + max is ``torch.logsumexp``'s, op for op; its gradient
+        is logsumexp's too, exp(logits - logz) on each shard
+        (:class:`_ShardLogSumExp`). The gold logit is looked up on local
+        tensors by the rank whose shard holds the target, zero elsewhere:
+        a partial sum over the vocab shards (DTensor's masked gather over
+        a vocab shard fails). The sums come back replicated: the rows'
+        partial sums reduced over the DP axes."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
-        logits = self.rows(logits)
-        pl = tuple(logits.placements)
-        summed = tuple(Partial() if p.is_shard(0) else Replicate()
-                       for p in pl)
-        run = local_map(fn, out_placements=(summed, summed),
-                        in_placements=(pl, pl), device_mesh=self.mesh,
-                        redistribute_inputs=True)
-        whole = [Replicate()] * self.mesh.ndim
-        return tuple(x.redistribute(self.mesh, whole)
-                     for x in run(logits, targets))
+        mesh, rep = self.mesh, Replicate()
+        names = mesh.mesh_dim_names
+        rows = self.dp if logits.shape[0] % dp_size(mesh) == 0 else ()
+        vocab = tuple(a for a in names if a == self.head_use[1])
+
+        def pl(on_rows, on_vocab):
+            return tuple(on_rows if a in rows else on_vocab if a in vocab
+                         else rep for a in names)
+        lg_pl, row_pl = pl(Shard(0), Shard(2)), pl(Shard(0), rep)
+        lo = local_shape_and_offset(logits.shape, mesh, lg_pl)[1][2]
+
+        def reduced(fn, reduce_op, *args):
+            """``fn`` of this rank's shard (and its rows' stats), reduced
+            over the vocab shards by ``reduce_op``."""
+            run = local_map(fn, out_placements=(pl(Shard(0),
+                                                   Partial(reduce_op)),),
+                            in_placements=(lg_pl, row_pl)[:len(args)],
+                            device_mesh=mesh, redistribute_inputs=True)
+            return run(*args).redistribute(mesh, row_pl)
+
+        def lse_gold(lg, logz, tgt):
+            lg = lg.float()
+            idx = tgt.clamp(min=0)[..., None].long() - lo
+            gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1))
+            if vocab:
+                gold = torch.where((idx >= 0) & (idx < lg.shape[-1]), gold,
+                                   0.0)
+            return _ShardLogSumExp.apply(lg, logz), gold[..., 0]
+
+        with torch.no_grad():           # logz as torch.logsumexp makes it
+            lg = logits.detach()
+            mx = reduced(lambda t: t.float().amax(-1), "max", lg)
+            mx = mx.masked_fill(mx.abs() == float("inf"), 0.0)
+            logz = reduced(lambda t, m: torch.exp(t.float() - m[..., None])
+                           .sum(-1), "sum", lg, mx).log() + mx
+        run = local_map(lse_gold, out_placements=(row_pl, pl(Shard(0),
+                                                              Partial())),
+                        in_placements=(lg_pl, row_pl, row_pl),
+                        device_mesh=mesh, redistribute_inputs=True)
+        logz, gold = run(logits, logz, targets)
+        gold = gold.redistribute(mesh, row_pl)
+        mask = (targets >= 0).float()
+        whole = (rep,) * mesh.ndim
+        return (((logz - gold) * mask).sum().redistribute(mesh, whole),
+                mask.sum().redistribute(mesh, whole))
 
     def pslice(self, slot: str, tree):
         use = self.block_use.get(slot)

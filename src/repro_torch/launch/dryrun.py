@@ -234,7 +234,8 @@ def _extrapolated(traces: Dict, P: int, N: int) -> Dict:
 def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
                  sc=None, n_micro: Optional[int] = None,
                  attn_block: int = 1024, mesh=None, cfg=None,
-                 opt_cfg=None, device=None) -> Dict:
+                 opt_cfg=None, device=None,
+                 at_peak: Optional[Dict] = None) -> Dict:
     """One cell traced on ``mesh`` (default: the production mesh of
     ``multi_pod``, on ``device``; the caller's process group must be a
     started ``fake`` one of its size) under ``FakeTensorMode``: the
@@ -251,7 +252,9 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
     ``tests/test_torch_dryrun_extrapolate.py``): a whole trace runs every chunk
     of every state-space mixer in every layer and microbatch, one fake op
     at a time, hours for jamba's train step. ``lower_s`` is the cut
-    traces' seconds."""
+    traces' seconds. ``at_peak``, a dict when given, gets each traced
+    point's largest storages live at its peak (:meth:`LiveBytes.
+    largest_at_peak`, ten a point), keyed "periods,microbatches"."""
     cfg = cfg or get_config(arch)
     shape = shape_name if isinstance(shape_name, ShapeCfg) \
         else LM_SHAPES[shape_name]
@@ -278,6 +281,8 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
         traces[p, n] = _trace(_cut(cfg, p), sub, mesh, dev, sc=sc,
                               n_micro=n if shape.kind == "train" else None,
                               attn_block=attn_block, opt_cfg=opt_cfg)
+        if at_peak is not None:
+            at_peak[f"{p},{n}"] = traces[p, n]["at_peak"][:10]
     got = _extrapolated(traces, P, N)
 
     flops = float(got["flops"])
@@ -319,13 +324,17 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
 def _one_cell(arch: str, shape: str, multi_pod: bool,
               device: str) -> Dict:
     """One cell's result, or its error beside it, traced in this process
-    under a fake group of its mesh's size."""
+    under a fake group of its mesh's size; beside the reference's keys,
+    ``at_peak``: each traced point's largest storages at its peak."""
     meshname = "2x16x16" if multi_pod else "16x16"
     print(f"=== {arch} × {shape} × {meshname}", flush=True)
     try:
         with fake_group(512 if multi_pod else 256):
             mesh = make_production_mesh(multi_pod=multi_pod, device=device)
-            r = analyze_cell(arch, shape, multi_pod=multi_pod, mesh=mesh)
+            at_peak: Dict = {}
+            r = analyze_cell(arch, shape, multi_pod=multi_pod, mesh=mesh,
+                             at_peak=at_peak)
+            r["at_peak"] = at_peak
         print(json.dumps({k: r[k] for k in (
             "arch", "shape", "mesh", "per_device_bytes", "hlo_flops",
             "collective_bytes", "bottleneck", "lower_s")}), flush=True)

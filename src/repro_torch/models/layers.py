@@ -14,14 +14,17 @@ one-device code on local tensors through ``local_map``: the batch over
 the mesh's data-parallel axes, the heads over 'model' where both H and KV
 divide it, else replicated over 'model' (so the flash kernels and
 ``FlashAttention`` see plain tensors). ``rope`` mixes its plain tables in
-under ``implicit_replication``. The MoE FFN, whose index dispatch and
-combine have no sharding rules, runs replicated (:func:`replicated`).
+under ``implicit_replication``. The MoE FFN runs its one-device code
+through ``local_map`` too, each rank on its own batch rows and its own
+experts (or its own columns of every expert's FFN dim, where the experts
+do not divide 'model'), its output a partial sum over 'model'
+(:func:`moe_ffn`).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,27 +36,13 @@ from ..kernels.ref import NEG, attn_qk, attn_sv
 F32 = torch.float32
 
 
-def replicated(fn, *args, **kw):
-    """``fn(*args, **kw)``; where ``args`` (tensors, or dicts and tuples
-    of them) hold DTensors, every one is taken whole to each rank, ``fn``
-    runs on the local tensors and its tensor outputs come back as
-    DTensors replicated over the mesh: ``local_map`` with replicated
-    placements over trees. Correct for any ``fn``, and slow: each rank
-    does all the work."""
-    from torch.utils import _pytree as pytree
-    flat, tree = pytree.tree_flatten(args)
-    dts = [t for t in flat if is_dtensor(t)]
-    if not dts:
-        return fn(*args, **kw)
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = dts[0].device_mesh
-    rep = [Replicate()] * mesh.ndim
-    local = [t.redistribute(mesh, rep).to_local() if is_dtensor(t) else t
-             for t in flat]
-    out = fn(*pytree.tree_unflatten(local, tree), **kw)
-    return pytree.tree_map(
-        lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
-        if isinstance(t, torch.Tensor) else t, out)
+def row_dims(mesh, B: int) -> Tuple[int, ...]:
+    """The mesh dims that split a batch of ``B`` rows: the data-parallel
+    axes ('pod', 'data') where B divides their product, else none."""
+    dp = [i for i, a in enumerate(mesh.mesh_dim_names)
+          if a in ("pod", "data")]
+    return tuple(dp) if B % math.prod(mesh.size(i) for i in dp) == 0 \
+        else ()
 
 
 def _head_placements(mesh, B: int, H: int, KV: int):
@@ -61,13 +50,11 @@ def _head_placements(mesh, B: int, H: int, KV: int):
     the data-parallel axes where it divides them, the heads over 'model'
     where both H and KV divide it; else replicated."""
     from torch.distributed.tensor import Replicate, Shard
-    names = mesh.mesh_dim_names
-    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
-    n_dp = math.prod(mesh.size(i) for i in dp)
+    rows = row_dims(mesh, B)
     out = []
-    for i, a in enumerate(names):
+    for i, a in enumerate(mesh.mesh_dim_names):
         n = mesh.size(i)
-        if i in dp and B % n_dp == 0:
+        if i in rows:
             out.append(Shard(0))
         elif a == "model" and H % n == 0 and KV % n == 0:
             out.append(Shard(2))
@@ -167,12 +154,17 @@ class Route(NamedTuple):
     """Where each token's ``k`` choices go, per batch row: expert, slot in
     that expert's capacity, whether it fits (a choice past the capacity is
     dropped), and its gate (renormalised over the top k, float32); all
-    (B, sc, k). ``aux`` is the load-balance loss (float32 scalar)."""
+    (B, sc, k). ``aux`` is the load-balance loss (float32 scalar), n_experts
+    x sum(``me`` x ``ce``): ``me`` the router probabilities' mean over the
+    chunk's tokens, ``ce`` the share of first choices each expert took,
+    both (E,) float32 (None where a route is served, not computed)."""
     expert: torch.Tensor
     slot: torch.Tensor
     keep: torch.Tensor
     gate: torch.Tensor
     aux: torch.Tensor
+    me: Optional[torch.Tensor] = None
+    ce: Optional[torch.Tensor] = None
 
 
 def moe_capacity(sc: int, n_experts: int, top_k: int,
@@ -215,7 +207,7 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, *, top_k: int,
         slots.append((pos * oh).sum(-1))                       # (B,sc)
         offset = offset + oh.sum(dim=1)
     slot = torch.stack(slots, dim=-1)
-    return Route(expert, slot, slot < capacity, gate, aux)
+    return Route(expert, slot, slot < capacity, gate, aux, me, ce)
 
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
@@ -230,30 +222,59 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     reference multiplies one-hot tensors: each kept choice puts its token
     in its (expert, slot), every expert runs its gated MLP over all C
     slots (empty ones hold zeros), and a token sums its kept choices'
-    outputs times their gates, cast to x's dtype as the reference casts
-    its combine tensor. Returns (out (B,S,d), aux), ``aux`` averaged over
-    the chunks. On DTensors it runs replicated (:func:`replicated`)."""
+    outputs times their gates in float32, cast to x's dtype as the
+    reference casts its combine tensor. Returns (out (B,S,d), aux),
+    ``aux`` averaged over the chunks.
+
+    On DTensors (:func:`_moe_on_mesh`) each rank routes its own batch rows
+    (the capacity is per row) and runs the experts, or the FFN columns,
+    that its weights hold; the float32 sum of the picked outputs is a
+    partial sum over 'model', reduced before the cast, and the aux loss's
+    two means are reduced over the data-parallel axes before their
+    product."""
     if is_dtensor(x):
-        return replicated(moe_ffn, params, x, n_experts=n_experts,
-                          top_k=top_k, capacity_factor=capacity_factor,
-                          seq_chunk=seq_chunk)
+        return _moe_on_mesh(params, x, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            seq_chunk=seq_chunk)
+    outs, auxs = [], []
+    for out, r in _moe_chunks(params, x, n_experts=n_experts, top_k=top_k,
+                              capacity_factor=capacity_factor,
+                              seq_chunk=seq_chunk):
+        outs.append(out.to(x.dtype))
+        auxs.append(r.aux)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    aux = auxs[0] if len(auxs) == 1 else torch.stack(auxs).mean()
+    return out, aux
+
+
+def _moe_chunks(params, x, *, n_experts: int, top_k: int,
+                capacity_factor: float, seq_chunk: int, first: int = 0):
+    """Per chunk of x (B,S,d): (the float32 sum over its top-k choices of
+    the picked outputs times their gates (B,sc,d), its :class:`Route`),
+    for the experts ``first`` .. ``first`` + w1.shape[0] - 1 that
+    ``params``' w1, w3 and w2 hold: all of them, or one rank's share. A
+    choice of any other expert, or one dropped, goes to one spare row
+    past the end, which nothing reads."""
     B, S, d = x.shape
+    held = params["w1"].shape[0]
     sc = min(S, seq_chunk)
     while S % sc:
         sc -= 1
     C = moe_capacity(sc, n_experts, top_k, capacity_factor)
     rows = torch.arange(B, device=x.device)[:, None, None]
-    outs, auxs = [], []
+    spare = B * held * C
     for c0 in range(0, S, sc):
         xc = x[:, c0:c0 + sc]
         r = moe_route(params["router"], xc, top_k=top_k, capacity=C)
-        # flat (batch row, expert, slot) index; a dropped choice goes to
-        # one spare row past the end, which nothing reads
-        flat = torch.where(r.keep, (rows * n_experts + r.expert) * C
-                           + r.slot, B * n_experts * C).reshape(-1)
-        xe = xc.new_zeros((B * n_experts * C + 1, d))
+        own = r.expert - first
+        keep = r.keep if held == n_experts else \
+            r.keep & (own >= 0) & (own < held)
+        # flat (batch row, expert, slot) index
+        flat = torch.where(keep, (rows * held + own) * C + r.slot,
+                           spare).reshape(-1)
+        xe = xc.new_zeros((spare + 1, d))
         xe[flat] = xc[:, :, None, :].expand(B, sc, top_k, d).reshape(-1, d)
-        xe = xe[:-1].view(B, n_experts, C, d)
+        xe = xe[:-1].view(B, held, C, d)
         h = torch.einsum("becd,edf->becf", xe, params["w1"])
         g = torch.einsum("becd,edf->becf", xe, params["w3"])
         ye = torch.einsum("becf,efd->becd", g * torch.sigmoid(g) * h,
@@ -261,8 +282,73 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         ye = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))])
         picked = ye[flat].view(B, sc, top_k, d).float()
         w = torch.where(r.keep, r.gate, 0.0).to(x.dtype).float()
-        outs.append((picked * w[..., None]).sum(2).to(x.dtype))
-        auxs.append(r.aux)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        yield (picked * w[..., None]).sum(2), r
+
+
+def _moe_on_mesh(params, x, **kw):
+    """:func:`moe_ffn` on DTensors through ``local_map``, at the weights'
+    at-use placements (``ModelSharding.pslice``: the reference's specs,
+    'data' gathered). Over each mesh dim: a data-parallel axis that the
+    batch divides splits the rows; 'model', where the weights are split
+    over it, holds E/m experts on each rank (expert parallelism, w1, w3
+    and w2 split on E) or every expert's f/m FFN columns (the reference's
+    fallback where E does not divide: w1 and w3 split by columns, w2 by
+    rows); any other dim replicates. The router is whole everywhere. Each
+    rank dispatches its rows' kept choices of its experts into the
+    one-device path's (row, expert, slot) positions, less its first
+    expert. The float32 combine is then a partial sum over 'model'. The
+    aux loss's means come back scaled by this rank's share of the rows,
+    partial sums over the row dims, and over 'model' held by its first
+    rank alone (every model rank routes alike), so that both are reduced
+    before the product, as the one-device means are taken over the whole
+    batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import local_shape_and_offset
+    mesh = x.device_mesh
+    w1 = params["w1"]
+    rows = row_dims(mesh, x.shape[0])
+    split = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+                  if a == "model" and w1.placements[i].is_shard())
+    ep = any(w1.placements[i].is_shard(0) for i in split)
+    rep, part = Replicate(), Partial()
+
+    def pl(on_rows, on_split):
+        return tuple(on_rows if i in rows else on_split if i in split
+                     else rep for i in range(mesh.ndim))
+    w13_on, w2_on = (Shard(0), Shard(0)) if ep else (Shard(2), Shard(1))
+    whole = pl(rep, rep)
+    first = local_shape_and_offset(w1.shape, mesh, pl(rep, w13_on))[1][0] \
+        if ep else 0
+    coord = mesh.get_coordinate()
+    share = (1.0 / math.prod(mesh.size(i) for i in rows)
+             if all(coord[i] == 0 for i in split) else 0.0)
+
+    def local(x, router, w1, w3, w2):
+        outs, me, ce = [], [], []
+        for out, r in _moe_chunks({"router": router, "w1": w1, "w3": w3,
+                                   "w2": w2}, x, first=first, **kw):
+            outs.append(out)
+            me.append(r.me * share)
+            ce.append(r.ce * share)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return out, torch.stack(me), torch.stack(ce)
+
+    run = local_map(local, device_mesh=mesh, redistribute_inputs=True,
+                    out_placements=(pl(Shard(0), part), pl(part, part),
+                                    pl(part, part)),
+                    in_placements=(pl(Shard(0), rep), whole,
+                                   pl(rep, w13_on), pl(rep, w13_on),
+                                   pl(rep, w2_on)),
+                    in_grad_placements=(pl(Shard(0), part), pl(part, part),
+                                        pl(part, w13_on), pl(part, w13_on),
+                                        pl(part, w2_on)))
+    out, me, ce = run(x, params["router"], params["w1"], params["w3"],
+                      params["w2"])
+    out = out.redistribute(mesh, pl(Shard(0), rep)).to(x.dtype)
+    me, ce = me.redistribute(mesh, whole), ce.redistribute(mesh, whole)
+    n_experts = kw["n_experts"]
+    auxs = [n_experts * torch.sum(me[c] * ce[c]) for c in range(me.shape[0])]
     aux = auxs[0] if len(auxs) == 1 else torch.stack(auxs).mean()
     return out, aux

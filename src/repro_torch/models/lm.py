@@ -85,7 +85,7 @@ from ..device import resolve_device
 from ..distributed.sharding import is_dtensor, split_heads, write
 from . import ssm
 from .layers import (block_causal_attention, decode_attention, gated_mlp,
-                     moe_ffn, replicated, rms_norm, rope)
+                     moe_ffn, rms_norm, rope)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -237,8 +237,9 @@ class Layer(nn.Module):
             w=None):
         """A state-space layer's mixer over h (B,S,d) from ``state`` (None:
         zero), or over one token (``decode``). Returns (y, new state). On
-        DTensors the mixer runs replicated (``layers.replicated``): its
-        chunk loops have no sharding rules."""
+        DTensors each rank runs the mixer on its own batch rows and heads
+        (``ssm.mix_on_mesh``), y a partial sum over 'model' where the
+        heads are split over it."""
         p = self.weights() if w is None else w
         s = self.ssm
         if self.kind == "mamba":
@@ -249,7 +250,7 @@ class Layer(nn.Module):
             kw = {"head_dim": s.head_dim}
             fn = ssm.rwkv6_decode if decode else ssm.rwkv6_mix
         if is_dtensor(h):
-            return replicated(fn, p, h, state, **kw)
+            return ssm.mix_on_mesh(self.kind, fn, p, h, state, **kw)
         return fn(p, h, state, **kw)
 
     def ffn(self, h: torch.Tensor, w=None):
@@ -697,9 +698,9 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
     an encoder or cross slots its context ``ctx`` (B, L, d), which goes to
     the forward as the reference's ``batch.get("ctx")`` does. ``remat`` as
     in :meth:`LM.forward`. ``shd``: the sharded path (module docstring;
-    the logits are gathered whole over 'model' before the loss, as
-    DTensor's masked gather over a vocab shard fails, and each rank sums
-    its own rows: ``ModelSharding.row_sums``). ``params``: tensors
+    the logits stay as the head makes them, rows over the data-parallel
+    axes and vocab over 'model', and the cross entropy is vocab-parallel:
+    ``ModelSharding.nll_sums``). ``params``: tensors
     that stand in for the model's parameters of those names in this call
     (``torch.func.functional_call``), such as the sharded step's embed and
     head taken to their at-use placements once per step."""
@@ -711,7 +712,7 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *,
     else:
         logits, aux = model(*args, **kw)
     total, count = _nll_sums(logits, targets) if shd is None \
-        else shd.row_sums(_nll_sums, logits, targets)
+        else shd.nll_sums(logits, targets)
     nll = total / torch.clamp(count, min=1.0)
     return nll + aux_coef * aux
 

@@ -196,7 +196,7 @@ def rwkv6_mix(p: Params, x: torch.Tensor, state: Optional[Tuple] = None, *,
     channel. x (B,S,d); state (shift (B,1,d), wkv (B,H,dk,dv) float32) or
     None. Returns (y, new state)."""
     B, S, d = x.shape
-    H = d // head_dim
+    H = p["w_r"].shape[1] // head_dim       # the heads whose columns p holds
     dk = dv = head_dim
     prev = x.new_zeros((B, 1, d)) if state is None else state[0]
     h = x.new_zeros((B, H, dk, dv), dtype=F32) if state is None \
@@ -237,8 +237,8 @@ def rwkv6_mix(p: Params, x: torch.Tensor, state: Optional[Tuple] = None, *,
 def rwkv6_decode(p: Params, x: torch.Tensor, state: Tuple, *,
                  head_dim: int):
     """One WKV6 token. x (B,1,d); state as :func:`rwkv6_mix`'s."""
-    B, _, d = x.shape
-    H = d // head_dim
+    B = x.shape[0]
+    H = p["w_r"].shape[1] // head_dim
     dk = dv = head_dim
     prev, h = state
     r, k, v, g, wr = _rwkv_proj(p, x, prev)
@@ -252,3 +252,100 @@ def rwkv6_decode(p: Params, x: torch.Tensor, state: Tuple, *,
     y = torch.einsum("bhk,bhkv->bhv", rh, h + u[None, :, :, None] * kv)
     h = h * wh[..., None] + kv
     return _rwkv_out(p, y.reshape(B, 1, H, dv), g, x), (x, h)
+
+
+# ====================================================== on a device mesh
+
+#: each mixer weight's dim of heads, split over 'model' where the heads
+#: are (None: whole on every rank). mamba's ``w_in`` is viewed (d, 2, di)
+#: so that its split takes each head's ``xi`` and ``z`` columns together,
+#: and ``w_bcdt`` is cut into B and C (``bc``, shared by every head) and
+#: the per-head ``dt`` columns. rwkv's ``w_o`` is row-parallel at use.
+_HEAD_DIM = {
+    "mamba": {"w_in": 2, "bc": None, "dt": 1, "conv": 1, "a_log": 0,
+              "dt_bias": 0, "d_skip": 0, "w_out": 0},
+    "rwkv": {"mu_r": None, "mu_k": None, "mu_v": None, "mu_g": None,
+             "mu_w": None, "w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1,
+             "w_dec": 1, "dec_bias": 0, "u": 0, "ln_x": 0, "w_o": 0}}
+#: each recurrent state's dim of heads: mamba (conv, ssm), rwkv (shift,
+#: wkv); rwkv's token shift holds the whole (B, 1, d) input row
+_STATE_HEAD_DIM = {"mamba": (2, 1), "rwkv": (None, 1)}
+
+
+def mix_on_mesh(kind: str, fn, p: Params, x: torch.Tensor,
+                state: Optional[Tuple] = None, **kw):
+    """``fn``, a mixer of ``kind`` ("mamba" or "rwkv"): its prefill form
+    (:func:`mamba_mix`, :func:`rwkv6_mix`) or its one-token form
+    (:func:`mamba_decode`, :func:`rwkv6_decode`), over x on DTensors, run
+    by each rank on local tensors through ``local_map``. Over each mesh
+    dim: a data-parallel axis that the batch divides splits the rows, and
+    'model' splits the heads where the reference's specs split the
+    mixer's projections over it (mamba's ``w_out`` rows, rwkv's ``w_r``
+    columns) and the heads divide it; any other dim replicates. A head's
+    chunk loop and decode step need nothing of the other heads. The
+    weights go from their at-use placements to :data:`_HEAD_DIM`'s:
+    mamba's ``w_in`` and ``w_bcdt`` are gathered whole over 'model'
+    (mamba's split of ``w_in``'s 2 di columns gives one rank all of
+    ``xi`` on a 2-wide axis), rwkv's ``w_o`` goes from column- to
+    row-parallel (an all-to-all of its shards). The output is then a
+    partial sum over 'model' (a row-parallel projection), the state
+    placed by :data:`_STATE_HEAD_DIM` (``state`` taken there from the
+    cache's placements at use). Returns (y, new state), as ``fn``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .layers import row_dims
+    mesh, rep, part = x.device_mesh, Replicate(), Partial()
+    whole = (rep,) * mesh.ndim
+    if kind == "mamba":
+        d, two_di = p["w_in"].shape
+        bcdt = p["w_bcdt"].redistribute(mesh, whole)
+        ns = 2 * kw["d_state"]
+        w = {"w_in": p["w_in"].redistribute(mesh, whole)
+             .reshape(d, 2, two_di // 2),
+             "bc": bcdt[:, :ns], "dt": bcdt[:, ns:]}
+        w.update((n, p[n]) for n in ("conv", "a_log", "dt_bias", "d_skip",
+                                     "w_out"))
+        marker, at, n_heads = p["w_out"], 0, p["w_out"].shape[0]
+    else:
+        w = {n: p[n] for n in _HEAD_DIM["rwkv"]}
+        marker, at, n_heads = p["w_r"], 1, p["w_r"].shape[1]
+    n_heads //= kw["head_dim"]
+    rows = row_dims(mesh, x.shape[0])
+    heads = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+                  if a == "model" and marker.placements[i].is_shard(at)
+                  and n_heads % mesh.size(i) == 0)
+
+    def pl(on_rows, on_heads):
+        return tuple(on_rows if i in rows else on_heads if i in heads
+                     else rep for i in range(mesh.ndim))
+
+    def on(dim):
+        return rep if dim is None else Shard(dim)
+    names = list(w)
+    head_dim = _HEAD_DIM[kind]
+    st_dims = _STATE_HEAD_DIM[kind]
+    st = tuple(state) if state is not None else ()
+    in_pl = ((pl(Shard(0), rep),)
+             + tuple(pl(rep, on(head_dim[n])) for n in names)
+             + tuple(pl(Shard(0), on(s)) for s in st_dims[:len(st)]))
+    grad_pl = ((pl(Shard(0), part),)
+               + tuple(pl(part, part if head_dim[n] is None
+                          else Shard(head_dim[n])) for n in names)
+               + in_pl[1 + len(names):])
+    out_pl = (pl(Shard(0), part),) + tuple(pl(Shard(0), on(s))
+                                           for s in st_dims)
+
+    def local(x, *ts):
+        lw = dict(zip(names, ts))
+        if kind == "mamba":
+            lw["w_in"] = lw["w_in"].reshape(lw["w_in"].shape[0], -1)
+            lw["w_bcdt"] = torch.cat([lw.pop("bc"), lw.pop("dt")], dim=1)
+        y, new = fn(lw, x, ts[len(names):] or None, **kw)
+        return (y, *new)
+
+    run = local_map(local, out_placements=out_pl, in_placements=in_pl,
+                    in_grad_placements=grad_pl, device_mesh=mesh,
+                    redistribute_inputs=True)
+    y, *new = run(x, *w.values(), *st)
+    return y, tuple(new)

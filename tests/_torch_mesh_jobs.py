@@ -34,6 +34,25 @@ DECODE_STEPS = 2
 #: tolerances; its mamba, MoE and attention slots, as
 #: ``test_torch_train_ssm`` cuts it
 CUTS = {"jamba-1.5-large-398b": (0, 1, 4)}
+#: configs changed for a case of their own, by name: reduced mixtral with
+#: 3 experts, which do not divide the 2-wide 'model' axis, so that its
+#: experts take the reference's fallback (every expert's FFN dim split
+#: over 'model')
+VARIANTS = {"mixtral-8x7b/e3": ("mixtral-8x7b", dict(n_experts=3))}
+
+
+def _config(name: str):
+    """The reduced float32 config of a one-device check: a registered
+    config (cut as ``CUTS`` says) or one of :data:`VARIANTS`."""
+    from repro_torch.configs import get_config, period_slots
+    arch, moe = VARIANTS.get(name, (name, None))
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    if arch in CUTS:
+        cfg = period_slots(cfg, CUTS[arch])
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
 
 
 def _unflatten(flat, prefix):
@@ -183,16 +202,14 @@ def _one_device_checks(torch, arch, mesh, pod=False):
     """The sharded train step (one microbatch, as the reference
     comparison takes two; on the pod mesh two, whose slices' placements
     are recorded) and, except on the pod mesh, the prefill and decode
-    steps of a reduced float32 config (``CUTS``), its queries scaled
+    steps of a reduced float32 config (``_config``), its queries scaled
     (``_unit_scores``), against the port's one-device path on the same
     weights."""
-    from repro_torch.configs import ShapeCfg, get_config, period_slots
+    from repro_torch.configs import ShapeCfg
     from repro_torch.launch import steps
     from repro_torch.optim import AdamWCfg
 
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-    if arch in CUTS:
-        cfg = period_slots(cfg, CUTS[arch])
+    cfg = _config(arch)
     out = {"arch": arch, "pod": pod}
     t0 = time.perf_counter()
     opt = AdamWCfg(warmup_steps=2, decay_steps=10)
@@ -262,6 +279,61 @@ def _one_device_checks(torch, arch, mesh, pod=False):
     return out
 
 
+#: the aux check's batch: 4 rows of 32 tokens in chunks of 16 (two
+#: chunks, each with its own capacity and aux)
+AUX_SHAPE, AUX_CHUNK = (4, 32), 16
+
+
+def _aux_checks(torch, mesh):
+    """``layers.moe_ffn`` on DTensors (the first layer's weights at their
+    at-use placements, the rows over 'data') against one device, for an
+    expert-parallel config and the FFN-dim fallback (:data:`VARIANTS`), on
+    a batch whose two data shards route differently: the second shard's
+    rows are pushed towards expert 0 along its router column. Reports
+    the aux loss both ways, the mean of the two shards' own aux values
+    (what a mean of per-shard aux would give), the output's closeness and
+    the experts' at-use placements."""
+    from repro_torch.distributed.sharding import (ModelSharding, ShardCfg,
+                                                  place, spec,
+                                                  tree_param_specs)
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+
+    out = {}
+    for name in ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b/e3"):
+        cfg = _config(name)
+        model = _model(cfg)
+        first = model.layers[0]
+        one = {"router": first.router, "w1": first.moe_w1,
+               "w3": first.moe_w3, "w2": first.moe_w2}
+        g = torch.Generator().manual_seed(11)
+        B, S = AUX_SHAPE
+        x = torch.randn((B, S, cfg.d_model), generator=g)
+        lean = one["router"][:, 0] / one["router"][:, 0].norm()
+        x[B // 2:] += 8.0 * lean
+        kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                  capacity_factor=cfg.moe.capacity_factor,
+                  seq_chunk=AUX_CHUNK)
+        want, want_aux = layers.moe_ffn(one, x, **kw)
+        halves = [float(layers.moe_ffn(one, h, **kw)[1])
+                  for h in (x[:B // 2], x[B // 2:])]
+        sc = ShardCfg()
+        placed = steps.place_params(model, tree_param_specs(
+            cfg, sc, dict(model.named_parameters()), mesh), mesh)
+        shd = ModelSharding(cfg, sc, mesh, dict(placed.named_parameters()))
+        w = shd.pslice("slot0", placed.layers[0].weights())
+        xd = shd.act(place(x, spec(None, None, None), mesh))
+        got, aux = layers.moe_ffn(
+            {"router": w["router"], "w1": w["moe_w1"], "w3": w["moe_w3"],
+             "w2": w["moe_w2"]}, xd, **kw)
+        out[name] = {"aux": [float(aux.full_tensor()), float(want_aux)],
+                     "shard_mean": sum(halves) / 2,
+                     "out": _full_close(got.full_tensor(), want, 1e-5, 1e-5),
+                     "w1": str(tuple(w["moe_w1"].placements)),
+                     "w2": str(tuple(w["moe_w2"].placements))}
+    return out
+
+
 def _remap_checks(torch, mesh, pod_mesh):
     """``remap_state`` onto the 1 x 2 mesh: a reduced state placed on the
     2 x 2 mesh by its specs, AdamW moments placed on the pod mesh by
@@ -323,8 +395,9 @@ def _remap_checks(torch, mesh, pod_mesh):
 def rank(job, r):
     """One rank of the port's group: the sharded step on the reference's
     inputs (each parameter's and moment's local shard, its offset and the
-    rank's mesh coordinate), the one-device checks of every config, the
-    pod mesh's, and ``remap_state``'s."""
+    rank's mesh coordinate), the one-device checks of every config (and
+    of :data:`VARIANTS`), the MoE aux checks, the pod mesh's, and
+    ``remap_state``'s."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -374,6 +447,7 @@ def rank(job, r):
     report["ref_seconds"] = time.perf_counter() - t0
     report["one_device"] = [_one_device_checks(torch, a, mesh)
                             for a in job["archs"]]
+    report["aux"] = _aux_checks(torch, mesh)
     pod_mesh = make_mesh_for(4, device="cpu", model_cap=1, want_pods=2)
     report["one_device"].append(_one_device_checks(torch, job["pod_arch"],
                                                    pod_mesh, pod=True))

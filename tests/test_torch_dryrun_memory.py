@@ -1,26 +1,39 @@
 """The dry run's memory figures: ``op_analysis.LiveBytes`` counts each
-storage from its op until it is freed, and one rank's peak of the
-sharded steps falls when the data axis doubles. Reduced qwen1.5-0.5b,
-64 tokens, 16 rows, on fake (pod, data, model) meshes of the ``"cpu"``
-type: 1 x 2 x 2 against 2 x 2 x 2.
+storage from its op until it is freed, and one rank's peak and FLOPs of
+the sharded steps fall when the data axis doubles. Reduced qwen1.5-0.5b,
+and beside it a MoE config (mixtral-8x7b, its 4 experts over 'model')
+and the state-space mixers (rwkv6-7b; jamba's mamba, MoE and attention
+slots), 32 tokens, 16 rows, on fake (pod, data, model) meshes of the
+``"cpu"`` type: 1 x 2 x 2 against 2 x 2 x 2.
 
-Two faults held global tensors on every rank: the train step's loss took
-its gradient through ``new_zeros`` of the whole batch's float32 logits
-(DTensor's ``gather`` backward, a replicated tensor), and a prefill made
-its whole cache on every rank before placing it.
+Faults that held global tensors on every rank: the train step's loss
+took its gradient through ``new_zeros`` of the whole batch's float32
+logits (DTensor's ``gather`` backward, a replicated tensor); a prefill
+made its whole cache on every rank before placing it; the MoE FFN and
+the mixers ran whole on every rank (all rows, all experts, all heads);
+and the loss gathered the logits whole over the vocab.
 """
 import pytest
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.configs import ShapeCfg, get_config
+from repro_torch.configs import ShapeCfg, get_config, period_slots
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_analysis import LiveBytes
 from repro_torch.launch.steps import AdamWCfg
 
 ARCH = "qwen1.5-0.5b"
+#: a MoE config, and the state-space ones (jamba at its mamba, MoE and
+#: attention slots, as ``test_torch_train_ssm`` cuts it)
+OTHERS = ("mixtral-8x7b", "rwkv6-7b", "jamba-1.5-large-398b")
 TOKENS, ROWS, N_MICRO = 32, 16, 1
 NAMES = ("pod", "data", "model")
+MODEL = 2
+
+
+def _cfg(arch):
+    cfg = get_config(arch).reduced()
+    return period_slots(cfg, (0, 1, 4)) if arch.startswith("jamba") else cfg
 
 
 def test_live_bytes_counts_a_storage_until_it_is_freed():
@@ -40,14 +53,14 @@ def test_live_bytes_counts_a_storage_until_it_is_freed():
     del a, d
 
 
-def _trace(kind: str, pods: int):
+def _trace(arch: str, kind: str, pods: int):
     """``kind``'s step of the reduced config on a fake pods x 2 x 2
     mesh: ``dryrun._trace``'s counts."""
-    n = 4 * pods
+    n = 2 * MODEL * pods
     with dryrun.fake_group(n):
-        mesh = DeviceMesh("cpu", torch.arange(n).reshape(pods, 2, 2),
+        mesh = DeviceMesh("cpu", torch.arange(n).reshape(pods, 2, MODEL),
                           mesh_dim_names=NAMES)
-        return dryrun._trace(get_config(ARCH).reduced(),
+        return dryrun._trace(_cfg(arch),
                              ShapeCfg(kind, TOKENS, ROWS, kind), mesh,
                              torch.device("cpu"), sc=None,
                              n_micro=N_MICRO if kind == "train" else None,
@@ -56,26 +69,58 @@ def _trace(kind: str, pods: int):
 
 @pytest.fixture(scope="module")
 def traces():
-    return {(kind, pods): _trace(kind, pods)
-            for kind in ("train", "prefill") for pods in (1, 2)}
+    return {(arch, kind, pods): _trace(arch, kind, pods)
+            for arch in (ARCH,) + OTHERS for kind in ("train", "prefill")
+            for pods in (1, 2)}
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill"])
-def test_one_ranks_peak_falls_as_the_data_axis_doubles(traces, kind):
+#: qwen's cases keep their first ids ("train", "prefill")
+PEAK_CASES = [pytest.param(ARCH, kind, id=kind)
+              for kind in ("train", "prefill")] + \
+    [(arch, kind) for arch in OTHERS for kind in ("train", "prefill")]
+
+
+@pytest.mark.parametrize("arch,kind", PEAK_CASES)
+def test_one_ranks_peak_falls_as_the_data_axis_doubles(traces, arch, kind):
     """The state, and the activations and the cache with the rows."""
-    one, two = traces[kind, 1], traces[kind, 2]
+    one, two = traces[arch, kind, 1], traces[arch, kind, 2]
     assert two["arg_bytes"] < one["arg_bytes"], (one, two)
     assert two["peak"] < 0.75 * one["peak"], (one["peak"], two["peak"])
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_a_ranks_train_flops_fall_as_the_data_axis_doubles(traces, arch):
+    """The MoE FFN and the mixers run on this rank's rows (and its
+    experts or heads), not the whole batch: one rank's traced FLOPs of
+    the train step fall by at least qwen's own factor less 5% as the
+    data axis doubles."""
+    def factor(a):
+        return traces[a, "train", 1]["flops"] / traces[a, "train", 2]["flops"]
+    assert factor(arch) >= 0.95 * factor(ARCH), (factor(arch), factor(ARCH))
 
 
 @pytest.mark.parametrize("pods", [1, 2])
 def test_the_train_peak_holds_only_this_ranks_rows(traces, pods):
     """The storages live at the peak add up to it, and none is larger
     than this rank's rows of one microbatch's float32 logits, whole over
-    the vocab (``ModelSharding.row_sums``): the loss's largest tensor."""
-    t = traces["train", pods]
+    the vocab: the loss's largest tensor."""
+    t = traces[ARCH, "train", pods]
     at = t["at_peak"]
     assert sum(n for n, _, _ in at) == t["peak"]
     rows = ROWS // N_MICRO // (2 * pods)
     logits = rows * TOKENS * get_config(ARCH).reduced().vocab * 4
     assert max(n for n, _, _ in at) <= logits, at[:4]
+
+
+@pytest.mark.parametrize("arch", (ARCH,) + OTHERS)
+@pytest.mark.parametrize("pods", [1, 2])
+def test_the_train_peak_holds_no_more_than_a_vocab_shard_of_logits(
+        traces, arch, pods):
+    """No storage live at the train step's peak is larger than this
+    rank's rows of one microbatch's float32 logits over its own vocab
+    shard (``ModelSharding.nll_sums``: the logits stay split over
+    'model')."""
+    at = traces[arch, "train", pods]["at_peak"]
+    rows = ROWS // N_MICRO // (2 * pods)
+    shard = rows * TOKENS * _cfg(arch).vocab // MODEL * 4
+    assert max(n for n, _, _ in at) <= shard, at[:4]

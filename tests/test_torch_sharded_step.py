@@ -7,9 +7,10 @@ One module fixture starts, side by side, one reference process (JAX on
 and the port's 4 ranks (``tests/_torch_mesh_jobs.py``; a ``file://``
 store under ``tmp_path``, no fixed ports). Both run one step of
 ``make_train_step`` on a data 2 x model 2 mesh, in float32, with two
-microbatches, for reduced qwen1.5-0.5b and whisper-medium on the same
-numpy weights and batch
-(``test_torch_train_encdec``'s ``_weights`` and ``_batch``). Held:
+microbatches, for reduced qwen1.5-0.5b, whisper-medium, mixtral-8x7b
+(its experts over 'model') and rwkv6-7b (its heads over 'model') on the
+same numpy weights and batch (``test_torch_train_encdec``'s ``_weights``
+and ``_batch``). Held:
 
 - the loss, the gradient norm, the rate and every leaf of the new
   parameters and both moments, at ``test_torch_train_encdec``'s step
@@ -22,6 +23,10 @@ numpy weights and batch
   data-parallel axes), the sharded train, prefill and decode steps
   against the port's one-device ones on the same weights
   (``_torch_mesh_jobs._step_report`` says the tolerances);
+- reduced mixtral with 3 experts, which do not divide 'model' (its
+  experts' FFN dim split over it instead), against the one-device path;
+- the MoE aux loss on DTensors against one device's (rtol 1e-6) on a
+  batch whose two data shards route differently;
 - ``remap_state`` from the 2 x 2 mesh (and the pod mesh) to a 1 x 2 one:
   values equal, an axis the new mesh lacks dropped, a dim that no longer
   divides replicated;
@@ -53,7 +58,7 @@ from test_torch_train_encdec import (GRAD_RTOL, GRAD_SCALE_TOL, _cfgs,
 import _torch_mesh_jobs as jobs
 
 ROOT = Path(__file__).resolve().parents[1]
-REF_ARCHS = ("qwen1.5-0.5b", "whisper-medium")
+REF_ARCHS = ("qwen1.5-0.5b", "whisper-medium", "mixtral-8x7b", "rwkv6-7b")
 SHAPE = (64, 4)
 OPT = dict(warmup_steps=2, decay_steps=10)
 N_MICRO, ATTN_BLOCK = 2, 32
@@ -101,7 +106,8 @@ def runs(tmp_path_factory):
         np.savez(work / f"{arch}.npz", **flat)
     job = {"work": str(work), "ref_archs": list(REF_ARCHS),
            "shape": list(SHAPE), "opt": OPT, "n_micro": N_MICRO,
-           "attn_block": ATTN_BLOCK, "archs": all_arch_names(),
+           "attn_block": ATTN_BLOCK,
+           "archs": all_arch_names() + list(jobs.VARIANTS),
            "pod_arch": POD_ARCH}
     (work / "job.json").write_text(json.dumps(job))
     script = str(ROOT / "tests" / "_torch_mesh_jobs.py")
@@ -268,6 +274,42 @@ def test_the_sharded_train_step_matches_the_one_device_step(runs, arch,
     assert any("Shard" in p for p in e["placed"])
 
 
+def test_experts_that_do_not_divide_the_model_axis_split_their_ffn_dim(
+        runs):
+    """Reduced mixtral with 3 experts on the 2-wide 'model' axis: the
+    reference's fallback spec splits every expert's FFN dim over 'model'
+    (``moe_w1`` and ``moe_w3`` by columns, ``moe_w2`` by rows), and the
+    sharded train, prefill and decode steps match the one-device path at
+    the tolerances of the tests above."""
+    e = _one_device(runs, "mixtral-8x7b/e3")
+    tr, sv = e["train"], e["serve"]
+    np.testing.assert_allclose(*tr["loss"], rtol=1e-5)
+    np.testing.assert_allclose(*tr["grad_norm"], rtol=1e-4)
+    assert tr["mu"] <= 1 and tr["params"] <= 1, tr
+    assert tr["noise_share"] < 0.05
+    assert max(sv["logits"]) <= 1 and sv["cache"] <= 1, sv
+    aux = runs[1][0]["aux"]["mixtral-8x7b/e3"]
+    assert aux["w1"] == "(Replicate(), Shard(dim=2))", aux
+    assert aux["w2"] == "(Replicate(), Shard(dim=1))", aux
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mixtral-8x7b/e3"])
+def test_the_aux_loss_reduces_its_means_over_the_data_shards(runs, arch):
+    """``moe_ffn`` on DTensors, its rows over 'data', against one device,
+    on a batch whose two data shards route differently (two chunks of 16
+    tokens): the aux loss within rtol 1e-6 of the one-device aux, where a
+    mean of the two shards' own aux values is another number; the output
+    at 1e-5. Experts over 'model' (phi3.5, 4 on 2), and the FFN-dim
+    fallback (3 on 2)."""
+    for rep in runs[1]:
+        a = rep["aux"][arch]
+        np.testing.assert_allclose(*a["aux"], rtol=1e-6)
+        assert abs(a["shard_mean"] - a["aux"][1]) > 1e-3 * a["aux"][1], a
+        assert a["out"] <= 1, a
+    ep = runs[1][0]["aux"]["phi3.5-moe-42b-a6.6b"]
+    assert ep["w1"] == ep["w2"] == "(Replicate(), Shard(dim=0))", ep
+
+
 def test_pod_mesh_microbatches_stay_over_both_data_parallel_axes(runs):
     """On the pod 2 x data 2 x model 1 mesh, the batch arrives sharded
     over pod and data (a dim over two mesh dims, gathered before the
@@ -345,14 +387,16 @@ def one_rank(tmp_path):
 
 
 @pytest.mark.parametrize("arch,batch,seq,n_micro", [
-    ("qwen1.5-0.5b", 4, 32, None), ("whisper-medium", 4, 24, 2)])
+    ("qwen1.5-0.5b", 4, 32, None), ("whisper-medium", 4, 24, 2),
+    ("phi3.5-moe-42b-a6.6b", 4, 32, None), ("rwkv6-7b", 4, 32, None)])
 def test_a_one_rank_mesh_gives_the_one_device_bits(one_rank, arch, batch,
                                                    seq, n_micro):
     """``chip_smoke.sharded_train`` on the CPU: the sharded step over the
     1 x 1 mesh runs the one-device step's local ops, so two steps (the
     losses, every parameter and moment) are bit for bit the one-device
-    step's, at ``pick_microbatches``' factor (qwen) and in two
-    microbatches (whisper, with its context)."""
+    step's, at ``pick_microbatches``' factor (qwen, and the MoE FFN and
+    the rwkv mixer on local tensors, as chip_smoke's SHARDED_MIXERS) and
+    in two microbatches (whisper, with its context)."""
     from chip_smoke import sharded_train
     assert dict(zip(one_rank.mesh_dim_names, one_rank.shape)) == \
         {"data": 1, "model": 1}
