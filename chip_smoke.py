@@ -58,7 +58,10 @@ Phases, one line each:
                 configs' (eb-lb: whisper's encoder, cross sublayer and
                 decoder in a microbatch of 8, llama-vision's cross and
                 attention layers), beside SDPA's backward (with a band
-                mask under the window)
+                mask under the window); and both the forward and the
+                backward at the shapes one rank of the sharded step runs
+                on the 16 x 16 mesh (4 x 2,048: granite-20b's 3 query
+                heads and phi3.5-moe's 2 on one KV head), beside SDPA
   4. golden   — the fixed-seed diff, merge, revert and publish workloads
                 on the card, compared with the reference package's
                 recorded digests (GOLDEN and GOLDEN_APPLY), and
@@ -253,10 +256,13 @@ Phases, one line each:
                 the sharded phase (fake process groups cannot share one
                 with the sharded phase's NCCL group; the trace takes the
                 host's CPU): internlm2-1.8b train_4k, mixtral
-                decode_32k, rwkv6-7b long_500k, whisper-medium
-                prefill_32k and mixtral train_4k (below 42.73 GB a
-                device) on a fake 256-rank 16 x 16 mesh and internlm2
-                train_4k on a fake 512-rank 2 x 16 x 16 one, at published
+                decode_32k (its all-gather bytes below the parent's less
+                the cache's), rwkv6-7b long_500k, whisper-medium
+                prefill_32k, mixtral train_4k (below 5.45 GB a device)
+                and phi3.5-moe prefill_32k (useful-FLOP ratio at least
+                0.348) on a fake 256-rank 16 x 16 mesh, and internlm2
+                train_4k and llama-3.2-vision-90b train_4k (at most 16.24
+                GB a device) on a fake 512-rank 2 x 16 x 16 one, at published
                 widths with fake CUDA tensors (the reference's keys and
                 each cell's trace seconds); no kernel launched and no byte
                 allocated on the card during the traces; qwen's 4 x 2,048
@@ -337,6 +343,13 @@ FLASH_CROSS_SHAPES = ((1, 1500, 1500, 16, 16, 64, False),
                       (1, 2048, 6404, 64, 8, 128, False),
                       (1, 8, 8, 16, 16, 64, False),
                       (1, 2048, 8, 16, 16, 64, False))
+# the flash kernels at the shapes one rank runs them in the sharded
+# train and prefill steps on the 16 x 16 mesh, where each 'model' rank
+# takes H / 16 query heads and the KV head they read (B 4 x 2,048, hd
+# 128, causal): granite-20b's 48 query heads on one KV head (3 a rank)
+# and phi3.5-moe's 32 on 8 (2 a rank, from one KV head)
+FLASH_RANK_SHAPES = ((4, 2048, 2048, 3, 1, 128, True),
+                     (4, 2048, 2048, 2, 1, 128, True))
 FLASH_BLOCK_N = 128         # keys per K/V tile of the kernel
 FLASH_TOL = 2e-2            # atol = rtol, bf16 against the plain version
 # and ||kernel - plain|| / ||plain|| at most this: two bf16 roundings of the
@@ -449,7 +462,8 @@ BWD_CROSS_SHAPES = ((8, 1500, 1500, 16, 16, 64, False),
 # each shape that the train and train_models phases run the backward at
 BWD_ROWS = BWD_SHAPES + tuple(s[:6] + (True,) + s[6:]
                               for s in BWD_WINDOW_SHAPES) \
-    + (BWD_MQA_SHAPE,) + BWD_TRAIN_SHAPES + BWD_CROSS_SHAPES
+    + (BWD_MQA_SHAPE,) + BWD_TRAIN_SHAPES + BWD_CROSS_SHAPES \
+    + FLASH_RANK_SHAPES
 BWD_TILE = 128              # keys per CTA tile of the kernel
 # dk and dv of a KV head sum the bf16-rounded P and dS of its G query
 # heads over every row: their elementwise error grows with G. Up to this
@@ -547,21 +561,43 @@ SHARDED_SERVE = (TRAIN_ARCH, 1, 2048, 8)
 SHARDED_MIXERS = (("phi3.5-moe-42b-a6.6b", 1, 2, 256, 2),
                   ("rwkv6-7b", 1, 2, 256, 2))
 # The dry-run phase: the reference's four test cells, mixtral's train
-# cell (its MoE FFN sharded) and internlm2's train cell on the two-pod
-# mesh, traced at published widths on fake 256-
-# and 512-rank meshes with fake CUDA tensors; then the sharded phase's
-# qwen train step (4 x 2,048 tokens) on a fake 1 x 1 mesh, held against
-# the real step's FLOPs (within DRYRUN_FLOPS_TOL), memory and time
+# cell (its MoE FFN sharded), internlm2's and llama-vision's train cells
+# on the two-pod mesh (the microbatch split over both data-parallel
+# axes) and phi3.5-moe's prefill cell (8 KV heads on a 16-wide 'model'
+# axis), traced at published widths on fake 256- and 512-rank meshes with
+# fake CUDA tensors; then the sharded phase's qwen train step (4 x 2,048
+# tokens) on a fake 1 x 1 mesh, held against the real step's FLOPs
+# (within DRYRUN_FLOPS_TOL), memory and time
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("mixtral-8x7b", "decode_32k", False),
                 ("rwkv6-7b", "long_500k", False),
                 ("whisper-medium", "prefill_32k", False),
                 ("mixtral-8x7b", "train_4k", False),
-                ("internlm2-1.8b", "train_4k", True))
-# mixtral's train_4k on 16 x 16 must stay below its GB a device with the
-# MoE FFN replicated on every rank (the dry-run table's 42.73, on an H100
-# 80GB HBM3 at 700 W): its experts' FFN dim now split over 'model'
-DRYRUN_MIXTRAL_TRAIN_GB = 42.73
+                ("internlm2-1.8b", "train_4k", True),
+                ("llama-3.2-vision-90b", "train_4k", True),
+                ("phi3.5-moe-42b-a6.6b", "prefill_32k", False))
+# Each figure a device, from the dry-run table on an H100 80GB HBM3 at
+# 700 W (PERF.md): mixtral's train_4k on 16 x 16 read 4.971 GB with its
+# experts over 'model' (42.73 with the MoE FFN whole on every rank);
+# held at that reading plus 9.6%
+DRYRUN_MIXTRAL_TRAIN_GB = 5.45
+# llama-vision's train_4k on 2 x 16 x 16, its batch split into
+# microbatches by all-to-all, at most its 16 x 16 reading with the
+# batch gathered (15.47) plus 5% (it read 44.30 with the gather)
+DRYRUN_LLAMA_POD_TRAIN_GB = 16.24
+# phi3.5-moe's prefill_32k on 16 x 16, each 'model' rank attending with
+# its 2 of 32 query heads: a useful-FLOP ratio at least 4x its 0.087
+# with every head on every rank
+DRYRUN_PHI_PREFILL_USEFUL = 0.348
+# mixtral's decode_32k on 16 x 16: its all-gather bytes (each all-
+# gather's operand, one rank's shard) while decode attention gathered
+# every layer's K and V cache over 'model' (the dry-run table's reading
+# on an H100 80GB HBM3 at 700 W), and the least they must fall now that
+# no rank gathers the cache: 32 layers x K and V x (8 rows x 256 slots x
+# 8 KV heads x 128 x 2 bytes) = 268,435,456 bytes of cache shards, less
+# 7%
+DRYRUN_MIXTRAL_DECODE_GATHER = 633_618_432
+DRYRUN_MIXTRAL_DECODE_FALL = 250_000_000
 DRYRUN_FLOPS_TOL = 0.01
 # seconds the parent waits for the dry-run child after its other phases
 DRYRUN_WAIT_S = 300
@@ -862,7 +898,8 @@ def kernel_phase(torch, seed: int) -> dict:
     results["flash_attention"] = flash_phase(torch, seed) \
         + flash_window_phase(torch, seed) \
         + flash_phase(torch, seed, FLASH_JAMBA_SHAPES) \
-        + flash_phase(torch, seed, FLASH_CROSS_SHAPES)
+        + flash_phase(torch, seed, FLASH_CROSS_SHAPES) \
+        + flash_phase(torch, seed, FLASH_RANK_SHAPES)
     results["flash_attention_bwd"] = bwd_phase(torch, seed)
     return results
 
@@ -4759,12 +4796,36 @@ def dryrun_phase(child, waited: float, sharded: dict) -> dict:
     check(len(rec["cells"]) == len(DRYRUN_CELLS)
           and all(c["hlo_flops"] > 0 and c["per_device_bytes"] > 0
                   for c in rec["cells"]), "a dry-run cell counted nothing")
-    mixtral = [c for c in rec["cells"] if c["arch"] == "mixtral-8x7b"
-               and c["shape"] == "train_4k" and c["mesh"] == "16x16"]
-    rec["mixtral_train_gb"] = mixtral[0]["per_device_bytes"] / 1e9
+    def cell(arch, shape, mesh):
+        return [c for c in rec["cells"] if c["arch"] == arch
+                and c["shape"] == shape and c["mesh"] == mesh][0]
+    rec["mixtral_train_gb"] = cell("mixtral-8x7b", "train_4k",
+                                   "16x16")["per_device_bytes"] / 1e9
     check(rec["mixtral_train_gb"] < DRYRUN_MIXTRAL_TRAIN_GB,
           f"mixtral's train_4k holds {rec['mixtral_train_gb']} GB a device "
-          f"(with the MoE FFN replicated: {DRYRUN_MIXTRAL_TRAIN_GB})")
+          f"(its experts over 'model' read 4.971: "
+          f"{DRYRUN_MIXTRAL_TRAIN_GB})")
+    rec["llama_pod_train_gb"] = cell("llama-3.2-vision-90b", "train_4k",
+                                     "2x16x16")["per_device_bytes"] / 1e9
+    check(rec["llama_pod_train_gb"] <= DRYRUN_LLAMA_POD_TRAIN_GB,
+          f"llama-vision's train_4k on 2 x 16 x 16 holds "
+          f"{rec['llama_pod_train_gb']} GB a device (its batch gathered "
+          f"before the microbatch split: 44.30; "
+          f"{DRYRUN_LLAMA_POD_TRAIN_GB})")
+    rec["phi_prefill_useful"] = cell("phi3.5-moe-42b-a6.6b", "prefill_32k",
+                                     "16x16")["useful_flops_ratio"]
+    check(rec["phi_prefill_useful"] >= DRYRUN_PHI_PREFILL_USEFUL,
+          f"phi3.5-moe's prefill_32k useful-FLOP ratio "
+          f"{rec['phi_prefill_useful']} (every head on every 'model' "
+          f"rank: 0.087; {DRYRUN_PHI_PREFILL_USEFUL})")
+    rec["mixtral_decode_gather"] = cell(
+        "mixtral-8x7b", "decode_32k", "16x16")["collectives"].get(
+            "all-gather", 0.0)
+    check(rec["mixtral_decode_gather"] < DRYRUN_MIXTRAL_DECODE_GATHER
+          - DRYRUN_MIXTRAL_DECODE_FALL,
+          f"mixtral's decode_32k all-gathers {rec['mixtral_decode_gather']}"
+          f" bytes a device (every layer's cache gathered: "
+          f"{DRYRUN_MIXTRAL_DECODE_GATHER})")
     return rec
 
 

@@ -398,6 +398,76 @@ def write(dst: torch.Tensor, idx: tuple, src: torch.Tensor) -> None:
     dst.to_local()[tuple(lidx)] = src[tuple(sidx)].to(dst.dtype)
 
 
+def slice_rows(x, n: int, mesh) -> list:
+    """``x`` (b, ...), a DTensor whose rows are split over the mesh's
+    data-parallel axes (``Shard(0)`` on each, whole over the others), as
+    its ``n`` leading slices of b / n rows, each split over those axes
+    again: slice m holds the global rows m b / n .. (m + 1) b / n - 1
+    (the reference's reshape), and each rank its b / (n dp) rows of it
+    (the reference's ``P(None, dp)``). One all-to-all a slice over the
+    flattened data-parallel group moves the rows that change owner; no
+    rank holds more than its rows of one slice in anything it makes.
+
+    Rank r (its index in mesh order over the data-parallel axes) holds
+    the global rows r n c .. (r + 1) n c - 1, c = b / (n dp), and takes
+    the rows m b / n + r c .. + c - 1 of slice m. It sends the rows of
+    its shard that lie in slice m, a contiguous run, in order: they go
+    to their owners in rank order, and each rank receives its c rows in
+    the order of their senders, which is theirs."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = mesh.mesh_dim_names
+    dims = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    dp = int(np.prod([mesh.size(i) for i in dims]))
+    b, rest = x.shape[0], tuple(x.shape[1:])
+    c = b // (n * dp)
+    coord, r = mesh.get_coordinate(), 0
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+    local = x.to_local()
+    group = _dp_group(mesh, tuple(names[i] for i in dims)) if dp > 1 \
+        else None
+    pls = tuple(Shard(0) if i in dims else Replicate()
+                for i in range(mesh.ndim))
+    shape = (b // n,) + rest
+    stride = torch.empty(shape, device="meta").stride()
+
+    def rows_in(lo, hi, lo2, hi2):
+        return max(0, min(hi, hi2) - max(lo, lo2))
+    out = []
+    for m in range(n):
+        if group is None:
+            got = local[m * c:(m + 1) * c]
+        else:
+            a = m * dp * c                  # slice m's first global row
+            lo = r * n * c                  # this rank's first row
+            send = local[max(0, a - lo):max(0, min(a + dp * c - lo,
+                                                   n * c))]
+            sent = [rows_in(a + t * c, a + (t + 1) * c, lo, lo + n * c)
+                    for t in range(dp)]
+            from_ = [rows_in(s * n * c, (s + 1) * n * c, a + r * c,
+                             a + (r + 1) * c) for s in range(dp)]
+            got = funcol.all_to_all_single(send.contiguous(), from_, sent,
+                                           group)
+            got = got.wait() if hasattr(got, "wait") else got
+        out.append(DTensor.from_local(got, mesh, pls, run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=stride))
+    return out
+
+
+def _dp_group(mesh, names: Tuple[str, ...]):
+    """The 1-D mesh over the mesh dims ``names`` that holds this rank: a
+    sub-mesh, flattened where it has several dims. DeviceMesh computes
+    its rank layout with small tensors, which under the dry run's
+    ``FakeTensorMode`` would be fake, so it is made with every dispatch
+    mode set aside."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        group = mesh[names]
+        return group._flatten() if len(names) > 1 else group
+
+
 def to_spec(t, sp: Spec, mesh):
     """A DTensor redistributed to ``sp``'s placements (the counterpart of
     the reference's ``with_sharding_constraint``)."""

@@ -52,8 +52,8 @@ from ..device import resolve_device
 from ..distributed.collectives import accumulate_microbatches, compress_bf16
 from ..distributed.sharding import (ModelSharding, ShardCfg, Spec,
                                     batch_spec, dp_size, place_tree,
-                                    spec, to_spec, tree_cache_specs,
-                                    tree_param_specs)
+                                    slice_rows, spec, to_spec,
+                                    tree_cache_specs, tree_param_specs)
 from ..models import lm
 from ..optim import AdamWCfg, OptState, apply_updates, init_opt_state
 from .train import decay_names
@@ -310,23 +310,28 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg, mesh=None,
 
 def microbatches(batch: Dict[str, torch.Tensor], n_micro: int,
                  mesh=None) -> List[Dict[str, torch.Tensor]]:
-    """``batch`` split into ``n_micro`` leading slices, a list of dicts.
-    On a ``mesh`` each slice stays sharded over the data-parallel axes
-    (the reference's ``P(None, dp)`` before the slice is taken) where its
-    rows divide their size, else replicated; a sharded batch dim is
-    gathered before the split, as DTensor cannot reshape it into slices
-    of its shards (a dim over two mesh dims in any version of torch,
-    over one in some)."""
+    """``batch`` split into ``n_micro`` leading slices, a list of dicts:
+    slice m holds the rows m b / n .. (m + 1) b / n - 1, as the
+    reference's reshape takes them. On a ``mesh`` each slice is sharded
+    over the data-parallel axes (the reference's ``P(None, dp)``) where
+    its rows divide their size, else replicated. A batch sharded over
+    those axes reaches its slices by one all-to-all of the rows that
+    change owner, an all-to-all a slice (``sharding.slice_rows``):
+    DTensor cannot reshape a dim split over two mesh dims (over one in
+    some versions of torch). A replicated batch is reshaped, and each
+    rank keeps its rows of each slice."""
     def split(x):
         b = x.shape[0]
-        if mesh is not None and any(p.is_shard(0) for p in x.placements):
+        rows = mesh is not None and (b // n_micro) % dp_size(mesh) == 0
+        if rows and any(p.is_shard(0) for p in x.placements):
+            return slice_rows(x, n_micro, mesh)
+        if mesh is not None and not rows:   # the slices are replicated
             x = to_spec(x, spec(*([None] * x.ndim)), mesh)
         x = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
-        if mesh is None:
-            return x
-        dp = batch_spec(mesh)[0] if (b // n_micro) % dp_size(mesh) == 0 \
-            else None
-        return to_spec(x, spec(None, dp, *([None] * (x.ndim - 2))), mesh)
+        if rows:
+            x = to_spec(x, spec(None, batch_spec(mesh)[0],
+                                *([None] * (x.ndim - 2))), mesh)
+        return [x[i] for i in range(n_micro)]
 
     split_batch = {k: split(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in split_batch.items()}

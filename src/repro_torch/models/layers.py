@@ -10,10 +10,17 @@ attention and the MoE FFN are plain PyTorch, as the reference computes
 them outside any kernel.
 
 On DTensors (the sharded path of ``models.lm``) both attentions run their
-one-device code on local tensors through ``local_map``: the batch over
-the mesh's data-parallel axes, the heads over 'model' where both H and KV
-divide it, else replicated over 'model' (so the flash kernels and
-``FlashAttention`` see plain tensors). ``rope`` mixes its plain tables in
+one-device code on local tensors through ``local_map`` (so the flash
+kernels and ``FlashAttention`` see plain tensors): the batch over the
+mesh's data-parallel axes, the query heads over 'model' where H divides
+it, each rank with the KV heads its query heads read (split alike where
+KV divides 'model' too; else taken from k and v whole, their gradient a
+partial sum over 'model'), and everything whole over 'model' only where H
+does not divide it. Decode attention over a cache whose sequence is split
+(over 'model' under ``cache_seq_model``, over 'data' under
+``seq_shard_cache``) scores each rank's own slots and reduces a two-pass
+softmax across the shards (:func:`_decode_on_mesh`); no rank gathers the
+cache. ``rope`` mixes its plain tables in
 under ``implicit_replication``. The MoE FFN runs its one-device code
 through ``local_map`` too, each rank on its own batch rows and its own
 experts (or its own columns of every expert's FFN dim, where the experts
@@ -22,7 +29,6 @@ do not divide 'model'), its output a partial sum over 'model'
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -46,32 +52,101 @@ def row_dims(mesh, B: int) -> Tuple[int, ...]:
 
 
 def _head_placements(mesh, B: int, H: int, KV: int):
-    """Placements of a (B, S, heads, hd) attention operand: the batch over
-    the data-parallel axes where it divides them, the heads over 'model'
-    where both H and KV divide it; else replicated."""
+    """Placements of a (B, S, heads, hd) attention's q (and its output)
+    and of its k and v: the batch over the data-parallel axes where it
+    divides them; over 'model', where H divides it, q's heads split (each
+    rank its H / m query heads) and k's and v's alike where KV divides it
+    too, else whole (each rank then takes the KV heads that its query
+    heads read: :func:`_on_ranks`); where H does not divide 'model', all
+    whole over it (the reference's spec leaves q whole there too)."""
     from torch.distributed.tensor import Replicate, Shard
     rows = row_dims(mesh, B)
-    out = []
+    q_pl, kv_pl = [], []
     for i, a in enumerate(mesh.mesh_dim_names):
         n = mesh.size(i)
         if i in rows:
-            out.append(Shard(0))
-        elif a == "model" and H % n == 0 and KV % n == 0:
-            out.append(Shard(2))
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        elif a == "model" and H % n == 0:
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2) if KV % n == 0 else Replicate())
         else:
-            out.append(Replicate())
-    return tuple(out)
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    return tuple(q_pl), tuple(kv_pl)
 
 
-def _local_heads(fn, q, k, v, **kw):
-    """``fn(q, k, v, **kw)`` on DTensors through ``local_map`` at
-    :func:`_head_placements` (q's layout for the output)."""
+def _cache_placements(mesh, H: int, pls):
+    """Decode attention's placements from its cache's ``pls`` (a (B, Sc,
+    KV, hd) cache: :func:`sharding.cache_spec`): (q's and the output's,
+    the mesh dims of more than one rank that split the cache's
+    sequence). Over each mesh dim: q's rows split where the
+    cache splits its rows, and its heads where the cache splits its KV
+    heads; q whole where the cache splits its sequence; q's heads split
+    over a 'model' axis that H divides and over which the cache holds its
+    KV heads whole (:func:`_head_placements`)."""
+    from torch.distributed.tensor import Replicate, Shard
+    q_pl, seq = [], []
+    for i, p in enumerate(pls):
+        n = mesh.size(i)
+        if p.is_shard(1):
+            q_pl.append(Replicate())
+            if n > 1:
+                seq.append(i)
+        elif p.is_shard(0) or p.is_shard(2):
+            q_pl.append(p)
+        elif n > 1 and mesh.mesh_dim_names[i] == "model" and H % n == 0:
+            q_pl.append(Shard(2))
+        else:
+            q_pl.append(Replicate())
+    return tuple(q_pl), tuple(seq)
+
+
+def _kv_for_heads(mesh, q_pl, kv_pl, H: int, KV: int):
+    """The mesh dims over which q's heads are split and k's and v's are
+    whole, and, where there is one ('model'), the KV heads that this
+    rank's query heads read: query head h reads KV head h // (H / KV).
+    Returns (those dims, a function of a (B, S, KV, hd) tensor or None):
+    its heads that hold whole groups of this rank's query heads (one, or
+    several), so that the local GQA ratio stays whole; where the rank's
+    heads straddle two groups, one KV head per query head."""
+    sel = tuple(i for i in range(mesh.ndim)
+                if q_pl[i].is_shard(2) and not kv_pl[i].is_shard(2))
+    if not sel:
+        return sel, None
+    dim = sel[0]
+    hl, g = H // mesh.size(dim), H // KV
+    h0 = mesh.get_coordinate()[dim] * hl
+    heads = [h // g for h in range(h0, h0 + hl)]
+    if hl % g == 0 or g % hl == 0:
+        a, b = heads[0], heads[-1] + 1
+        return sel, lambda t: t[:, :, a:b].contiguous()
+    return sel, lambda t: torch.cat([t[:, :, j:j + 1] for j in heads],
+                                    dim=2)
+
+
+def _on_ranks(fn, q, k, v, q_pl, kv_pl, **kw):
+    """``fn(q, k, v, **kw)`` on this rank's local tensors through
+    ``local_map``: q (and the output) at ``q_pl``, k and v at ``kv_pl``.
+    Where q's heads are split over a mesh dim over which k and v are
+    whole, the rank takes the KV heads its query heads read
+    (:func:`_kv_for_heads`), and the gradient of k and v is a partial
+    sum over that dim: each rank's query heads give their share."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    pl = _head_placements(mesh, q.shape[0], q.shape[2], k.shape[2])
-    run = local_map(functools.partial(fn, **kw), out_placements=(pl,),
-                    in_placements=(pl, pl, pl), device_mesh=mesh,
-                    redistribute_inputs=True)
+    sel, take = _kv_for_heads(mesh, q_pl, kv_pl, q.shape[2], k.shape[2])
+    grad_pl = tuple(Partial() if i in sel else p
+                    for i, p in enumerate(kv_pl))
+
+    def local(q, k, v):
+        if take is not None:
+            k, v = take(k), take(v)
+        return fn(q, k, v, **kw)
+    run = local_map(local, out_placements=(q_pl,),
+                    in_placements=(q_pl, kv_pl, kv_pl),
+                    in_grad_placements=(q_pl, grad_pl, grad_pl),
+                    device_mesh=mesh, redistribute_inputs=True)
     return run(q, k, v)
 
 
@@ -114,8 +189,10 @@ def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
     attention through ``ops.attention`` (on DTensors through
     ``local_map``, module docstring)."""
     if is_dtensor(q):
-        return _local_heads(block_causal_attention, q, k, v, window=window,
-                            block=block, causal=causal)
+        q_pl, kv_pl = _head_placements(q.device_mesh, q.shape[0],
+                                       q.shape[2], k.shape[2])
+        return _on_ranks(block_causal_attention, q, k, v, q_pl, kv_pl,
+                         window=window, block=block, causal=causal)
     return ops.attention(q, k, v, causal=causal, block_q=block,
                          window=window)
 
@@ -129,16 +206,87 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     With ``window`` the cache is a ring buffer of size Sc == window and all
     slots < min(cache_len, window) are valid."""
     if is_dtensor(q):
-        return _local_heads(decode_attention, q, k_cache, v_cache,
-                            cache_len=cache_len, window=window)
-    hd = q.shape[-1]
-    Sc = k_cache.shape[1]
-    s = attn_qk(q, k_cache) / math.sqrt(hd)               # (B,H,1,Sc)
-    n_valid = min(cache_len, Sc) if window is not None else cache_len
-    valid = torch.arange(Sc, device=q.device) < n_valid
-    s = torch.where(valid, s, NEG)
+        return _decode_on_mesh(q, k_cache, v_cache, cache_len, window)
+    s = _decode_scores(q, k_cache, cache_len, window, k_cache.shape[1])
     p = torch.softmax(s, dim=-1)
     return attn_sv(p, v_cache)
+
+
+def _decode_scores(q, k, cache_len: int, window: Optional[int], Sc: int,
+                   first: int = 0):
+    """q's float32 scores (B,H,1,Sk) over the cache slots ``first`` ..
+    ``first`` + Sk - 1 of a cache of ``Sc`` (k: (B,Sk,KV,hd)), NEG at
+    the slots past ``cache_len`` (past min(``cache_len``, Sc) in the ring
+    of a ``window``)."""
+    s = attn_qk(q, k) / math.sqrt(q.shape[-1])
+    n_valid = min(cache_len, Sc) if window is not None else cache_len
+    valid = torch.arange(first, first + k.shape[1], device=q.device) \
+        < n_valid
+    return torch.where(valid, s, NEG)
+
+
+def _decode_on_mesh(q, k_cache, v_cache, cache_len: int,
+                    window: Optional[int]):
+    """:func:`decode_attention` on DTensors, at the cache's placements
+    (:func:`_cache_placements`). Where no mesh dim splits the cache's
+    sequence, each rank runs the one-device code on its rows and heads
+    (:func:`_on_ranks`). Where one does, q is whole over it and each rank
+    scores every head of its rows over its own slots, masked by their
+    global indices; the softmax is then taken in two passes over the
+    sequence shards, as the one-device softmax takes it: the rows' max
+    (reduced by max), the sum of exp(s - max) (a partial sum, reduced),
+    p = exp(s - max) / sum cast to v's dtype as ``attn_sv`` casts it,
+    and each rank's products p v in float32, a partial sum over the
+    shards, reduced before the cast to v's dtype. No rank gathers the
+    cache; what moves is (B, H) maxima and sums and the (B, H, hd)
+    products (the reference's "partial softmax per shard + psum")."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import local_shape_and_offset
+    mesh = q.device_mesh
+    H, KV, Sc = q.shape[2], k_cache.shape[2], k_cache.shape[1]
+    kv_pl = tuple(k_cache.placements)
+    q_pl, seq = _cache_placements(mesh, H, kv_pl)
+    if not seq:
+        return _on_ranks(decode_attention, q, k_cache, v_cache, q_pl, kv_pl,
+                         cache_len=cache_len, window=window)
+    take = _kv_for_heads(mesh, q_pl, kv_pl, H, KV)[1] or (lambda t: t)
+    first = local_shape_and_offset(k_cache.shape, mesh, kv_pl)[1][1]
+    rep = Replicate()
+
+    def pl(heads_at, on_seq):
+        """Placements of a tensor with rows at dim 0 and heads at
+        ``heads_at``, ``on_seq`` over the sequence's mesh dims."""
+        return tuple(on_seq if i in seq else Shard(heads_at) if p.is_shard(2)
+                     else p for i, p in enumerate(q_pl))
+    s_pl, o_pl = pl(1, Shard(3)), pl(2, rep)
+
+    def scores(q, k):
+        s = _decode_scores(q, take(k), cache_len, window, Sc, first)
+        return s, s.amax(-1)
+
+    def exps(s, mx):
+        e = torch.exp(s - mx[..., None])
+        return e, e.sum(-1)
+
+    def products(e, total, v):
+        p = e / total[..., None]
+        return attn_sv(p.to(v.dtype).float(), take(v).float())
+
+    run = local_map(scores, out_placements=(s_pl, pl(1, Partial("max"))),
+                    in_placements=(q_pl, kv_pl), device_mesh=mesh,
+                    redistribute_inputs=True)
+    s, mx = run(q, k_cache)
+    run = local_map(exps, out_placements=(s_pl, pl(1, Partial())),
+                    in_placements=(s_pl, pl(1, rep)), device_mesh=mesh,
+                    redistribute_inputs=True)
+    e, total = run(s, mx.redistribute(mesh, pl(1, rep)))
+    run = local_map(products, out_placements=(pl(2, Partial()),),
+                    in_placements=(s_pl, pl(1, rep), kv_pl),
+                    device_mesh=mesh, redistribute_inputs=True)
+    out = run(e, total.redistribute(mesh, pl(1, rep)), v_cache)
+    return out.redistribute(mesh, o_pl).to(v_cache.dtype)
 
 
 def gated_mlp(params: Dict[str, torch.Tensor],

@@ -34,19 +34,25 @@ DECODE_STEPS = 2
 #: tolerances; its mamba, MoE and attention slots, as
 #: ``test_torch_train_ssm`` cuts it
 CUTS = {"jamba-1.5-large-398b": (0, 1, 4)}
-#: configs changed for a case of their own, by name: reduced mixtral with
-#: 3 experts, which do not divide the 2-wide 'model' axis, so that its
-#: experts take the reference's fallback (every expert's FFN dim split
-#: over 'model')
-VARIANTS = {"mixtral-8x7b/e3": ("mixtral-8x7b", dict(n_experts=3))}
+#: configs changed for a case of their own, by name: (arch, fields of
+#: the config, fields of its MoE). Reduced mixtral with 3 experts, which
+#: do not divide the 2-wide 'model' axis, so that its experts take the
+#: reference's fallback (every expert's FFN dim split over 'model');
+#: reduced qwen with 6 query heads on 3 KV heads, groups of 2, so that
+#: each 'model' rank's 3 query heads straddle two KV groups (rank 0's
+#: heads 0-2 read KV heads 0, 0 and 1)
+VARIANTS = {"mixtral-8x7b/e3": ("mixtral-8x7b", {}, dict(n_experts=3)),
+            "qwen1.5-0.5b/h6": ("qwen1.5-0.5b",
+                                dict(n_heads=6, n_kv_heads=3), {})}
 
 
 def _config(name: str):
     """The reduced float32 config of a one-device check: a registered
     config (cut as ``CUTS`` says) or one of :data:`VARIANTS`."""
     from repro_torch.configs import get_config, period_slots
-    arch, moe = VARIANTS.get(name, (name, None))
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    arch, fields, moe = VARIANTS.get(name, (name, {}, {}))
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **fields)
     if arch in CUTS:
         cfg = period_slots(cfg, CUTS[arch])
     if moe:
@@ -166,6 +172,75 @@ def _step_report(torch, got, want, lr):
             "noise_share": n_noise / max(n_all, 1)}
 
 
+def _slice_rows_held(torch, mesh, mbs, batch):
+    """Whether each microbatch's local slice on this rank holds exactly
+    its b / (n dp) rows of the reference's slice m (the global rows m b
+    / n ..), at this rank's index over the data-parallel axes (mesh
+    order), every input alike; and those rows' count."""
+    dims = [i for i, a in enumerate(mesh.mesh_dim_names)
+            if a in ("pod", "data")]
+    coord, r, dp = mesh.get_coordinate(), 0, 1
+    for i in dims:
+        r, dp = r * mesh.size(i) + coord[i], dp * mesh.size(i)
+    n = len(mbs)
+    held = []
+    for m, mb in enumerate(mbs):
+        for k, t in mb.items():
+            b = batch[k].shape[0] // n
+            c = b // dp
+            want = batch[k][m * b + r * c:m * b + (r + 1) * c]
+            held.append(torch.equal(t.to_local(), want.to(t.dtype)))
+    return {"equal": all(held),
+            "count": {k: int(t.to_local().shape[0])
+                      for k, t in mbs[0].items()}}
+
+
+#: decode attention over a cache whose sequence a mesh dim splits, on the
+#: 2 x 2 mesh: (name, H, KV, the cache's spec after its period dim, cache
+#: capacity, window, cache_len). Sequence over 'model' (the batch over
+#: 'data'): a cache_len inside the first shard's slots, one across both,
+#: a ring of capacity W that wrapped and one that did not; sequence over
+#: 'data' (``seq_shard_cache``, the batch whole), the query heads over
+#: 'model' from one KV head, and with 6 query heads on 3 KV heads, each
+#: rank's 3 heads straddling two groups
+DECODE_CASES = (("model/len3", 4, 1, ("data", "model", None, None), 8,
+                 None, 3),
+                ("model/len6", 4, 1, ("data", "model", None, None), 8,
+                 None, 6),
+                ("model/ring", 4, 1, ("data", "model", None, None), 8, 8,
+                 13),
+                ("model/ring_short", 4, 1, ("data", "model", None, None), 8,
+                 8, 5),
+                ("data/heads", 4, 1, (None, "data", None, None), 8, None,
+                 6),
+                ("data/straddle", 6, 3, (None, "data", None, None), 8, 16,
+                 7))
+
+
+def _decode_checks(torch, mesh):
+    """``layers.decode_attention`` on DTensors (q as a decode step makes
+    it: rows over 'data', heads over 'model'; the cache placed by the
+    case's spec) against one device's, for each of :data:`DECODE_CASES`,
+    float32: max |got - want| over max |want|, and the placements that
+    the output comes back with."""
+    from repro_torch.distributed.sharding import place, spec
+    from repro_torch.models import layers
+    out = {}
+    for name, H, KV, sp, Sc, window, n in DECODE_CASES:
+        g = torch.Generator().manual_seed(len(out))
+        B, hd = 4, 16
+        q = torch.randn((B, 1, H, hd), generator=g)
+        k, v = (torch.randn((B, Sc, KV, hd), generator=g) for _ in "kv")
+        want = layers.decode_attention(q, k, v, n, window=window)
+        qd = place(q, spec("data", None, "model", None), mesh)
+        kd, vd = place(k, spec(*sp), mesh), place(v, spec(*sp), mesh)
+        got = layers.decode_attention(qd, kd, vd, n, window=window)
+        out[name] = {"err": float((got.full_tensor() - want).abs().max()
+                                  / want.abs().max()),
+                     "placed": str(tuple(got.placements))}
+    return out
+
+
 def _leaves(cache):
     """A cache's tensors in a fixed order (``len`` left out)."""
     out = []
@@ -228,9 +303,13 @@ def _one_device_checks(torch, arch, mesh, pod=False):
     state, placed = steps.place_inputs(
         steps.init_state(_model(cfg), opt), batch, st_specs,
         b_specs, mesh)
-    out["slices"] = sorted({str(tuple(v.placements)) for mb in
-                            steps.microbatches(placed, n_micro, mesh)
+    from repro_torch.launch.op_analysis import counting
+    with counting() as moved:
+        mbs = steps.microbatches(placed, n_micro, mesh)
+    out["slices"] = sorted({str(tuple(v.placements)) for mb in mbs
                             for v in mb.values()})
+    out["split"] = {"collectives": dict(moved.coll),
+                    "rows": _slice_rows_held(torch, mesh, mbs, batch)}
     state, m = step(state, placed)
     one = steps.make_train_step(cfg, shape, n_micro=n_micro, opt_cfg=opt,
                                 attn_block=16, device="cpu")
@@ -396,8 +475,8 @@ def rank(job, r):
     """One rank of the port's group: the sharded step on the reference's
     inputs (each parameter's and moment's local shard, its offset and the
     rank's mesh coordinate), the one-device checks of every config (and
-    of :data:`VARIANTS`), the MoE aux checks, the pod mesh's, and
-    ``remap_state``'s."""
+    of :data:`VARIANTS`), the MoE aux checks, the decode checks over
+    sequence-sharded caches, the pod mesh's, and ``remap_state``'s."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -448,6 +527,7 @@ def rank(job, r):
     report["one_device"] = [_one_device_checks(torch, a, mesh)
                             for a in job["archs"]]
     report["aux"] = _aux_checks(torch, mesh)
+    report["decode"] = _decode_checks(torch, mesh)
     pod_mesh = make_mesh_for(4, device="cpu", model_cap=1, want_pods=2)
     report["one_device"].append(_one_device_checks(torch, job["pod_arch"],
                                                    pod_mesh, pod=True))

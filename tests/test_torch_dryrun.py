@@ -2,7 +2,7 @@
 the cost model over torch's dispatch (``launch/op_analysis.py``, held to
 the three cases of ``tests/test_hlo_analysis.py``), the flash ops' fake
 shapes and FLOP formulas, the model-FLOP formula against the reference's,
-``dryrun.main``'s refusals and error records, and one cell side by side
+``dryrun.main``'s refusals and error records, and two cells side by side
 with the reference's ``analyze_cell``.
 
 Every mesh here is a ``DeviceMesh`` of the ``"cpu"`` type over a
@@ -322,17 +322,35 @@ def test_main_records_a_failed_cell_beside_it(tmp_path):
 # ------------------------------------------------------- side by side
 
 _REFERENCE_CELL = r"""
-import os, json
+import os, json, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_config
 from repro.launch import dryrun as D
+arch, shape = sys.argv[1:3]
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2, 2), ("pod", "data", "model"))
-r = D.analyze_cell("qwen1.5-0.5b", "train_4k", multi_pod=True, mesh=mesh,
-                   cfg=get_config("qwen1.5-0.5b").reduced())
+r = D.analyze_cell(arch, shape, multi_pod=True, mesh=mesh,
+                   cfg=get_config(arch).reduced())
 print("CELL", json.dumps(r))
 """
+
+
+def _reference_cell(arch: str, shape: str) -> subprocess.Popen:
+    """The reference's analyze_cell of the reduced ``arch`` at ``shape``
+    on 2 x 2 x 2 host devices, started in a process of its own."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_CELL, arch, shape],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu"})
+
+
+def _reference_result(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=600)
+    line = [x for x in out.splitlines() if x.startswith("CELL ")]
+    assert line, err[-2000:]
+    return json.loads(line[0][5:])
 
 
 def _attention_backward_gap(cfg, shape, dp: int, tp: int,
@@ -356,20 +374,13 @@ def test_a_cell_side_by_side_with_the_reference():
     """Reduced qwen1.5-0.5b, train_4k, on 2 x 2 x 2: the reference's
     analyze_cell (XLA, 8 host devices, in a process of its own) and the
     port's (--device cpu)."""
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE_CELL], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
-        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu"})
+    proc = _reference_cell("qwen1.5-0.5b", "train_4k")
     cfg = get_config("qwen1.5-0.5b").reduced()
     with dryrun.fake_group(8):
         mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
         got = dryrun.analyze_cell("qwen1.5-0.5b", "train_4k", multi_pod=True,
                                   mesh=mesh, cfg=cfg)
-    out, err = proc.communicate(timeout=600)
-    line = [x for x in out.splitlines() if x.startswith("CELL ")]
-    assert line, err[-2000:]
-    want = json.loads(line[0][5:])
+    want = _reference_result(proc)
     assert got["model_flops_per_chip"] == want["model_flops_per_chip"]
     assert got["arg_bytes"] == want["arg_bytes"]
     assert set(got) == set(want)
@@ -397,6 +408,33 @@ def test_a_cell_side_by_side_with_the_reference():
                                      want["hlo_flops"])
     assert got["hlo_flops"] - gap == want["hlo_flops"], \
         (got["hlo_flops"], gap, want["hlo_flops"])
+
+
+def test_a_one_kv_head_prefill_cell_side_by_side_with_the_reference():
+    """Reduced granite-20b (4 query heads on one KV head), prefill_32k,
+    on 2 x 2 x 2: the reference's analyze_cell and the port's (--device
+    cpu). The model FLOPs, the bytes held and the counted FLOPs are
+    equal: each 'model' rank attends with its 2 query heads (the KV head
+    they read taken from k and v whole), as XLA splits the grouped
+    attention of q's heads, which ``wq``'s spec splits. Before, the port
+    ran every head on both 'model' ranks: 1.984x the reference's FLOPs
+    (2.286e12 against 1.152e12). Departures (ROADMAP Queue 3): the port's
+    peak is a tracked live peak; GSPMD moves k and v with an all-to-all
+    and a collective-permute where DTensor gathers them."""
+    proc = _reference_cell("granite-20b", "prefill_32k")
+    with dryrun.fake_group(8):
+        mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+        got = dryrun.analyze_cell("granite-20b", "prefill_32k",
+                                  multi_pod=True, mesh=mesh,
+                                  cfg=get_config("granite-20b").reduced())
+    want = _reference_result(proc)
+    assert got["model_flops_per_chip"] == want["model_flops_per_chip"]
+    assert got["arg_bytes"] == want["arg_bytes"]
+    assert got["hlo_flops"] == want["hlo_flops"], (got["hlo_flops"],
+                                                   want["hlo_flops"])
+    assert got["collectives"]["all-reduce"] == \
+        want["collectives"]["all-reduce"]
+    assert got["per_device_bytes"] < want["per_device_bytes"]
 
 
 class _Products(torch.utils._python_dispatch.TorchDispatchMode):

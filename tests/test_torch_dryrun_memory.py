@@ -6,13 +6,24 @@ and the state-space mixers (rwkv6-7b; jamba's mamba, MoE and attention
 slots), 32 tokens, 16 rows, on fake (pod, data, model) meshes of the
 ``"cpu"`` type: 1 x 2 x 2 against 2 x 2 x 2.
 
+Reduced llama-3.2-vision-90b (its cross and first attention slots), its
+context widened to 300 patches, takes
+its train step in two microbatches on the same meshes: the microbatch
+split moves each rank's rows by all-to-all, so nothing the step makes
+holds more context rows than the rank's share of one microbatch, and
+its peak does not grow with the pods.
+
 Faults that held global tensors on every rank: the train step's loss
 took its gradient through ``new_zeros`` of the whole batch's float32
 logits (DTensor's ``gather`` backward, a replicated tensor); a prefill
 made its whole cache on every rank before placing it; the MoE FFN and
 the mixers ran whole on every rank (all rows, all experts, all heads);
-and the loss gathered the logits whole over the vocab.
+the loss gathered the logits whole over the vocab; and the microbatch
+split gathered a batch sharded over two data-parallel axes whole before
+it took its slices (llama-vision's context at 2 x 16 x 16).
 """
+import dataclasses
+
 import pytest
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -124,3 +135,64 @@ def test_the_train_peak_holds_no_more_than_a_vocab_shard_of_logits(
     rows = ROWS // N_MICRO // (2 * pods)
     shard = rows * TOKENS * _cfg(arch).vocab // MODEL * 4
     assert max(n for n, _, _ in at) <= shard, at[:4]
+
+
+#: llama-vision's patches, widened from the reduced 8 so that the context
+#: is the largest input (a size no other dim of the config has)
+PATCHES = 300
+
+
+@pytest.fixture(scope="module")
+def context_traces():
+    """Reduced llama-3.2-vision-90b at its cross and first attention
+    slots, with PATCHES patches, its train step in 2 microbatches on pods
+    x 2 x 2, for 1 and 2 pods."""
+    cfg = dataclasses.replace(
+        period_slots(get_config("llama-3.2-vision-90b").reduced(), (0, 1)),
+        cross_len=PATCHES)
+    out = {}
+    for pods in (1, 2):
+        n = 2 * MODEL * pods
+        with dryrun.fake_group(n):
+            mesh = DeviceMesh("cpu",
+                              torch.arange(n).reshape(pods, 2, MODEL),
+                              mesh_dim_names=NAMES)
+            out[pods] = dryrun._trace(
+                cfg, ShapeCfg("train", TOKENS, ROWS, "train"), mesh,
+                torch.device("cpu"), sc=None, n_micro=2, attn_block=1024,
+                opt_cfg=AdamWCfg())
+    return out
+
+
+@pytest.mark.parametrize("pods", [1, 2])
+def test_no_tensor_of_the_step_holds_more_context_rows_than_a_microbatchs(
+        context_traces, pods):
+    """Every storage live at the train peak that the step made and that
+    spans the context's patches holds at most this rank's rows of one
+    microbatch (ROWS / 2 / (2 pods)); the rank's input shard (twice that,
+    both microbatches) is the only one with more. Before, the split
+    gathered the batch over both data-parallel axes: a clone of every
+    rank's rows of a slice, (2, 2, PATCHES, 64) on 2 pods."""
+    share = ROWS // 2 // (2 * pods)
+    spans = [(op, shape) for _, op, shape in context_traces[pods]["at_peak"]
+             if PATCHES in shape]
+    made = [(op, shape) for op, shape in spans if op != "track"]
+    assert made, spans
+    for op, shape in made:
+        rows = 1
+        for d in shape[:shape.index(PATCHES)]:
+            rows *= d
+        assert rows <= share, (op, shape, share)
+    assert [shape[0] for op, shape in spans if op == "track"] == \
+        [2 * share]
+
+
+def test_the_context_configs_train_peak_does_not_grow_with_the_pods(
+        context_traces):
+    """At 2 x 2 x 2 the train peak is at or below its 1 x 2 x 2 peak (the
+    reference's ``P(None, dp)`` slices over both data-parallel axes), and
+    the split moved its rows by all-to-all alone."""
+    one, two = context_traces[1], context_traces[2]
+    assert two["peak"] <= one["peak"], (one["peak"], two["peak"])
+    for t in (one, two):
+        assert t["coll"]["all-to-all"] > 0, t["coll"]

@@ -8,9 +8,10 @@ and the port's 4 ranks (``tests/_torch_mesh_jobs.py``; a ``file://``
 store under ``tmp_path``, no fixed ports). Both run one step of
 ``make_train_step`` on a data 2 x model 2 mesh, in float32, with two
 microbatches, for reduced qwen1.5-0.5b, whisper-medium, mixtral-8x7b
-(its experts over 'model') and rwkv6-7b (its heads over 'model') on the
-same numpy weights and batch (``test_torch_train_encdec``'s ``_weights``
-and ``_batch``). Held:
+(its experts over 'model'), rwkv6-7b (its heads over 'model') and
+granite-20b (4 query heads on one KV head: each 'model' rank its 2 query
+heads and the KV head they read) on the same numpy weights and batch
+(``test_torch_train_encdec``'s ``_weights`` and ``_batch``). Held:
 
 - the loss, the gradient norm, the rate and every leaf of the new
   parameters and both moments, at ``test_torch_train_encdec``'s step
@@ -24,7 +25,13 @@ and ``_batch``). Held:
   against the port's one-device ones on the same weights
   (``_torch_mesh_jobs._step_report`` says the tolerances);
 - reduced mixtral with 3 experts, which do not divide 'model' (its
-  experts' FFN dim split over it instead), against the one-device path;
+  experts' FFN dim split over it instead), and reduced qwen with 6 query
+  heads on 3 KV heads (each 'model' rank's query heads straddle two KV
+  groups), against the one-device path;
+- the pod mesh's microbatch split: each rank's rows of each slice are
+  the reference's, moved by all-to-all, nothing gathered;
+- decode attention over a cache whose sequence is split over 'model' or
+  'data' (the ring of a window too) against one device's;
 - the MoE aux loss on DTensors against one device's (rtol 1e-6) on a
   batch whose two data shards route differently;
 - ``remap_state`` from the 2 x 2 mesh (and the pod mesh) to a 1 x 2 one:
@@ -58,7 +65,8 @@ from test_torch_train_encdec import (GRAD_RTOL, GRAD_SCALE_TOL, _cfgs,
 import _torch_mesh_jobs as jobs
 
 ROOT = Path(__file__).resolve().parents[1]
-REF_ARCHS = ("qwen1.5-0.5b", "whisper-medium", "mixtral-8x7b", "rwkv6-7b")
+REF_ARCHS = ("qwen1.5-0.5b", "whisper-medium", "mixtral-8x7b", "rwkv6-7b",
+             "granite-20b")
 SHAPE = (64, 4)
 OPT = dict(warmup_steps=2, decay_steps=10)
 N_MICRO, ATTN_BLOCK = 2, 32
@@ -312,13 +320,58 @@ def test_the_aux_loss_reduces_its_means_over_the_data_shards(runs, arch):
 
 def test_pod_mesh_microbatches_stay_over_both_data_parallel_axes(runs):
     """On the pod 2 x data 2 x model 1 mesh, the batch arrives sharded
-    over pod and data (a dim over two mesh dims, gathered before the
-    split); each of its two microbatch slices leaves ``microbatches``
+    over pod and data (a dim over two mesh dims, which DTensor cannot
+    reshape); each of its two microbatch slices leaves ``microbatches``
     sharded over both again, as the reference's ``P(None, dp)`` keeps
-    them, and the step it feeds matches the one-device step
+    them: on every rank its local slice holds exactly b / (n dp) = 1 row
+    of each input, the reference's row of that slice, and the split
+    moved its bytes by one all-to-all a tensor and gathered nothing. The
+    step it feeds matches the one-device step
     (``test_the_sharded_train_step_matches_the_one_device_step``)."""
-    e = _one_device(runs, POD_ARCH, pod=True)
-    assert e["slices"] == ["(Shard(dim=0), Shard(dim=0), Replicate())"], e
+    for rep in runs[1]:
+        e = [x for x in rep["one_device"] if x["pod"]][0]
+        assert e["slices"] == \
+            ["(Shard(dim=0), Shard(dim=0), Replicate())"], e
+        split = e["split"]
+        assert split["rows"]["equal"], split
+        assert set(split["rows"]["count"].values()) == \
+            {jobs.POD_TRAIN_SHAPE[1] // 2 // 4}, split
+        assert set(split["collectives"]) == {"all-to-all"}, split
+        assert split["collectives"]["all-to-all"] > 0, split
+
+
+def test_query_heads_that_straddle_two_kv_groups_match_one_device(runs):
+    """Reduced qwen with 6 query heads on 3 KV heads over the 2-wide
+    'model' axis: each rank's 3 query heads read two KV groups, so the
+    rank expands k and v to one head per query head; the sharded train
+    step (every gradient leaf, k's and v's projections' partial sums
+    over 'model' included), prefill and decode steps match the one-device
+    path at the tolerances of the tests above."""
+    e = _one_device(runs, "qwen1.5-0.5b/h6")
+    tr, sv = e["train"], e["serve"]
+    np.testing.assert_allclose(*tr["loss"], rtol=1e-5)
+    np.testing.assert_allclose(*tr["grad_norm"], rtol=1e-4)
+    assert tr["mu"] <= 1 and tr["params"] <= 1, tr
+    assert tr["noise_share"] < 0.05
+    assert max(sv["logits"]) <= 1 and sv["cache"] <= 1, sv
+
+
+@pytest.mark.parametrize("case", [c[0] for c in jobs.DECODE_CASES])
+def test_decode_over_a_sequence_sharded_cache_matches_one_device(runs,
+                                                                 case):
+    """``decode_attention`` with its cache's sequence split over 'model'
+    (the batch over 'data') or over 'data', each rank scoring its own
+    slots (masked by their global indices, the ring of a window too) and
+    the softmax reduced across the shards: every rank's whole output
+    within 1e-5 of the largest of one device's, in q's placements (the
+    rows over 'data' only where the cache splits them)."""
+    for rep in runs[1]:
+        d = rep["decode"][case]
+        assert d["err"] <= 1e-5, (case, d)
+    placed = runs[1][0]["decode"][case]["placed"]
+    rows = "Shard(dim=0)" if case.startswith("model") else "Replicate()"
+    heads = "Replicate()" if case.startswith("model") else "Shard(dim=2)"
+    assert placed == f"({rows}, {heads})", placed
 
 
 @pytest.mark.parametrize("arch", all_arch_names())
