@@ -4718,8 +4718,11 @@ def dryrun_child(out: str) -> int:
                 if m != mp:
                     continue
                 t0 = time.perf_counter()
-                r = dryrun.analyze_cell(arch, shape, multi_pod=mp, mesh=mesh)
+                at = {}
+                r = dryrun.analyze_cell(arch, shape, multi_pod=mp, mesh=mesh,
+                                        at_peak=at)
                 r["seconds"] = time.perf_counter() - t0
+                r["at_peak"] = at
                 rec["cells"].append(r)
     arch, b, s, _ = SHARDED_TRAIN
     with dryrun.fake_group(1):
@@ -4796,6 +4799,11 @@ def dryrun_phase(child, waited: float, sharded: dict) -> dict:
     check(len(rec["cells"]) == len(DRYRUN_CELLS)
           and all(c["hlo_flops"] > 0 and c["per_device_bytes"] > 0
                   for c in rec["cells"]), "a dry-run cell counted nothing")
+    # each cell's peak a device and the phase of the step that sets it
+    rec["peaks"] = [{"cell": f"{c['arch']} {c['shape']} {c['mesh']}",
+                     "gb": c["per_device_bytes"] / 1e9,
+                     "phase": c["at_peak"]["phase"]} for c in rec["cells"]]
+
     def cell(arch, shape, mesh):
         return [c for c in rec["cells"] if c["arch"] == arch
                 and c["shape"] == shape and c["mesh"] == mesh][0]

@@ -20,7 +20,8 @@ device's:
   * ``op_analysis.LiveBytes`` tracks rank 0's live tensor bytes:
     ``arg_bytes`` the state and inputs, ``temp_bytes`` the peak above
     them, ``per_device_bytes`` the peak (the reference's is XLA's
-    argument + output + temp sizes);
+    argument + output + temp sizes), the largest of the step's phases'
+    peaks (:class:`_Phases`; ``analyze_cell``'s ``at_peak`` names it);
   * ``FlopCounterMode`` counts the same trace on global shapes;
     ``hlo_flops_raw_costanalysis`` is its count over the chip count.
 
@@ -35,7 +36,8 @@ XLA path computes attention).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
-      --shape train_4k [--multi-pod] [--all] [--device cpu] [--out r.json]
+      --shape train_4k [--multi-pod] [--all] [--device cpu] [--whole] \\
+      [--out r.json]
 
 Cells run one after another. To trace them in parallel, start one
 process a cell, each with its own ``--out`` (``xargs -P``: README).
@@ -127,7 +129,7 @@ def _fake_model(cfg: ArchConfig, dev) -> "S.lm.LM":
 
 def _cell_step(cfg, shape, mesh, dev, *, sc, n_micro, attn_block, opt_cfg):
     """The cell's step, placed on ``mesh``: (run, the tensors it holds
-    before it runs)."""
+    before it runs); ``run.model`` is the step's model."""
     model = _fake_model(cfg, dev)
     if shape.kind == "train":
         step, st_specs, b_specs = S.make_train_step(
@@ -137,7 +139,11 @@ def _cell_step(cfg, shape, mesh, dev, *, sc, n_micro, attn_block, opt_cfg):
         state, batch = S.place_inputs(S.init_state(model, opt_cfg), batch,
                                       st_specs, b_specs, mesh)
         held = [state["params"], state["opt"], batch]
-        return (lambda: step(state, batch)), held
+
+        def run():
+            return step(state, batch)
+        run.model = model
+        return run, held
     if shape.kind == "prefill":
         step, pspecs, _ = S.make_prefill_step(cfg, shape, mesh, sc=sc,
                                               attn_block=attn_block)
@@ -149,6 +155,7 @@ def _cell_step(cfg, shape, mesh, dev, *, sc, n_micro, attn_block, opt_cfg):
         def run():
             with torch.no_grad():
                 return step(model, *args)
+        run.model = model
         return run, [dict(model.named_parameters()), args]
     step, pspecs, in_sh, abs_in = S.make_decode_step(cfg, shape, mesh, sc=sc)
     model = S.place_params(model, pspecs, mesh)
@@ -160,7 +167,119 @@ def _cell_step(cfg, shape, mesh, dev, *, sc, n_micro, attn_block, opt_cfg):
     def run():
         with torch.no_grad():
             return step(model, token, cache)
+    run.model = model
     return run, [dict(model.named_parameters()), token, cache]
+
+
+class _Phases:
+    """Names the phases of one step on a :class:`LiveBytes` from outside
+    the step, each a key (microbatch or None, stage, period or None):
+
+      * ``step``: from the start to the first forward (the train step's
+        at-use embed and head, its gradient carry, the microbatch split;
+        all of a decode step);
+      * ``fwd.in``: ``LM._trunk`` from its start (the embedding, an
+        encoder) to the first period; ``fwd.p`` k: period k's forward
+        (the last period's to the head, its final norm included);
+      * ``loss`` (train) or ``head``: from ``LM._head`` on (the logits,
+        the cross entropy); ``cache``: a prefill's cache writes
+        (``LM.init_cache`` on);
+      * ``bwd.out``: the backward from its start to the first period's
+        recompute (the loss's, the head's, the final norm's); ``bwd.p``
+        k: period k's recompute and backward (``LM._period`` called again
+        inside the backward, by remat); ``bwd.in``: from the gradient of
+        period 0's input on (the embedding's and an encoder's backward);
+      * ``acc``: after a microbatch's backward (its gradients into the
+        carry) to the next forward; ``opt``: ``steps.apply_updates`` on.
+
+    A backward is told by the autograd state
+    (``torch._C._current_graph_task_id()``, -1 outside one), so that a
+    period recomputed by remat opens ``bwd.p``, not ``fwd.p``. The
+    wrappers sit on the model instance and on ``steps.apply_updates``
+    for the trace only: the step computes what it computes without
+    them."""
+
+    def __init__(self, mem, model, train: bool):
+        self.mem, self.model = mem, model
+        self.m = -1 if train else None
+        self.train = train
+        self.bwd = False
+        self.k = {id(layer): i // model.cfg.period
+                  for i, layer in enumerate(model.layers)}
+
+    def enter(self, stage, k=None):
+        mb = None if stage in ("step", "opt") else self.m
+        self.mem.enter((mb, stage, k))
+
+    def on_op(self):
+        bwd = torch._C._current_graph_task_id() != -1
+        if bwd != self.bwd:
+            self.bwd = bwd
+            self.enter("bwd.out" if bwd else "acc")
+
+    @contextlib.contextmanager
+    def installed(self):
+        model, orig = self.model, {}
+
+        def wrap(name, fn):
+            orig[name] = getattr(model, name)
+            setattr(model, name, fn)
+
+        def trunk(*a, **kw):
+            if self.m is not None:
+                self.m += 1
+            self.enter("fwd.in")
+            return orig["_trunk"](*a, **kw)
+
+        def period(x, aux, layers, *a, **kw):
+            k = self.k[id(layers[0])]
+            self.on_op()
+            self.enter("bwd.p" if self.bwd else "fwd.p", k)
+            if k == 0 and not self.bwd and x.requires_grad:
+                x.register_hook(lambda g: self.enter("bwd.in"))
+            return orig["_period"](x, aux, layers, *a, **kw)
+
+        def head(*a, **kw):
+            self.enter("loss" if self.train else "head")
+            return orig["_head"](*a, **kw)
+
+        def init_cache(*a, **kw):
+            self.enter("cache")
+            return orig["init_cache"](*a, **kw)
+
+        apply_updates = S.apply_updates
+
+        def updates(*a, **kw):
+            self.enter("opt")
+            return apply_updates(*a, **kw)
+
+        for name, fn in (("_trunk", trunk), ("_period", period),
+                         ("_head", head), ("init_cache", init_cache)):
+            wrap(name, fn)
+        S.apply_updates = updates
+        self.mem.on_op = self.on_op
+        self.enter("step")
+        try:
+            yield
+        finally:
+            S.apply_updates = apply_updates
+            self.mem.on_op = None
+            for name in orig:
+                delattr(model, name)
+
+
+def _role(key, p: int) -> str:
+    """A phase key's name across cuts: its microbatch as ``mb0`` or
+    ``mb1+`` (every later one: they repeat the same work on the same
+    bytes), its period as ``first`` (0), ``last`` (p - 1) or ``mid``."""
+    m, stage, k = key
+    name = stage
+    if k is not None:
+        name += "." + ("first" if k == 0 else "last" if k == p - 1
+                       else "mid")
+    if m is not None:
+        name = ("mb0/" if m == 0 else "mb1+/") + name
+    return name
 
 
 def _trace(cfg, shape, mesh, dev, *, sc, n_micro, attn_block,
@@ -168,8 +287,11 @@ def _trace(cfg, shape, mesh, dev, *, sc, n_micro, attn_block,
     """One trace of ``cfg``'s step of ``shape`` on ``mesh`` under
     ``FakeTensorMode``: one device's counts (``op_analysis``), its live
     bytes before the step and their peak, the storages live at the peak
-    (``at_peak``: :meth:`LiveBytes.largest_at_peak`), FlopCounterMode's
-    global count and the trace's seconds."""
+    (``at_peak``: :meth:`LiveBytes.largest_at_peak`), each phase's peak
+    by its role (``phases``: :class:`_Phases`, :func:`_role`; a role held
+    by several phases takes the largest) and the ten largest storages
+    at it (``phase_at_peak``), FlopCounterMode's global count and the
+    trace's seconds."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -180,16 +302,24 @@ def _trace(cfg, shape, mesh, dev, *, sc, n_micro, attn_block,
         mem = LiveBytes()
         mem.track(held)
         arg_bytes = mem.live
+        marks = _Phases(mem, run.model, shape.kind == "train")
         t0 = time.perf_counter()  # monotonic: a wall-clock step breaks timings
-        with counting() as hc, mem, FlopCounterMode(display=False) as fc:
+        with counting() as hc, marks.installed(), mem, \
+                FlopCounterMode(display=False) as fc:
             run()
         seconds = time.perf_counter() - t0
-        peak = mem.peak
-    del run, held
+        phases, at = {}, {}
+        for key, peak in mem.phases.items():
+            role = _role(key, cfg.n_periods)
+            if peak > phases.get(role, -1):
+                phases[role], at[role] = peak, key
+    del run, held, marks
     return {"flops": float(hc.flops), "dot_bytes": float(hc.dot_bytes),
             "coll": dict(hc.coll), "raw": float(fc.get_total_flops()),
-            "arg_bytes": arg_bytes, "peak": peak, "seconds": seconds,
-            "at_peak": mem.largest_at_peak(None)}
+            "arg_bytes": arg_bytes, "peak": mem.peak, "seconds": seconds,
+            "at_peak": mem.largest_at_peak(None), "phases": phases,
+            "phase_at_peak": {role: mem.largest_at_peak(10, key)
+                              for role, key in at.items()}}
 
 
 def _cut(cfg: ArchConfig, p: int) -> ArchConfig:
@@ -209,9 +339,21 @@ def _extrapolated(traces: Dict, P: int, N: int) -> Dict:
     """The counts at ``P`` periods and ``N`` microbatches from traces at
     (p, n) points (``traces``: {(p, n): _trace's}): every count is linear
     in the periods and, at a microbatch's fixed size, in the microbatches
-    (each period and each microbatch repeats the same work), the bytes
-    held and their peak too (the batch grows with the microbatches; their
-    activations, one microbatch after another, do not)."""
+    (each period and each microbatch repeats the same work), and so are
+    the bytes held and each phase's peak: what a phase finds live grows
+    by the same bytes with each period and microbatch before it (the
+    state, the saved period inputs, the gradients), and what it makes
+    does not grow. The step's peak is not linear: it is the largest of
+    the phases' peaks, and another phase may overtake past the traced
+    points (the backward over the logits at few periods, the backward
+    through the first period, which holds every later period's
+    gradients, at many). So each phase's peak is extrapolated on its
+    own, and the peak is the largest of them (``peak_phase`` names it).
+    A middle
+    period's phases (``.mid``) exist at 3 periods only, and are not
+    fitted: what they find live is linear in the period's index, and
+    they make what the first and the last make, so they never exceed
+    both."""
     ps = sorted({p for p, _ in traces})
     ns = sorted({n for _, n in traces})
 
@@ -225,8 +367,12 @@ def _extrapolated(traces: Dict, P: int, N: int) -> Dict:
            for k in ("flops", "dot_bytes", "raw")}
     out["coll"] = {k: at(lambda t, k=k: t["coll"].get(k, 0.0))
                    for k in kinds}
-    for k in ("arg_bytes", "peak"):
-        out[k] = int(round(at(lambda t, k=k: t[k])))
+    out["arg_bytes"] = int(round(at(lambda t: t["arg_bytes"])))
+    roles = set.intersection(*(set(t["phases"]) for t in traces.values()))
+    out["phases"] = {r: int(round(at(lambda t, r=r: t["phases"][r])))
+                     for r in sorted(roles)}
+    out["peak_phase"] = max(out["phases"], key=out["phases"].get)
+    out["peak"] = out["phases"][out["peak_phase"]]
     out["seconds"] = sum(t["seconds"] for t in traces.values())
     return out
 
@@ -235,7 +381,7 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
                  sc=None, n_micro: Optional[int] = None,
                  attn_block: int = 1024, mesh=None, cfg=None,
                  opt_cfg=None, device=None,
-                 at_peak: Optional[Dict] = None) -> Dict:
+                 at_peak: Optional[Dict] = None, whole: bool = False) -> Dict:
     """One cell traced on ``mesh`` (default: the production mesh of
     ``multi_pod``, on ``device``; the caller's process group must be a
     started ``fake`` one of its size) under ``FakeTensorMode``: the
@@ -247,14 +393,19 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
     A step of more than 3 periods is traced at 2 and 3 of them, and a
     train step of more than 3 microbatches at 2 and 3 of them (at their
-    size), and every count is extrapolated to the whole step
+    size; ``whole``: the whole step, once), and every count is
+    extrapolated to the whole step
     (:func:`_extrapolated`; equal to the whole trace's counts,
     ``tests/test_torch_dryrun_extrapolate.py``): a whole trace runs every chunk
     of every state-space mixer in every layer and microbatch, one fake op
     at a time, hours for jamba's train step. ``lower_s`` is the cut
-    traces' seconds. ``at_peak``, a dict when given, gets each traced
-    point's largest storages live at its peak (:meth:`LiveBytes.
-    largest_at_peak`, ten a point), keyed "periods,microbatches"."""
+    traces' seconds. ``per_device_bytes`` is the largest phase peak,
+    each extrapolated on its own (:class:`_Phases`, :func:`_role`).
+    ``at_peak``, a dict when given, gets that phase's name under
+    ``phase``, every phase's peak under ``phases`` and, keyed
+    "periods,microbatches", each traced point's ten largest storages
+    live at the winning phase's peak (:meth:`LiveBytes.
+    largest_at_peak`)."""
     cfg = cfg or get_config(arch)
     shape = shape_name if isinstance(shape_name, ShapeCfg) \
         else LM_SHAPES[shape_name]
@@ -268,10 +419,10 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
         N = n_micro or S.pick_microbatches(cfg, shape, mesh)
     # from 2 on: at one period a cache stack's leading dim is 1, and an
     # SSM config's first period costs less than the next
-    ps = [2, 3] if P > 3 else [P]
+    ps = [2, 3] if P > 3 and not whole else [P]
     # a microbatch keeps its size (and its rows' split over the data
     # axes) at 2 and 3 of them
-    ns = [2, 3] if N > 3 \
+    ns = [2, 3] if N > 3 and not whole \
         and (shape.global_batch // N) % S.dp_size(mesh) == 0 else [N]
     points = [(p, n) for p in ps for n in ns]
     traces = {}
@@ -281,9 +432,12 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
         traces[p, n] = _trace(_cut(cfg, p), sub, mesh, dev, sc=sc,
                               n_micro=n if shape.kind == "train" else None,
                               attn_block=attn_block, opt_cfg=opt_cfg)
-        if at_peak is not None:
-            at_peak[f"{p},{n}"] = traces[p, n]["at_peak"][:10]
     got = _extrapolated(traces, P, N)
+    if at_peak is not None:
+        at_peak["phase"] = got["peak_phase"]
+        at_peak["phases"] = got["phases"]
+        for (p, n), t in traces.items():
+            at_peak[f"{p},{n}"] = t["phase_at_peak"][got["peak_phase"]]
 
     flops = float(got["flops"])
     bytes_accessed = float(got["dot_bytes"])
@@ -322,10 +476,11 @@ def analyze_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
 
 def _one_cell(arch: str, shape: str, multi_pod: bool,
-              device: str) -> Dict:
+              device: str, whole: bool = False) -> Dict:
     """One cell's result, or its error beside it, traced in this process
     under a fake group of its mesh's size; beside the reference's keys,
-    ``at_peak``: each traced point's largest storages at its peak."""
+    ``at_peak``: the phase that sets the peak, every phase's peak, and
+    each traced point's largest storages at the winning phase's peak."""
     meshname = "2x16x16" if multi_pod else "16x16"
     print(f"=== {arch} × {shape} × {meshname}", flush=True)
     try:
@@ -333,11 +488,12 @@ def _one_cell(arch: str, shape: str, multi_pod: bool,
             mesh = make_production_mesh(multi_pod=multi_pod, device=device)
             at_peak: Dict = {}
             r = analyze_cell(arch, shape, multi_pod=multi_pod, mesh=mesh,
-                             at_peak=at_peak)
+                             at_peak=at_peak, whole=whole)
             r["at_peak"] = at_peak
-        print(json.dumps({k: r[k] for k in (
+        print(json.dumps({**{k: r[k] for k in (
             "arch", "shape", "mesh", "per_device_bytes", "hlo_flops",
-            "collective_bytes", "bottleneck", "lower_s")}), flush=True)
+            "collective_bytes", "bottleneck", "lower_s")},
+            "peak_phase": at_peak["phase"]}), flush=True)
         return r
     except Exception as e:  # a failure here is a bug in the system
         traceback.print_exc()
@@ -354,6 +510,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="dryrun_results.json")
     ap.add_argument("--append", action="store_true")
+    ap.add_argument("--whole", action="store_true",
+                    help="trace each step whole, without extrapolating "
+                         "(the check of the fit; hours for jamba's train "
+                         "cells)")
     ap.add_argument("--device", default="cuda",
                     help="the fake tensors' device: cuda (default, the "
                          "flash ops by their formula) or cpu (their plain "
@@ -385,7 +545,7 @@ def main(argv=None):
     tasks = [(a, s, mp) for mp in meshes for a, s in cells
              if (a, s, "2x16x16" if mp else "16x16") not in done]
     for t in tasks:
-        results.append(_one_cell(*t, args.device))
+        results.append(_one_cell(*t, args.device, args.whole))
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
     n_err = sum(1 for r in results if "error" in r)

@@ -40,7 +40,7 @@ import contextlib
 import functools
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -187,24 +187,58 @@ class LiveBytes(TorchDispatchMode):
     the mode steps aside and sees the local ops, as :class:`CostMode`
     does. :meth:`track` counts tensors made before (the step's state and
     inputs; a DTensor by its local shard). :meth:`largest_at_peak` names
-    the storages live at the peak, largest first."""
+    the storages live at the peak.
+
+    Phases: :meth:`enter` opens a named phase (any hashable name), which
+    stays open until the next; ``phases`` holds each one's peak, the
+    most bytes live while it was open (the bytes it found live
+    included), so the largest of them is ``peak`` once a phase is open
+    from the start. ``on_op``, when set, is called before each op: a
+    caller that names phases by the autograd state reads it there."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
-        self._refs: Dict[int, weakref.ref] = {}
+        self.phase = None
+        self.phases: Dict = {}
+        self.on_op: Optional[Callable[[], None]] = None
+        self._refs: Dict[int, tuple] = {}     # key: (weak ref, entry)
         # every storage seen: [bytes, the op that made it, its shape,
-        # when it came, when it went (None: still live)], on a clock of
-        # arrivals; the peak's time on that clock
+        # when it came, when it went (None: still live), how many live
+        # storages hold it (itself, and a collective's waited result)],
+        # on a clock that ticks at each arrival and each free; the
+        # peak's time on that clock, and each phase's
         self._log: list = []
+        self._clock = 0
         self._peak_at = 0
+        self._phase_at: Dict = {}
         self._op = "track"
 
     def _free(self, key: int, entry: list) -> None:
-        if self._refs.pop(key, None) is not None:
+        if self._refs.pop(key, None) is None:
+            return
+        entry[5] -= 1
+        if entry[5] == 0:               # its last alias gone
             self.live -= entry[0]
-            entry[4] = len(self._log)
+            self._clock += 1
+            entry[4] = self._clock
+
+    def _hold(self, st, entry: list) -> None:
+        """Count ``entry`` live while the storage ``st`` lives too."""
+        key = st._cdata
+        entry[5] += 1
+        self._refs[key] = (weakref.ref(
+            st, lambda _, key=key, entry=entry: self._free(key, entry)),
+            entry)
+
+    def _mark(self) -> None:
+        if self.live > self.peak:
+            self.peak, self._peak_at = self.live, self._clock
+        if self.phase is not None \
+                and self.live > self.phases.get(self.phase, -1):
+            self.phases[self.phase] = self.live
+            self._phase_at[self.phase] = self._clock
 
     def _add(self, t) -> None:
         if not isinstance(t, torch.Tensor):
@@ -214,38 +248,53 @@ class LiveBytes(TorchDispatchMode):
         if t.device.type == "meta":     # shapes alone, no memory
             return
         st = t.untyped_storage()
-        key = st._cdata
-        if key in self._refs:
+        if st._cdata in self._refs:
             return
-        entry = [st.nbytes(), self._op, tuple(t.shape), len(self._log), None]
+        self._clock += 1
+        entry = [st.nbytes(), self._op, tuple(t.shape), self._clock, None, 0]
         self._log.append(entry)
-        self._refs[key] = weakref.ref(
-            st, lambda _, key=key, entry=entry: self._free(key, entry))
+        self._hold(st, entry)
         self.live += entry[0]
-        if self.live > self.peak:
-            self.peak, self._peak_at = self.live, len(self._log)
+        self._mark()
 
     def track(self, *trees) -> None:
         for t in tree_flatten(trees)[0]:
             self._add(t)
 
-    def largest_at_peak(self, k: Optional[int] = 10) -> list:
-        """The ``k`` (None: all) largest storages live at the peak:
-        (bytes, the op that made it or 'track', shape)."""
-        at = self._peak_at
-        live = [e for e in self._log[:at] if e[4] is None or e[4] >= at]
+    def enter(self, phase) -> None:
+        """Open ``phase`` (again, if it was open before): its peak counts
+        from the bytes live now."""
+        self.phase = phase
+        self._mark()
+
+    def largest_at_peak(self, k: Optional[int] = 10, phase=None) -> list:
+        """The ``k`` (None: all) largest storages live at the peak, or at
+        ``phase``'s peak: (bytes, the op that made it or 'track',
+        shape)."""
+        at = self._peak_at if phase is None else self._phase_at[phase]
+        live = [e for e in self._log
+                if e[3] <= at and (e[4] is None or e[4] > at)]
         live.sort(key=lambda e: -e[0])
         return [(e[0], e[1], e[2]) for e in live[:k]]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.on_op is not None:
+            self.on_op()
         if any(t.__name__ == "DTensor" for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if func is not torch.ops._c10d_functional.wait_tensor.default:
-            # (a collective's wait returns its input on the card)
-            self._op = str(func)
-            for t in tree_flatten(out)[0]:
-                self._add(t)
+        if func is torch.ops._c10d_functional.wait_tensor.default:
+            # a collective's wait returns its input on the card, where
+            # a fake one makes a new storage: the input's bytes stay live
+            # while either lives
+            got = self._refs.get(args[0].untyped_storage()._cdata)
+            st = out.untyped_storage()
+            if got is not None and st._cdata not in self._refs:
+                self._hold(st, got[1])
+            return out
+        self._op = str(func)
+        for t in tree_flatten(out)[0]:
+            self._add(t)
         return out
 
 

@@ -10,9 +10,19 @@ port's 4-rank gloo group (``rank``). Run as
 ``w/`` and the batch under ``b/``). ``ref`` imports JAX and the reference
 only; ``rank`` imports torch and the port only. Each writes its results
 beside the inputs.
+
+Both kinds run under ``faulthandler``: a process that a signal kills (a
+SIGSEGV) prints every thread's stack to the output that the test shows.
+With ``MESH_JOBS_DETERMINISTIC=1`` in the environment the ranks run
+under ``torch.use_deterministic_algorithms(True)``, which fills each
+``torch.empty`` with NaN (``torch.utils.deterministic.
+fill_uninitialized_memory``): a read of memory that no op wrote then
+fails in every run rather than in one of many.
 """
 import dataclasses
+import faulthandler
 import json
+import os
 import sys
 import time
 import traceback
@@ -490,11 +500,15 @@ def rank(job, r):
         compute_local_shape_and_global_offset as local_part
 
     torch.set_num_threads(1)
+    if os.environ.get("MESH_JOBS_DETERMINISTIC") == "1":
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = True
     work = Path(job["work"])
     dist.init_process_group("gloo", init_method=f"file://{work}/store",
                             rank=r, world_size=4)
     mesh = make_mesh_for(4, device="cpu", **MESH)
-    report = {"coord": mesh.get_coordinate(), "shards": {}, "ref": {}}
+    report = {"coord": mesh.get_coordinate(), "shards": {}, "ref": {},
+              "deterministic": torch.are_deterministic_algorithms_enabled()}
     arrays = {}
     t0 = time.perf_counter()
     for arch in job["ref_archs"]:
@@ -540,6 +554,7 @@ def rank(job, r):
 
 
 if __name__ == "__main__":
+    faulthandler.enable(all_threads=True)
     job = json.loads(Path(sys.argv[2]).read_text())
     try:
         if sys.argv[1] == "ref":

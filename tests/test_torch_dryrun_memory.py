@@ -64,6 +64,37 @@ def test_live_bytes_counts_a_storage_until_it_is_freed():
     del a, d
 
 
+def test_live_bytes_counts_a_waited_collective_until_it_is_freed():
+    """On the card a collective's wait returns its input; a fake one
+    makes a new storage. The result's bytes count once, while either
+    storage lives. Before, they went with the unwaited tensor, so a
+    reduce-scattered gradient or an all-gathered weight left the count
+    once waited on; and a view of the waited one counted them a second
+    time while the unwaited one lived (36,864 bytes here, not 20,480)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    c10d = torch.ops._c10d_functional
+    with dryrun.fake_group(4), FakeTensorMode():
+        group = dist.distributed_c10d._get_default_group().group_name
+        x = torch.ones(64, 16)                              # 4,096 bytes
+        mem = LiveBytes()
+        mem.track(x)
+        with mem:
+            y = c10d.all_gather_into_tensor(x, 4, group)    # 16,384
+            z = c10d.wait_tensor(y)
+            assert z.untyped_storage()._cdata != \
+                y.untyped_storage()._cdata
+            v = z.view(16, 256)
+            assert mem.live == 4096 + 16384
+            del y, v
+            assert mem.live == 4096 + 16384
+            w = z * 2                                       # 16,384
+            del z
+            assert (mem.live, mem.peak) == (4096 + 16384, 4096 + 32768)
+            del w
+        assert mem.live == 4096
+
+
 def _trace(arch: str, kind: str, pods: int):
     """``kind``'s step of the reduced config on a fake pods x 2 x 2
     mesh: ``dryrun._trace``'s counts."""

@@ -11,7 +11,11 @@ microbatches, for reduced qwen1.5-0.5b, whisper-medium, mixtral-8x7b
 (its experts over 'model'), rwkv6-7b (its heads over 'model') and
 granite-20b (4 query heads on one KV head: each 'model' rank its 2 query
 heads and the KV head they read) on the same numpy weights and batch
-(``test_torch_train_encdec``'s ``_weights`` and ``_batch``). Held:
+(``test_torch_train_encdec``'s ``_weights`` and ``_batch``), the same
+bits in every process (rwkv's hash-keyed matrices drawn from numpy).
+A failed comparison names its work directory, where the inputs, both
+sides' outputs and the job's hash seed stay; ``_torch_mesh_sweep.py``
+replays or repeats a run. Held:
 
 - the loss, the gradient norm, the rate and every leaf of the new
   parameters and both moments, at ``test_torch_train_encdec``'s step
@@ -41,6 +45,7 @@ heads and the KV head they read) on the same numpy weights and batch
   in DTensor, data-major in the reference (ROADMAP Queue 3), the values
   equal.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -90,6 +95,17 @@ def _batch(cfg, seed=1):
     return out
 
 
+def _inputs(arch):
+    """A config's weights (``_weights``, under ``w/`` by tree path) and
+    batch (under ``b/``), as the processes read them."""
+    rcfg, tcfg = _cfgs(arch)
+    flat = {"w/" + "/".join(str(getattr(k, "key", k)) for k in path):
+            np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(_weights(rcfg, 1))[0]}
+    flat.update({"b/" + k: v for k, v in _batch(tcfg).items()})
+    return flat
+
+
 def _env(extra=None):
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
@@ -99,24 +115,39 @@ def _env(extra=None):
     return env
 
 
+def _hash_seed():
+    """This process's ``PYTHONHASHSEED`` (None: drawn at start) and the
+    keys that the reference's rwkv init would take by ``hash(name) % 20``
+    here: what a failure needs to be replayed."""
+    return {"PYTHONHASHSEED": os.environ.get("PYTHONHASHSEED"),
+            "rwkv_keys": {n: hash(n) % 20
+                          for n in ("w_r", "w_k", "w_v", "w_g")}}
+
+
+@contextlib.contextmanager
+def _kept(work):
+    """An assertion that fails in here names the work directory, whose
+    npz files (inputs, the reference's and each rank's outputs) pytest
+    keeps for its last three runs."""
+    try:
+        yield
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n(inputs and outputs kept in {work}; "
+                             f"job.json has the hash seed)") from e
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Start the reference process and the 4 ranks, wait for all, and
     return the work directory and each rank's report."""
     work = tmp_path_factory.mktemp("mesh")
     for arch in REF_ARCHS:
-        rcfg, tcfg = _cfgs(arch)
-        tree = _weights(rcfg, 1)
-        flat = {"w/" + "/".join(str(getattr(k, "key", k)) for k in path):
-                np.asarray(v) for path, v in
-                jax.tree_util.tree_flatten_with_path(tree)[0]}
-        flat.update({"b/" + k: v for k, v in _batch(tcfg).items()})
-        np.savez(work / f"{arch}.npz", **flat)
+        np.savez(work / f"{arch}.npz", **_inputs(arch))
     job = {"work": str(work), "ref_archs": list(REF_ARCHS),
            "shape": list(SHAPE), "opt": OPT, "n_micro": N_MICRO,
            "attn_block": ATTN_BLOCK,
            "archs": all_arch_names() + list(jobs.VARIANTS),
-           "pod_arch": POD_ARCH}
+           "pod_arch": POD_ARCH, "hash_seed": _hash_seed()}
     (work / "job.json").write_text(json.dumps(job))
     script = str(ROOT / "tests" / "_torch_mesh_jobs.py")
     t0 = time.perf_counter()
@@ -139,7 +170,7 @@ def runs(tmp_path_factory):
                 p.kill()
                 p.wait()
     for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-4000:]
+        assert p.returncode == 0, f"{out[-4000:]}\n(work: {work})"
     reports = [json.loads((work / f"rank{r}.json").read_text())
                for r in range(4)]
     return work, reports
@@ -186,22 +217,25 @@ def test_the_sharded_step_matches_the_reference_s(runs, arch):
     devices: loss, gradient norm and rate, then both moments and every
     parameter (``_close_params``), whole."""
     work, reports = runs
-    rcfg, tcfg = _cfgs(arch)
-    want, meta = _ref_arrays(work, arch)
-    got_m = reports[0]["ref"][arch]
-    np.testing.assert_allclose(got_m["loss"], meta["metrics"]["loss"],
-                               rtol=1e-5)
-    np.testing.assert_allclose(got_m["grad_norm"],
-                               meta["metrics"]["grad_norm"], rtol=GRAD_RTOL)
-    assert got_m["lr"] == meta["metrics"]["lr"] > 0
-    arrays = _assemble(work, reports, arch)
-    _close_trees(_tree(tcfg, arrays, "mu"), want["mu"], GRAD_RTOL,
-                 GRAD_SCALE_TOL, "mu")
-    _close_trees(_tree(tcfg, arrays, "nu"), want["nu"], 2 * GRAD_RTOL,
-                 2 * GRAD_SCALE_TOL, "nu")
-    before = _weights(rcfg, 1)
-    _close_params(_tree(tcfg, arrays, "params"), want["params"], before,
-                  want["mu"], meta["metrics"]["lr"])
+    with _kept(work):
+        rcfg, tcfg = _cfgs(arch)
+        want, meta = _ref_arrays(work, arch)
+        got_m = reports[0]["ref"][arch]
+        np.testing.assert_allclose(got_m["loss"], meta["metrics"]["loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got_m["grad_norm"],
+                                   meta["metrics"]["grad_norm"],
+                                   rtol=GRAD_RTOL)
+        assert got_m["lr"] == meta["metrics"]["lr"] > 0
+        arrays = _assemble(work, reports, arch)
+        _close_trees(_tree(tcfg, arrays, "mu"), want["mu"], GRAD_RTOL,
+                     GRAD_SCALE_TOL, "mu")
+        _close_trees(_tree(tcfg, arrays, "nu"), want["nu"], 2 * GRAD_RTOL,
+                     2 * GRAD_SCALE_TOL, "nu")
+        with np.load(work / f"{arch}.npz") as f:
+            before = jobs._unflatten(dict(f), "w/")
+        _close_params(_tree(tcfg, arrays, "params"), want["params"], before,
+                      want["mu"], meta["metrics"]["lr"])
 
 
 def _ref_key(tcfg, key):
@@ -225,37 +259,38 @@ def test_each_rank_holds_the_reference_s_shard(runs, arch):
     per-layer leaf against its row of the stacked leaf: the reference's
     index minus its leading, whole, period dim), and holds its values."""
     work, reports = runs
-    _, tcfg = _cfgs(arch)
-    _, meta = _ref_arrays(work, arch)
-    with np.load(work / f"{arch}.ref.npz") as f:
-        refs = dict(f)
-    n = 0
-    for r, rep in enumerate(reports):
-        coord = ",".join(map(str, rep["coord"]))
-        with np.load(work / f"rank{r}.npz") as f:
-            for key, where in rep["shards"].items():
-                if not key.startswith(arch + ":"):
-                    continue
-                leaf = key[len(arch) + 1:]
-                rkey, row = _ref_key(tcfg, leaf)
-                index = meta["index"][rkey][coord]
-                if row is not None:
-                    assert index[0] == [0, tcfg.n_periods
-                                        if rkey.split("/")[1] == "blocks"
-                                        else tcfg.encoder_layers], rkey
-                    index = index[1:]
-                assert where == index, (key, coord, where, index)
-                ref = refs[rkey] if row is None else refs[rkey][row]
-                leaf_max = np.abs(ref).max()
-                ref = ref[tuple(slice(*w) for w in where)]
-                part = leaf.split("/")[0]
-                atol = {"mu": GRAD_SCALE_TOL * leaf_max,
-                        "nu": 2 * GRAD_SCALE_TOL * leaf_max}.get(
-                    part, 2 * meta["metrics"]["lr"] + 1e-4 * leaf_max)
-                assert np.abs(f[key] - ref).max() <= atol, (key, coord)
-                n += 1
-    assert n == 4 * sum(1 for k in reports[0]["shards"]
-                        if k.startswith(arch + ":"))
+    with _kept(work):
+        _, tcfg = _cfgs(arch)
+        _, meta = _ref_arrays(work, arch)
+        with np.load(work / f"{arch}.ref.npz") as f:
+            refs = dict(f)
+        n = 0
+        for r, rep in enumerate(reports):
+            coord = ",".join(map(str, rep["coord"]))
+            with np.load(work / f"rank{r}.npz") as f:
+                for key, where in rep["shards"].items():
+                    if not key.startswith(arch + ":"):
+                        continue
+                    leaf = key[len(arch) + 1:]
+                    rkey, row = _ref_key(tcfg, leaf)
+                    index = meta["index"][rkey][coord]
+                    if row is not None:
+                        assert index[0] == [0, tcfg.n_periods
+                                            if rkey.split("/")[1] == "blocks"
+                                            else tcfg.encoder_layers], rkey
+                        index = index[1:]
+                    assert where == index, (key, coord, where, index)
+                    ref = refs[rkey] if row is None else refs[rkey][row]
+                    leaf_max = np.abs(ref).max()
+                    ref = ref[tuple(slice(*w) for w in where)]
+                    part = leaf.split("/")[0]
+                    atol = {"mu": GRAD_SCALE_TOL * leaf_max,
+                            "nu": 2 * GRAD_SCALE_TOL * leaf_max}.get(
+                        part, 2 * meta["metrics"]["lr"] + 1e-4 * leaf_max)
+                    assert np.abs(f[key] - ref).max() <= atol, (key, coord)
+                    n += 1
+        assert n == 4 * sum(1 for k in reports[0]["shards"]
+                            if k.startswith(arch + ":"))
 
 
 def _one_device(runs, arch, pod=False):
@@ -412,6 +447,46 @@ def test_the_data_pod_chunk_order_departs_from_the_reference(runs):
         got[tuple(c["coord"][:2])] = c["chunk"]
     assert got == {(p, d): p * 2 + d for p in range(2) for d in range(2)}
     assert got[(0, 1)] != 1 * 2 + 0 and got[(1, 0)] != 0 * 2 + 1
+
+
+#: each reference config's inputs (``_inputs``) as a digest, and the keys
+#: that the reference's rwkv init takes in this process
+_INPUTS_DIGEST = """
+import hashlib, json
+import numpy as np
+from test_torch_sharded_step import REF_ARCHS, _hash_seed, _inputs
+out = {"keys": _hash_seed()["rwkv_keys"]}
+for arch in REF_ARCHS:
+    h = hashlib.sha256()
+    for k, v in sorted(_inputs(arch).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    out[arch] = h.hexdigest()
+print(json.dumps(out))
+"""
+
+
+def test_the_inputs_are_the_same_bits_in_every_process():
+    """The weights and batch that the module's processes read, built in
+    two processes under PYTHONHASHSEED 1 and 2: the same bits. The
+    reference's rwkv init takes w_r/w_k/w_v/w_g from ``ks[hash(name) %
+    20]``, keys 18/8/14/2 under 1 and 18/2/11/3 under 2 (ROADMAP Queue
+    3); ``test_torch_train_encdec._weights`` draws those four from numpy
+    at the reference's scale (``test_torch_hybrid._dehashed``). Before,
+    each run held the port at other weights, and a failure at them could
+    not be replayed."""
+    runs = []
+    for seed in ("1", "2"):
+        proc = subprocess.run([sys.executable, "-c", _INPUTS_DIGEST],
+                              env=_env({"PYTHONHASHSEED": seed}),
+                              capture_output=True, text=True, timeout=300,
+                              cwd=ROOT)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    one, two = runs
+    assert list(one.pop("keys").values()) == [18, 8, 14, 2]
+    assert list(two.pop("keys").values()) == [18, 2, 11, 3]
+    assert one == two and set(one) == set(REF_ARCHS)
 
 
 def test_the_mesh_wants_a_process_group_and_the_card():

@@ -67,6 +67,7 @@ from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.models.lm import LM, loss_fn
 from repro_torch.optim import AdamWCfg
 from test_torch_crossattn import _nudged
+from test_torch_hybrid import _dehashed
 from test_torch_train import (GRAD_RTOL, GRAD_SCALE_TOL, LOSS_RTOL,
                               TRAIN_RTOL, _t)
 
@@ -118,7 +119,11 @@ def _t_batch(batch):
 
 
 def _weights(rcfg, seed, unit_scores=True):
-    """The reference's float32 weights, nudged (``_nudged``), with every
+    """The reference's float32 weights, nudged (``_nudged``), rwkv's
+    w_r, w_k, w_v and w_g drawn from numpy at the reference's scale
+    (``test_torch_hybrid._dehashed``: the reference draws each from
+    ``ks[hash(name) % 20]``, and Python salts ``hash`` per process, ROADMAP
+    Queue 3; so the same bits in every process), with every
     query matrix (``wq``, the cross sublayer's ``xq``) scaled by P / d,
     P the stacked axis the reference draws it over (the periods, or the
     encoder's layers): the scores' standard deviation, d / P = 32 at the
@@ -132,8 +137,8 @@ def _weights(rcfg, seed, unit_scores=True):
     ``xq``; llama-vision 3.1e-4), where the reference against itself at
     other attention blocks reads 7e-5. With the queries scaled they agree
     within 4.6e-6 and 8.5e-6 (the reference against itself 1-2.5e-6)."""
-    tree = _nudged(jax.tree.map(
-        np.asarray, r_lm.init_params(rcfg, jax.random.PRNGKey(seed))))
+    tree = _nudged(jax.tree.map(np.asarray, _dehashed(
+        r_lm.init_params(rcfg, jax.random.PRNGKey(seed)), seed)))
     if unit_scores:
         for sp, n in [(sp, rcfg.n_periods) for sp in tree["blocks"].values()]\
                 + [(tree.get("encoder", {}), rcfg.encoder_layers)]:

@@ -64,7 +64,7 @@ from repro_torch.models.convert import (opt_state_from_numpy,
                                         stack_tree)
 from repro_torch.models.lm import LM, loss_fn
 from repro_torch.optim import AdamWCfg, OptState, init_opt_state
-from test_torch_hybrid import _nudged
+from test_torch_hybrid import _dehashed, _nudged
 from test_torch_ssm import HD, MAMBA, _mamba_params, _rwkv_params
 from test_torch_train import (GRAD_RTOL, GRAD_SCALE_TOL, LOSS_RTOL, OPT_RTOL,
                               TRAIN_RTOL, _leaves_equal, _shard_rows, _t)
@@ -459,8 +459,8 @@ def test_ssm_checkpoint_shards_equal_the_reference(monkeypatch, arch):
     monkeypatch.setattr(r_vcs_ckpt, "SHARD_BYTES", 4096)
     monkeypatch.setattr(vcs_ckpt, "SHARD_BYTES", 4096)
     rcfg, tcfg = _cfgs(arch, "bfloat16")
-    tree = jax.tree.map(np.asarray,
-                        r_lm.init_params(rcfg, jax.random.PRNGKey(3)))
+    tree = jax.tree.map(np.asarray, _dehashed(
+        r_lm.init_params(rcfg, jax.random.PRNGKey(3))))
     rng = np.random.default_rng(3)
     mu = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
         np.float32), tree)
